@@ -3,17 +3,20 @@
     python3 chip_smoke.py
 
 Needs one CUDA card (an H100); exits non-zero without one.  Phases, each
-printing one JSON line:
+printing JSON lines:
 
   env      card, power limit, torch / CUDA / nvcc versions
-  build    builds kernels B1-B3 from heavydb_tpu_torch/kernels/csrc into
+  build    builds kernels B1-B6 from heavydb_tpu_torch/kernels/csrc into
            build/kernels and runs the kernel gate
   kernels  each kernel against its plain PyTorch version at 100M rows and
-           the slot counts the main path gives it; times with CUDA events
+           the shapes the main path gives it; times with CUDA events
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
-           schema loaded on the device, seven SELECTs through db.sql(),
+           schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
-           must rise on this path
+           must rise on this path, each query on its own route
+  hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
+           key space: the radix tier flags the partition overflow and the
+           query reruns on the sort tier, still equal to numpy
 Then the kernel summary line, the card line, and the final
 {"ok": true, "device": ...} line.  Any failure exits non-zero.
 """
@@ -47,6 +50,12 @@ KERNELS = [
      "heavydb_tpu/kernels/radix_hist.py:198", 1000),
     ("groupby_minmax", "heavydb_tpu_torch/kernels/csrc/groupby_minmax.cu",
      "heavydb_tpu/kernels/groupby_pallas.py:302", 1000),
+    ("tile_sort", "heavydb_tpu_torch/kernels/csrc/tile_sort.cu",
+     "heavydb_tpu/kernels/tile_sort.py:141", "4 payloads"),
+    ("radix_partition", "heavydb_tpu_torch/kernels/csrc/radix_groupby.cu",
+     "heavydb_tpu/kernels/radix_groupby.py:425", "6 streams"),
+    ("radix_group", "heavydb_tpu_torch/kernels/csrc/radix_groupby.cu",
+     "heavydb_tpu/kernels/radix_groupby.py:657", "6 streams"),
 ]
 KERNEL_NAMES = tuple(k[0] for k in KERNELS)
 
@@ -97,6 +106,9 @@ def agree(got, want, tol=None) -> float:
 # ---------------------------------------------------------------------------
 # kernels phase
 # ---------------------------------------------------------------------------
+
+SPARSE_SLOTS = 10_000_000
+SORT_TILE = 4096
 
 
 def kernel_inputs(n: int, num_slots: int, gen):
@@ -197,6 +209,146 @@ def run_kernels(n: int, rate: float):
     return shapes
 
 
+def check_tile_sort(keys, pays, got, want_keys, T):
+    """Exact check of an unstable tile sort: keys equal the plain sort's,
+    payload 0 (each row's index in its tile) is a permutation of every tile
+    that carries each key with its row, the other payloads follow it."""
+    agree(got[0], want_keys)
+    if not pays:
+        return
+    idx = got[1].view(-1, T).long()
+    agree(torch.gather(keys.view(-1, T), 1, idx).reshape(-1), got[0])
+    agree(torch.sort(idx, dim=1).values,
+          torch.arange(T, device="cuda").expand_as(idx))
+    for p, o in zip(pays[1:], got[2:]):
+        agree(o, torch.gather(p.view(-1, T), 1, idx).reshape(-1))
+
+
+def sparse_streams(n, gen):
+    """gid over SPARSE_SLOTS and one stream of each class; the sumi stream
+    is the row number, so B5's output names each row's origin."""
+    gid = torch.randint(0, SPARSE_SLOTS, (n,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    cm = torch.rand(n, device="cuda", generator=gen) < 0.8
+    f = torch.where(cm, torch.rand(n, device="cuda", generator=gen), 0.0)
+    i = torch.randint(1, 10_001, (n,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    streams = [(cm, "count"),
+               (torch.arange(n, dtype=torch.int32, device="cuda"), "sumi"),
+               (f, "sumf"),
+               (torch.where(cm, torch.rand(n, device="cuda", generator=gen,
+                                           dtype=torch.float64), 0.0), "sumd"),
+               (torch.where(cm, i, 2**31 - 1), "min"),
+               (torch.where(cm, f, float("-inf")), "max")]
+    return gid, streams
+
+
+def stream_bytes(streams) -> int:
+    return sum(v.element_size() for v, _ in streams)
+
+
+def total_bytes(streams) -> int:
+    """Bytes per group of the per-group totals (radix_groupby contract)."""
+    return sum(4 if op in ("sumf", "min", "max") else 8 for _, op in streams)
+
+
+def run_sort_kernels(n: int, rate: float):
+    """B4, B5 and B6 against their plain versions at n rows."""
+    from heavydb_tpu_torch.exec.batch import bucket
+    from heavydb_tpu_torch.kernels import radix_groupby as RG, tile_sort as TS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 2)
+    shapes = []
+    T = SORT_TILE
+    nt = n // T * T
+    keys = torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    local = torch.arange(T, dtype=torch.int32, device="cuda").repeat(nt // T)
+    for n_pay in (0, 4):
+        pays = [local] + [torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
+                                        device="cuda", generator=gen)
+                          for _ in range(n_pay - 1)] if n_pay else []
+        got = TS.sort_tiles(keys, pays, T)
+        want = TS.sort_tiles_plain(keys, pays, T)
+        check_tile_sort(keys, pays, got, want[0], T)
+        del got, want
+        shapes.append(dict(
+            kernel="tile_sort", tag=f"{n_pay} payloads", rows=nt, tile=T,
+            max_abs_err=0.0,
+            ms=timed(lambda: TS.sort_tiles(keys, pays, T), 10),
+            plain_ms=timed(lambda: TS.sort_tiles_plain(keys, pays, T), 3),
+            library_ms=timed(lambda: torch.sort(keys.view(-1, T), dim=1), 10),
+            bound_ms=nt * 8 * (1 + n_pay) / rate * 1e3))
+        del pays
+    del keys, local
+    torch.cuda.empty_cache()
+
+    gid, streams = sparse_streams(n, gen)
+    pbits = RG.plan(n)
+    # B5 alone: each output row carries its origin in the sumi stream
+    hb, parts, counts, offsets = RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits)
+    phb, _, pcounts, poffsets = RG.radix_partition_plain(gid, streams,
+                                                         SPARSE_SLOTS, pbits)
+    agree(counts, pcounts)
+    agree(offsets, poffsets)
+    nv = int(counts.sum())
+    rows = parts[1][:nv].long()
+    agree(torch.sort(rows).values, torch.arange(n, device="cuda"))
+    h_of = (gid.long()[rows] * RG._MULT) & 0xFFFFFFFF
+    agree(hb[:nv], (h_of ^ 0x80000000).to(torch.int32))
+    region = torch.repeat_interleave(torch.arange(1 << pbits, device="cuda"), counts)
+    agree(h_of >> (32 - pbits), region)
+    for (v, _), o in zip(streams, parts):
+        agree(o[:nv], v[rows])
+    del phb, rows, h_of, region
+    part_bytes = n * (4 + stream_bytes(streams)) + nv * (4 + stream_bytes(streams))
+    shapes.append(dict(
+        kernel="radix_partition", tag="6 streams", rows=n, slots=SPARSE_SLOTS,
+        partitions=1 << pbits, max_abs_err=0.0,
+        ms=timed(lambda: RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits), 10),
+        plain_ms=timed(lambda: RG.radix_partition_plain(gid, streams, SPARSE_SLOTS,
+                                                         pbits), 3),
+        library_ms=None, bound_ms=part_bytes / rate * 1e3))
+
+    cap = bucket(SPARSE_SLOTS)
+    ops = [op for _, op in streams]
+    for tag, ss in (("counts only", []), ("6 streams", streams)):
+        got = RG.sparse_groupby(gid, ss, SPARSE_SLOTS, cap)
+        want = RG.sparse_groupby_plain(gid, ss, SPARSE_SLOTS, cap)
+        ng = int(got[3])
+        if int(got[4]) != 0 or ng != int(want[3]):
+            raise AssertionError(f"sparse_groupby: overflow {int(got[4])}, "
+                                 f"{ng} groups vs {int(want[3])}")
+        agree(got[0], want[0])
+        agree(got[1], want[1])
+        err = 0.0
+        for (_, op), g, w in zip(ss, got[2], want[2]):
+            err = max(err, agree(g, w, F32_TOL if op == "sumf" else
+                                 (F64_TOL if op == "sumd" else None)))
+        del got, want
+        out_bytes = ng * (4 + 8 + total_bytes(ss))
+        whole_ms = timed(lambda: RG.sparse_groupby(gid, ss, SPARSE_SLOTS, cap), 5)
+        plain_ms = timed(lambda: RG.sparse_groupby_plain(gid, ss, SPARSE_SLOTS, cap), 3)
+        hb, parts, counts, offsets = RG.radix_partition(gid, ss, SPARSE_SLOTS, pbits)
+        group_ms = timed(lambda: RG.radix_group(hb, parts, ops[:len(ss)], counts,
+                                                offsets, cap), 5)
+        library_ms = timed(lambda: torch.unique(gid, return_counts=True), 5) \
+            if not ss else None
+        shapes.append(dict(
+            kernel="radix_group", tag=tag, rows=n, slots=SPARSE_SLOTS,
+            groups=ng, cap=cap, max_abs_err=err, ms=group_ms, plain_ms=plain_ms,
+            library_ms=library_ms,
+            bound_ms=(nv * (4 + stream_bytes(ss)) + out_bytes) / rate * 1e3,
+            sparse_groupby_ms=whole_ms,
+            sparse_groupby_bound_ms=(n * (4 + stream_bytes(ss)) + out_bytes)
+            / rate * 1e3))
+        del hb, parts, counts, offsets
+    del gid, streams
+    torch.cuda.empty_cache()
+    return shapes
+
+
 # ---------------------------------------------------------------------------
 # end-to-end phase
 # ---------------------------------------------------------------------------
@@ -259,19 +411,76 @@ def expected(name, h):
     raise KeyError(name)
 
 
-# kernels each query's route must launch (ops/groupby.py routing); the
-# keyless count and the 100000-slot group-by take plain torch
+def expected_arrays(name, h):
+    """numpy answer of the sort- and radix-tier queries as (keys, columns),
+    keys ascending; the step-10000 keys are counted by bincount(k // 10000)."""
+    if name in ("BH002", "BH003"):
+        col = "x10k_s10k" if name == "BH002" else "x1m_s10k"
+        k = h[col] // 10_000
+        cnt = np.bincount(k)
+        live = np.nonzero(cnt)[0]
+        cols = [cnt[live]]
+        if name == "BH003":
+            s = np.bincount(k, weights=h["y100"].astype(np.float64))
+            cols.append(s[live].astype(np.int64))
+        return live * 10_000, cols
+    if name == "BH004":
+        cnt = np.bincount(h["x10m"])
+        live = np.nonzero(cnt)[0]
+        return live, [cnt[live]]
+    if name == "Q10M_AGGS":
+        ok = h["x10"] > 3
+        k = h["x10m"][ok].astype(np.int64)
+        cnt = np.bincount(k)
+        live = np.nonzero(cnt)[0]
+        s = np.bincount(k, weights=h["x100"][ok].astype(np.float64))
+        sv = np.bincount(k, weights=h["v"][ok].astype(np.float64))
+        mn = _reduce_at(np.minimum, k, h["x10k"][ok], cnt.shape[0],
+                        np.iinfo(np.int32).max)
+        mx = _reduce_at(np.maximum, k, h["v"][ok], cnt.shape[0], -np.inf)
+        return live, [cnt[live], s[live].astype(np.int64), sv[live], mn[live],
+                      mx[live]]
+    raise KeyError(name)
+
+
+# kernels each query's route must launch (ops/groupby.py and executor
+# routing); the keyless count, the 100000-slot group-by and the sort tier
+# (BH002, BH003) take plain torch.  tile_sort's network runs inside
+# radix_group; its own entry point is never on the main path.
 ROUTES = {
     "NGA03": set(), "PHM001": {"lane_agg"}, "Q100_MINMAX": {"lane_agg"},
     "PHS002": {"radix_hist"}, "Q1K_MINMAX": {"radix_hist", "groupby_minmax"},
-    "Q10K": {"radix_hist"}, "PHS003": set(),
+    "Q10K": {"radix_hist"}, "PHS003": set(), "BH002": set(), "BH003": set(),
+    "BH004": {"radix_partition", "radix_group"},
+    "Q10M_AGGS": {"radix_partition", "radix_group"},
 }
+# queries checked column by column as arrays (large results)
+ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
 
 # result columns of each query that are FLOAT sums (float32 tolerance)
-F32_RESULT_COLS = {"Q100_MINMAX": {2}, "Q10K": {2}}
+F32_RESULT_COLS = {"Q100_MINMAX": {2}, "Q10K": {2}, "Q10M_AGGS": {3}}
+
+
+def check_arrays(name, rs, h) -> int:
+    keys, want = expected_arrays(name, h)
+    got_keys = rs.column_raw(0)
+    order = np.argsort(got_keys, kind="stable")
+    if not np.array_equal(got_keys[order], keys):
+        raise AssertionError(f"{name}: {got_keys.shape[0]} keys, numpy has "
+                             f"{keys.shape[0]}, or they differ")
+    for j, w in enumerate(want):
+        col = j + 1
+        g = rs.column_raw(col)[order]
+        tol = F32_TOL if col in F32_RESULT_COLS.get(name, ()) else (
+            F64_TOL if w.dtype.kind == "f" and g.dtype == np.float64 else None)
+        agree(torch.from_numpy(np.ascontiguousarray(g)),
+              torch.from_numpy(np.ascontiguousarray(w.astype(g.dtype))), tol)
+    return keys.shape[0]
 
 
 def check_result(name, rs, h) -> int:
+    if name in ARRAY_CHECKED:
+        return check_arrays(name, rs, h)
     want = expected(name, h)
     n_keys = {"NGA03": 0, "PHM001": 2}.get(name, 1)
     cols = [rs.column(i) for i in range(rs.col_count)]
@@ -289,6 +498,14 @@ def check_result(name, rs, h) -> int:
             elif g != e:
                 raise AssertionError(f"{name}: {r} vs {w} (column {col})")
     return len(rows)
+
+
+def decode(rs):
+    """The result on the host: Python rows, or numpy columns for the
+    queries with millions of groups."""
+    if rs.row_count > 100_000:
+        return [rs.column_raw(i) for i in range(rs.col_count)]
+    return rs.rows()
 
 
 def run_e2e(n: int, card: str, counters):
@@ -313,7 +530,7 @@ def run_e2e(n: int, card: str, counters):
         before = launches()
         t0 = time.perf_counter()
         rs = db.sql(q)
-        rs.rows()
+        decode(rs)
         first_ms = (time.perf_counter() - t0) * 1e3
         nrows = check_result(name, rs, host)
 
@@ -329,7 +546,7 @@ def run_e2e(n: int, card: str, counters):
             reps.append((time.perf_counter() - t0) * 1e3)
         warm = statistics.median(reps)
         t0 = time.perf_counter()
-        db.sql(q).rows()
+        decode(db.sql(q))
         e2e_ms = (time.perf_counter() - t0) * 1e3
         delta = [a - b for a, b in zip(launches(), before)]
         for kname, d in zip(KERNEL_NAMES, delta):
@@ -343,7 +560,67 @@ def run_e2e(n: int, card: str, counters):
                         launches=dict(zip(KERNEL_NAMES, delta))))
     total = launches()
     return dict(rows=n, fragments=n_frags, make_and_load_s=make_and_load_s,
-                card=card, queries=out), total
+                card=card, queries=out), total, db
+
+
+HOT_ROWS = 4_000_000
+HOT_SLOTS = 1 << 22
+
+
+def run_hot_key(db, counters):
+    """A key holding 60 % of 4M rows in a 2^22 key space: the radix tier
+    must route it, flag the overflowing partition (bit 0) and rerun on the
+    sort tier, with the answer still equal to numpy's."""
+    from heavydb_tpu_torch.exec.executor import Executor
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 3)
+    k = torch.randint(0, HOT_SLOTS, (HOT_ROWS,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    k[torch.rand(HOT_ROWS, device="cuda", generator=gen) < 0.6] = 123_457
+    v = torch.randint(-100, 101, (HOT_ROWS,), dtype=torch.int32, device="cuda",
+                      generator=gen)
+    db.sql("CREATE TABLE hot (k INT, v INT)")
+    db.load_table_device("hot", {"k": k, "v": v})
+    hk, hv = k.cpu().numpy().astype(np.int64), v.cpu().numpy().astype(np.float64)
+    del k, v
+    steps = []
+    orig = Executor._postprocess
+
+    def spy(self, node, plan, outs):
+        if plan.group_strategy is not None:
+            steps.append(plan.group_strategy[0])
+        return orig(self, node, plan, outs)
+
+    before = [c.launches for c in counters]
+    Executor._postprocess = spy
+    try:
+        t0 = time.perf_counter()
+        rs = db.sql("SELECT k, COUNT(*), SUM(v) FROM hot GROUP BY k")
+        cols = [rs.column_raw(i) for i in range(3)]
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        Executor._postprocess = orig
+    launched = dict(zip(KERNEL_NAMES, [c.launches - b for c, b in
+                                       zip(counters, before)]))
+    # radix, then the sort tier (once more if the radix run's group count,
+    # which misses the overflowed partition, left the sort tier's cap short)
+    if steps[:2] != ["radix", "sort"] or set(steps[1:]) != {"sort"}:
+        raise AssertionError(f"hot key: strategies {steps}, expected radix "
+                             "then sort")
+    if not (launched["radix_partition"] and launched["radix_group"]):
+        raise AssertionError(f"hot key: the radix kernels did not run: {launched}")
+    cnt = np.bincount(hk, minlength=HOT_SLOTS)
+    live = np.nonzero(cnt)[0]
+    sums = np.bincount(hk, weights=hv, minlength=HOT_SLOTS)[live].astype(np.int64)
+    order = np.argsort(cols[0])
+    for g, w in ((cols[0][order], live), (cols[1][order], cnt[live]),
+                 (cols[2][order], sums)):
+        if not np.array_equal(g, w):
+            raise AssertionError("hot key: the result differs from numpy")
+    return dict(rows=HOT_ROWS, slots=HOT_SLOTS, hot_share=float(cnt.max() / HOT_ROWS),
+                groups=int(live.shape[0]), strategies=steps, ms=ms,
+                launches=launched)
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +629,8 @@ def run_e2e(n: int, card: str, counters):
 def main() -> None:
     card = smi()
     rate = mem_rate(card)
-    from heavydb_tpu_torch.kernels import _build, gate, groupby_minmax, lane_agg, radix_hist
+    from heavydb_tpu_torch.kernels import (_build, gate, groupby_minmax, lane_agg,
+                                           radix_groupby, radix_hist, tile_sort)
 
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -364,23 +642,33 @@ def main() -> None:
           "gate_s": time.perf_counter() - t0, "built": info["built"],
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln] for k, v in info["ptxas"].items()}})
-    shapes = run_kernels(ROWS, rate)
+    shapes = run_kernels(ROWS, rate) + run_sort_kernels(ROWS, rate)
     for s in shapes:
         emit({"phase": "kernels", **s})
     counters = [lane_agg.lane_agg, radix_hist.fused_hist,
-                groupby_minmax.minmax_per_slot]
-    e2e, total = run_e2e(ROWS, card, counters)
+                groupby_minmax.minmax_per_slot, tile_sort.sort_tiles,
+                radix_groupby.radix_partition, radix_groupby.radix_group]
+    e2e, total, db = run_e2e(ROWS, card, counters)
     emit({"phase": "e2e", **e2e})
-    if min(total) < 1:
-        raise AssertionError(f"a kernel never launched on the main path: {total}")
+    launched = dict(zip(KERNEL_NAMES, total))
+    # every kernel of the path ran; B4's network runs inside radix_group
+    if min(v for k, v in launched.items() if k != "tile_sort") < 1:
+        raise AssertionError(f"a kernel never launched on the main path: {launched}")
+    emit({"phase": "hot_key", **run_hot_key(db, counters)})
+    del db
     rows = []
-    for (name, src, replaces, slots), launched in zip(KERNELS, total):
-        s = next(x for x in shapes if x["kernel"] == name and x["slots"] == slots)
-        rows.append(dict(
+    for (name, src, replaces, tag), n_launched in zip(KERNELS, total):
+        s = next(x for x in shapes
+                 if x["kernel"] == name and x.get("tag", x.get("slots")) == tag)
+        row = dict(
             name=name, route="cuda", source=src, replaces=replaces,
-            launches=launched, max_abs_err=s["max_abs_err"], ms=s["ms"],
+            launches=n_launched, max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by="bytes",
-            library_ms=s.get("library_ms"), rows=ROWS, slots=slots))
+            library_ms=s.get("library_ms"), rows=s["rows"], shape=str(tag))
+        if name == "tile_sort":
+            row["runs_inside"] = {"kernel": "radix_group",
+                                  "launches": launched["radix_group"]}
+        rows.append(row)
     emit({"kernels": rows})
 
 

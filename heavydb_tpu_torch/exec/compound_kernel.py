@@ -1,16 +1,17 @@
 """Compound work-unit kernel builder.
 
 Port of heavydb_tpu/exec/compound_kernel.py for the paths of this slice:
-filter mask -> projection, or filter mask -> keyless / perfect-hash
-group-by with aggregates -> HAVING -> compaction.  The reference traces one
-closure per Compound into a single XLA program; torch runs the same closure
-eagerly, op by op, with the group-by aggregates in the hand-written kernels
-(ops/groupby.py).
+filter mask -> projection, or filter mask -> keyless / perfect-hash /
+radix / sort group-by with aggregates -> HAVING -> compaction.  The
+reference traces one closure per Compound into a single XLA program; torch
+runs the same closure eagerly, op by op, with the group-by aggregates in
+the hand-written kernels (ops/groupby.py, kernels/radix_groupby.py).
 
-The closure returns a dict with the output columns, the exact row count
-and the error flags, packed as control scalars into one int32 tensor
-('ctrl_vec') that the executor reads with a single host copy.  Joins and
-the hash, radix and sort group-by strategies raise NotSupported.
+The closure returns a dict with the output columns, the exact row count,
+the group count, the radix tier's overflow bits and the error flags,
+packed as control scalars into one int32 tensor ('ctrl_vec') that the
+executor reads with a single host copy.  Joins and the hash group-by
+strategy raise NotSupported.
 """
 
 from __future__ import annotations
@@ -21,7 +22,9 @@ import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import NotSupported
+from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
+from heavydb_tpu_torch.kernels import radix_groupby as RG
 from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.plan import exprs as E
@@ -41,7 +44,7 @@ def ctrl_keys(d) -> list:
     """Control scalars the executor reads after every kernel run, in
     deterministic order; they also ride packed in one int32 tensor
     ('ctrl_vec') so the host reads them with one copy."""
-    return sorted(k for k in d if k in ("n_out", "num_groups")
+    return sorted(k for k in d if k in ("n_out", "num_groups", "radix_overflow")
                   or k.startswith("err_"))
 
 
@@ -49,18 +52,6 @@ def derive_valid(arr, ti: T.TypeInfo):
     if arr.is_floating_point():
         return ~torch.isnan(arr)
     return arr != ti.null_sentinel()
-
-
-def _compact_perm(mask):
-    """Stable permutation putting mask=True rows first — prefix sum and
-    one scatter, no sort: out_position[i] = cumsum(mask)[i]-1 for kept rows."""
-    n = mask.shape[0]
-    rows = torch.arange(n, dtype=torch.int64, device=mask.device)
-    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
-    target = torch.where(mask, pos, n)  # dropped rows land past the end
-    perm = torch.zeros(n + 1, dtype=torch.int64, device=mask.device)
-    perm.scatter_(0, target, rows)
-    return perm[:n]
 
 
 def _broadcast(x, n: int):
@@ -73,7 +64,9 @@ def build_compound_kernel(node, batches, plan, device):
     from heavydb_tpu_torch.exec.executor import _KernelLayout
 
     strategy = plan.group_strategy
-    if node.is_aggregate and strategy[0] not in ("perfect", "keyless"):
+    cap = plan.group_cap
+    if node.is_aggregate and strategy[0] not in ("perfect", "keyless",
+                                                 "radix", "sort"):
         raise NotSupported(f"the {strategy[0]} group-by strategy")
 
     b0 = batches[0]
@@ -140,11 +133,11 @@ def build_compound_kernel(node, batches, plan, device):
                 out["cols"] = tuple(outs)
                 out["n_out"] = torch.tensor(nrows, dtype=torch.int32)
             else:
-                perm = _compact_perm(mask)
+                perm = G.compact_perm(mask)
                 out["cols"] = tuple(o[perm] for o in outs)
                 out["n_out"] = mask.sum().to(torch.int32)
         else:
-            out.update(_aggregate(node, strategy, mask, domain_compiler,
+            out.update(_aggregate(node, strategy, cap, mask, domain_compiler,
                                   merge_masked_flags, device))
 
         for name, flag in error_flags.items():
@@ -160,28 +153,42 @@ def build_compound_kernel(node, batches, plan, device):
     return kernel, layout
 
 
-def _aggregate(node, strategy, mask, domain_compiler, merge_masked_flags,
+def _slot_coords(slot_ids, ranges):
+    """Per-key coordinates of perfect slot ids (the inverse of
+    ops.groupby.perfect_group_ids)."""
+    rem = slot_ids
+    coords = []
+    for (mn, extent, has_nulls, bucket) in reversed(ranges):
+        span = extent + (1 if has_nulls else 0)
+        coords.append(rem % span)
+        rem = rem // span
+    coords.reverse()
+    return coords
+
+
+def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
                device) -> dict:
     n_keys = len(node.group_exprs)
     kc = domain_compiler(node.group_exprs + list(node.aggs))
     aflags: Dict[str, torch.Tensor] = {}
     kc.error_flags = aflags
-    if strategy[0] == "perfect":
+    kind = strategy[0]
+    lowered = [AGG.LoweredAgg(a) for a in node.aggs]
+    res: Dict[str, object] = {}
+    key_tvs = [kc.compile(g) for g in node.group_exprs]
+    key_tvs = [(_broadcast(v, kc.domain_size), m) for v, m in key_tvs]
+    agg_kc, agg_mask, segs, partials = kc, mask, None, None
+    if kind == "perfect":
         ranges = strategy[1]
-        key_tvs = [kc.compile(g) for g in node.group_exprs]
-        key_tvs = [(_broadcast(v, kc.domain_size), m) for v, m in key_tvs]
         gid, slots = G.perfect_group_ids(key_tvs, ranges, mask)
+        agg_gid = gid
+        num_groups = torch.tensor(slots, dtype=torch.int32)
         # positional key reconstruction: the slot id is an arithmetic code
         # of the key tuple, so slot -> key is arithmetic.  Only BUCKETED
         # keys (DATE_TRUNC ranges) need a min-scan to recover the value;
         # the NULL slot is a fixed coordinate either way.
-        rem = torch.arange(slots, dtype=torch.int64, device=device)
-        coords = []
-        for (mn, extent, has_nulls, bucket) in reversed(ranges):
-            span = extent + (1 if has_nulls else 0)
-            coords.append(rem % span)
-            rem = rem // span
-        coords.reverse()
+        coords = _slot_coords(torch.arange(slots, dtype=torch.int64,
+                                           device=device), ranges)
         key_out_tvs = []
         for (val, _), gexpr, rng, coord in zip(key_tvs, node.group_exprs,
                                                ranges, coords):
@@ -192,20 +199,88 @@ def _aggregate(node, strategy, mask, domain_compiler, merge_masked_flags,
             else:
                 kbuf = (coord + mn).to(dt)
             key_out_tvs.append((kbuf, (coord < extent) if has_nulls else None))
-    else:  # keyless
+    elif kind == "keyless":
         slots = 1
-        gid = torch.where(mask, 0, 1).to(torch.int32)
+        agg_gid = torch.where(mask, 0, 1).to(torch.int32)
+        num_groups = torch.tensor(1, dtype=torch.int32)
         key_out_tvs = []
+    elif kind == "radix":
+        # dense slot ids as for perfect hash -> radix partition + per
+        # partition sort and segmented reduce (kernels B5, B6), which
+        # return compacted per-group records in hash order
+        ranges = strategy[1]
+        slots = cap
+        gid, num_slots = G.perfect_group_ids(key_tvs, ranges, mask)
+        specs = RT.plan_aggs(node.aggs)
+        if specs is None:
+            raise RT.RadixUnsupported("aggregate set fell out of the stream "
+                                      "budget")
+        streams, jobs = RT.build_streams(lowered, specs, kc, mask)
+        gid_out, len_out, totals, num_groups, ovf = RG.sparse_groupby(
+            gid, streams, num_slots, slots)
+        res["radix_overflow"] = ovf
+        partials = RT.finalize_partials(jobs, len_out, totals)
+        # keys from the compacted slot ids: arithmetic (bucketed ranges
+        # stay off this tier)
+        coords = _slot_coords(gid_out.to(torch.int64), ranges)
+        key_out_tvs = []
+        for gexpr, (mn, extent, has_nulls, _), coord in zip(
+                node.group_exprs, ranges, coords):
+            dt = G.torch_dtype(gexpr.type.np_dtype())
+            key_out_tvs.append(((coord + mn).to(dt),
+                                (coord < extent) if has_nulls else None))
+    else:  # sort: aggregate over the sorted row domain
+        slots = cap
+        # aggregate arguments compile once in row order and ride the
+        # grouping permutation as payloads
+        seeds = {}
+        for a in node.aggs:
+            for e in (a.arg, a.arg2):
+                if e is not None and E.collect_input_refs(e) \
+                        and e.key() not in seeds:
+                    seeds[e.key()] = kc.compile(e)
+        payloads, layout = [], []
+        for ekey, (val, valid) in seeds.items():
+            payloads.append(_broadcast(val, kc.domain_size))
+            if valid is not None:
+                payloads.append(_broadcast(valid, kc.domain_size))
+            layout.append((ekey, valid is not None))
+        (agg_gid, s_rows, agg_mask, changed, num_groups, sorted_keys,
+         sorted_pl) = G.sort_group_rows(key_tvs, mask, slots, payloads,
+                                         need_rows=bool(payloads))
+        segs = G.SortedSegments(changed, agg_mask, num_groups, slots)
+        agg_kc = _SortedCompiler(kc, s_rows)
+        it = iter(sorted_pl)
+        for ekey, has_valid in layout:
+            agg_kc.memo[ekey] = (next(it), next(it) if has_valid else None)
+        # keys at group-start rows, deferred through the compaction
+        key_out_tvs = [
+            (segs.defer(sv),
+             segs.defer(svalid) if gexpr.type.nullable else None)
+            for (sv, svalid), gexpr in zip(sorted_keys, node.group_exprs)]
+    res["num_groups"] = num_groups
 
-    lowered = [AGG.LoweredAgg(a) for a in node.aggs]
-    all_partials, present_counts = AGG.accumulate_all(
-        lowered, kc, gid, mask, slots, want_present=strategy[0] == "perfect")
+    present_counts = None
+    if partials is None:
+        partials, present_counts = AGG.accumulate_all(
+            lowered, agg_kc, agg_gid, agg_mask, slots,
+            want_present=kind == "perfect", segs=segs)
+    if segs is not None:
+        # one compaction materializes every deferred per-group array
+        segs.flush()
+        partials = [{k: segs.resolve(v) for k, v in p.items()}
+                    for p in partials]
+        key_out_tvs = [(segs.resolve(a), segs.resolve(b) if b is not None
+                        else None) for a, b in key_out_tvs]
     merge_masked_flags(aflags, mask)
-    agg_tvs = [la.finalize(p) for la, p in zip(lowered, all_partials)]
-    if strategy[0] == "perfect":
+    agg_tvs = [la.finalize(p) for la, p in zip(lowered, partials)]
+    if kind == "perfect":
         present = present_counts > 0
-    else:
+    elif kind == "keyless":
         present = torch.ones(1, dtype=torch.bool, device=device)
+    else:  # sort / radix: compacted, dense by construction
+        present = torch.arange(slots, device=device) < torch.clamp(
+            num_groups, max=slots)
 
     # group-domain compiler: fields = keys ++ agg results
     gcols = dict(enumerate(key_out_tvs))
@@ -223,12 +298,51 @@ def _aggregate(node, strategy, mask, domain_compiler, merge_masked_flags,
             valid = _broadcast(valid, slots)
         outs.append(_sentinelize(val, valid, ti))
     merge_masked_flags(gflags, present)
-    res: Dict[str, object] = {"num_groups": torch.tensor(slots, dtype=torch.int32)}
-    if strategy[0] == "keyless":
+    if kind == "keyless":
         res["cols"] = tuple(outs)
         res["n_out"] = torch.tensor(1, dtype=torch.int32)
+    elif kind in ("sort", "radix") and node.having is None:
+        # groups 0 .. num_groups-1 already: no compaction
+        res["cols"] = tuple(outs)
+        res["n_out"] = torch.clamp(num_groups, max=slots)
     else:
-        perm = _compact_perm(present)
+        perm = G.compact_perm(present)
         res["cols"] = tuple(o[perm] for o in outs)
         res["n_out"] = present.sum().to(torch.int32)
     return res
+
+
+class _SortedCompiler:
+    """Row-domain ExprCompiler seen through the sort permutation:
+    expressions compile in original row order (error flags stay in the
+    row domain) and their results gather into the sorted row domain for
+    the sorted-segment aggregation (ops.groupby.SortedSegments).  `memo`
+    holds the aggregate arguments that rode the sort as payloads."""
+
+    def __init__(self, base, s_rows):
+        self._base = base
+        self._rows = s_rows
+        self.memo = {}
+
+    def __getattr__(self, name):
+        return getattr(self._base, name)
+
+    def _gather(self, a):
+        if a is None or not torch.is_tensor(a) or a.dim() == 0 \
+                or a.shape[0] != self._rows.shape[0]:
+            return a
+        return a[self._rows]
+
+    def compile(self, e):
+        key = e.key()
+        hit = self.memo.get(key)
+        if hit is None:
+            val, valid = self._base.compile(e)
+            hit = (self._gather(val), self._gather(valid))
+            self.memo[key] = hit
+        return hit
+
+    def compile_predicate(self, e):
+        val, valid = self.compile(e)
+        val = torch.as_tensor(val).to(torch.bool)
+        return val if valid is None else val & valid

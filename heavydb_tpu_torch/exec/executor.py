@@ -3,15 +3,15 @@ work unit through one compound kernel (exec/compound_kernel.py).
 
 Port of heavydb_tpu/exec/executor.py for this slice: `execute`, `_exec`,
 the scan over the table's fragments (with chunk-stat fragment skipping),
-`_exec_compound`, `_run_compound` (one run: no strategy of this slice
-can miss its output capacity, so there is no retry ladder), the keyless and
-perfect-hash strategy choice, the kernel cache and `_postprocess`.  Torch
-runs eagerly, so there is no jit and no artifact cache; the control
-scalars of each Compound run still reach the host in one read.
+`_exec_compound`, `_run_compound` with the capacity-retry ladder, the
+group-by strategy choice (keyless, perfect hash, radix, sort), the kernel
+cache and `_postprocess`.  Torch runs eagerly, so there is no jit and no
+artifact cache; the control scalars of each Compound run still reach the
+host in one read.
 
 Every tensor lives on the executor's one explicit device.  Sort, Window,
-Union, Unnest, joins, subqueries and the hash/sort/radix group-by tiers
-raise NotSupported.
+Union, Unnest, joins, subqueries and the hash group-by tier raise
+NotSupported.
 """
 
 from __future__ import annotations
@@ -23,14 +23,19 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch import types as T
-from heavydb_tpu_torch.errors import DivisionByZero, NotSupported
+from heavydb_tpu_torch.errors import DivisionByZero, ExecutionError, NotSupported
 from heavydb_tpu_torch.exec import batch as B
+from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec import ranges as RNG
 from heavydb_tpu_torch.exec.compound_kernel import build_compound_kernel, ctrl_keys
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
 from heavydb_tpu_torch.utils.timer import NullTimer
+
+# capacity retries of one Compound: a sort-tier or radix cap miss converges
+# in one retry (num_groups is exact), a radix hard overflow takes one more
+MAX_RETRIES = 4
 
 def _iter_node_exprs(node: R.RelNode):
     if isinstance(node, R.Compound):
@@ -197,12 +202,23 @@ class Executor:
         return B.Batch(cols, inp.nrows, list(node.types))
 
     def _run_compound(self, node: R.Compound, batches, plan) -> B.Batch:
-        # one run: the keyless and perfect strategies size their output
-        # exactly, so the reference's capacity-retry ladder has nothing to
-        # retry until a strategy that can miss capacity is ported
-        kernel, layout = self._get_kernel(node, batches, plan)
-        outs = kernel(*self._kernel_args(batches, plan, layout))
-        return self._postprocess(node, plan, outs)
+        # retry ladder: _postprocess returns None after updating the plan
+        # when the run missed its output capacity or must change tier
+        for _ in range(MAX_RETRIES + 1):
+            kernel, layout = self._get_kernel(node, batches, plan)
+            try:
+                outs = kernel(*self._kernel_args(batches, plan, layout))
+            except RT.RadixUnsupported:
+                # the compiled aggregate shape diverged from the radix
+                # tier's static stream plan: reroute to the sort tier
+                if plan.group_strategy[0] != "radix":
+                    raise
+                plan.group_strategy = ("sort", None)
+                continue
+            result = self._postprocess(node, plan, outs)
+            if result is not None:
+                return result
+        raise ExecutionError("capacity retry ladder did not converge")
 
     def _stream_plan(self, node: R.Compound):
         """Fragment-wave streaming is not ported yet: every Compound runs
@@ -301,16 +317,27 @@ class Executor:
                 if slots > cfg.baseline_groupby_threshold:
                     ok = False
                     break
-            if not ok:
-                raise NotSupported("group-by keys without a dense range "
-                                   "(the hash and sort strategies)")
-            if slots > cfg.sortagg_min_slots:
-                raise NotSupported("group-by over more than "
-                                   f"{cfg.sortagg_min_slots} slots (the radix "
-                                   "and sort strategies)")
-            plan.group_strategy = ("perfect", tuple(
-                (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
-            plan.group_cap = slots
+            padded = max(batches[0].padded, 8)
+            if ok and slots > cfg.sortagg_min_slots:
+                # huge dense key spaces: the radix tier when the aggregates
+                # fit its stream budget, else the sort tier; neither
+                # allocates [slots]-sized buffers
+                if RT.eligible(node, ranges, slots, cfg):
+                    plan.group_strategy = ("radix", tuple(
+                        (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
+                else:
+                    plan.group_strategy = ("sort", None)
+                plan.group_cap = B.bucket(min(slots, padded))
+            elif ok:
+                plan.group_strategy = ("perfect", tuple(
+                    (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
+                plan.group_cap = slots
+            elif cfg.enable_hash_groupby:
+                raise NotSupported("hash group-by")
+            else:
+                plan.group_strategy = ("sort", None)
+                plan.group_cap = B.bucket(
+                    min(cfg.baseline_groupby_initial_entries, padded))
         elif node.is_aggregate:
             plan.group_strategy = ("keyless", None)
             plan.group_cap = 1
@@ -349,6 +376,25 @@ class Executor:
         host = dict(zip(ctrl_keys(d), d["ctrl_vec"].tolist()))
         if host.get("err_div_by_zero"):
             raise DivisionByZero("division by zero")
+        strategy = plan.group_strategy[0] if plan.group_strategy else None
+        if strategy == "sort":
+            ng = int(host["num_groups"])
+            if ng > plan.group_cap:
+                plan.group_cap = B.bucket(ng)
+                return None
+        if strategy == "radix":
+            ng = int(host["num_groups"])
+            ovf = int(host["radix_overflow"])
+            if ovf & 1:
+                # a partition held more rows than the group kernel's tile:
+                # the results are invalid; rerun on the sort tier
+                plan.group_strategy = ("sort", None)
+                plan.group_cap = B.bucket(max(ng, 8))
+                return None
+            if ovf & 2 or ng > plan.group_cap:
+                # output cap exceeded; num_groups is exact: one retry
+                plan.group_cap = B.bucket(ng)
+                return None
         n_out = int(host["n_out"])
         cols = list(d["cols"])
         size = B.bucket(n_out)
@@ -364,7 +410,8 @@ class Executor:
 
 @dataclasses.dataclass
 class _CompoundPlan:
-    # ("perfect", ((min, extent, has_nulls, bucket), ...)) | ("keyless", None)
+    # ("perfect" | "radix", ((min, extent, has_nulls, bucket), ...)) |
+    # ("sort", None) | ("keyless", None)
     group_strategy: Optional[tuple] = None
     group_cap: int = 0
 

@@ -16,6 +16,7 @@ import shutil
 import subprocess
 import threading
 import time
+import types
 from typing import Dict
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,8 +29,10 @@ SOURCES = {
     "lane_agg": "lane_agg.cu",
     "radix_hist": "radix_hist.cu",
     "groupby_minmax": "groupby_minmax.cu",
+    "tile_sort": "tile_sort.cu",
+    "radix_groupby": "radix_groupby.cu",
 }
-_HEADERS = ("agg_common.cuh",)
+_HEADERS = ("agg_common.cuh", "tile_sort.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -125,9 +128,23 @@ def _bind(lib: ctypes.CDLL, name: str):
     elif name == "radix_hist":
         fn = lib.hdb_radix_hist
         fn.argtypes = [p, p, ll, i, ctypes.POINTER(StreamSet), p, i, i, p]
-    else:
+    elif name == "groupby_minmax":
         fn = lib.hdb_minmax
         fn.argtypes = [p, p, p, i, ll, i, i, p, i, i, p]
+    elif name == "tile_sort":
+        fn = lib.hdb_sort_tiles
+        fn.argtypes = [p, p, p, ll, i, p]
+    else:
+        part = lib.hdb_radix_partition
+        part.argtypes = [p, ll, i, i, p, p, p, ctypes.POINTER(StreamSet), i, i,
+                         i, p]
+        part.restype = ctypes.c_int
+        group = lib.hdb_radix_group
+        group.argtypes = [p, ctypes.POINTER(StreamSet),
+                          ctypes.POINTER(StreamSet), p, p, i, i, p, p, p, p, p,
+                          ll, p, p, i, p]
+        group.restype = ctypes.c_int
+        return types.SimpleNamespace(partition=part, group=group)
     fn.restype = ctypes.c_int
     return fn
 

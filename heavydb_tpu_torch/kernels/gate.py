@@ -2,7 +2,7 @@
 
 Counterpart of heavydb_tpu/ops/groupby.py `_pallas_probe_locked`, the
 one-block compile-and-run probe that gates the TPU's Pallas tiers.  Here
-the gate builds kernels B1-B3 from csrc/, launches each on a small input
+the gate builds kernels B1-B6 from csrc/, launches each on a small input
 and holds it against its plain version.  On CUDA it raises on any failure;
 it never reports the kernels as unavailable.  Its launches do not count in
 the wrappers' launch counters.
@@ -16,7 +16,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from heavydb_tpu_torch.kernels import _build, _plain, groupby_minmax
+from heavydb_tpu_torch.kernels import _build, _plain, groupby_minmax, radix_groupby, tile_sort
 
 _LOCK = threading.Lock()
 _PASSED: Dict[str, dict] = {}
@@ -44,8 +44,34 @@ def _same(a, b, what: str):
                            "version")
 
 
+def _check_sorts(device):
+    """B4 on distinct keys (so payloads compare exactly) and B5 + B6 over
+    four partitions with every stream class."""
+    rng = np.random.default_rng(4)
+    n = 4096
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    key = t(rng.permutation(n).astype(np.int32) - 2000)
+    pay = [t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)),
+           t(rng.standard_normal(n).astype(np.float32))]
+    for got, want in zip(tile_sort.sort_tiles(key, pay, 1024),
+                         tile_sort.sort_tiles_plain(key, pay, 1024)):
+        _same(got, want, "tile_sort")
+    n = 1 << 14
+    gid, mask, cm, f, i32, i64 = _inputs(device, n, 3000, 5)
+    gid = torch.where(mask, gid, -1)
+    streams = [(cm, "count"), (i64, "sumi"), (f, "sumf"), (f, "sumd"),
+               (torch.where(cm, f, float("inf")), "min"),
+               (torch.where(cm, i32, -2**31), "max")]
+    for cap in (4096, 100):
+        got = radix_groupby.sparse_groupby(gid, streams, 3000, cap)
+        want = radix_groupby.sparse_groupby_plain(gid, streams, 3000, cap)
+        for j, (a, b) in enumerate(zip(got[:2] + tuple(got[2]) + got[3:],
+                                       want[:2] + tuple(want[2]) + want[3:])):
+            _same(a, b.to(a.dtype), f"sparse_groupby cap={cap}, output {j}")
+
+
 def kernel_gate(device) -> dict:
-    """Build and check B1-B3 on `device` once per process.  Returns the
+    """Build and check B1-B6 on `device` once per process.  Returns the
     build record (seconds, nvcc version, ptxas report)."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -79,6 +105,12 @@ def kernel_gate(device) -> dict:
                 want = groupby_minmax.minmax_per_slot_plain(
                     gid, vals, mask, 3000, is_min)
                 _same(got, want, f"groupby_minmax {vals.dtype} is_min={is_min}")
+        counters = (tile_sort.sort_tiles, radix_groupby.radix_partition,
+                    radix_groupby.radix_group)
+        before = [c.launches for c in counters]
+        _check_sorts(device)
+        for c, b in zip(counters, before):
+            c.launches = b
         torch.cuda.synchronize(device)
         _PASSED[key] = info
         return info

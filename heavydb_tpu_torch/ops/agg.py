@@ -89,23 +89,27 @@ def _keyless_fused(lowered, compiler, mask):
 
 
 def accumulate_all(lowered, compiler, gid, mask, num_slots: int,
-                   want_present: bool = False):
+                   want_present: bool = False, segs=None):
     """Partials for ALL aggregates of one group-by.  Between 2 and 65536
     slots every count/sum-style partial becomes one stream of a SINGLE
     kernel pass (kernels/lane_agg or kernels/radix_hist); per-aggregate
     filters fold into the streams (count_i = sum mask_i, sum_i =
     sum value*mask_i).  Other kinds accumulate per aggregate.
 
+    `segs` swaps the segment reductions: a groupby.SortedSegments (the sort
+    tier) aggregates a sorted row domain per aggregate instead.
+
     Returns (partials, present_counts): with want_present, the per-slot row
     count under the plain mask (the fused pass's base counts)."""
     A = E.AggKind
-    if num_slots == 1 and not want_present:
+    if num_slots == 1 and not want_present and segs is None:
         # keyless only: a 1-slot PERFECT group-by still needs presence
         fused = _keyless_fused(lowered, compiler, mask)
         if fused is not None:
             return fused, None
-    if not 1 < num_slots <= G.SHARED_SCAN_MAX_SLOTS:
-        parts = [la.accumulate(compiler, gid, mask, num_slots)
+    if segs is not None or not 1 < num_slots <= G.SHARED_SCAN_MAX_SLOTS:
+        segs = segs if segs is not None else G
+        parts = [la.accumulate(compiler, gid, mask, num_slots, segs=segs)
                  for la in lowered]
         pres = None
         if want_present:
@@ -117,7 +121,7 @@ def accumulate_all(lowered, compiler, gid, mask, num_slots: int,
                     pres = p["count"]
                     break
             if pres is None:
-                pres = G.segment_count(gid, mask, num_slots)
+                pres = segs.segment_count(gid, mask, num_slots)
         return parts, pres
 
     streams = []  # (values, op)
@@ -174,7 +178,12 @@ class LoweredAgg:
         self.agg = agg
         self.kind = agg.kind
 
-    def accumulate(self, compiler, gid, mask, num_slots: int) -> Dict[str, object]:
+    def accumulate(self, compiler, gid, mask, num_slots: int,
+                   segs=None) -> Dict[str, object]:
+        """Partials of this aggregate; `segs` swaps the segment reductions
+        (None: this module's G, else a groupby.SortedSegments)."""
+        if segs is None:
+            segs = G
         k = self.kind
         A = E.AggKind
         if self.agg.distinct:
@@ -187,19 +196,19 @@ class LoweredAgg:
         if cm is None:
             cm = torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
         if k in (A.COUNT, A.COUNT_IF):
-            return {"count": G.segment_count(gid, cm, num_slots)}
+            return {"count": segs.segment_count(gid, cm, num_slots)}
         val = _full_like_rows(compiler, arg_tv[0])
         if k in (A.SUM, A.SUM_IF, A.AVG):
             return {
-                "sum": G.segment_sum(gid, val, cm, num_slots, self._acc_dtype()),
-                "count": G.segment_count(gid, cm, num_slots),
+                "sum": segs.segment_sum(gid, val, cm, num_slots, self._acc_dtype()),
+                "count": segs.segment_count(gid, cm, num_slots),
             }
         if k in (A.MIN, A.MAX, A.SAMPLE, A.SINGLE_VALUE):
             is_min = k == A.MIN
             return {
                 "min" if is_min else "max":
-                    G.segment_minmax(gid, val, cm, num_slots, is_min),
-                "count": G.segment_count(gid, cm, num_slots),
+                    segs.segment_minmax(gid, val, cm, num_slots, is_min),
+                "count": segs.segment_count(gid, cm, num_slots),
             }
         # STDDEV / VARIANCE
         fval = val.to(torch.float64)
@@ -207,9 +216,9 @@ class LoweredAgg:
             fval = fval / (10**self.agg.arg.type.scale)
         f64 = np.dtype(np.float64)
         return {
-            "sum": G.segment_sum(gid, fval, cm, num_slots, f64),
-            "sumsq": G.segment_sum(gid, fval * fval, cm, num_slots, f64),
-            "count": G.segment_count(gid, cm, num_slots),
+            "sum": segs.segment_sum(gid, fval, cm, num_slots, f64),
+            "sumsq": segs.segment_sum(gid, fval * fval, cm, num_slots, f64),
+            "count": segs.segment_count(gid, cm, num_slots),
         }
 
     def _acc_dtype(self):

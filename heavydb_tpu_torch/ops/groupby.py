@@ -1,8 +1,10 @@
-"""Group-by building blocks for the perfect-hash and keyless strategies.
+"""Group-by building blocks for the keyless, perfect-hash and sort
+strategies.
 
 Port of heavydb_tpu/ops/groupby.py: `perfect_group_ids`, the segment
-reductions `segment_count` / `segment_sum` / `segment_minmax`, and
-`_shared_scan`, the dispatcher to the group-by kernels.  The routing is the
+reductions `segment_count` / `segment_sum` / `segment_minmax`,
+`_shared_scan`, the dispatcher to the group-by kernels, and the sort tier
+(`sort_group_rows`, `SortedSegments`).  The routing is the
 reference's TPU routing, with "the Pallas kernels are available" read as
 "the tensors are on CUDA"; the same routing runs on the CPU, where every
 kernel wrapper takes its plain version:
@@ -23,6 +25,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from heavydb_tpu_torch.errors import NotSupported
 from heavydb_tpu_torch.kernels import _plain, groupby_minmax, lane_agg, radix_hist
 
 TV = Tuple[object, Optional[object]]
@@ -160,3 +163,227 @@ def segment_minmax(gid, values, contrib_mask, num_slots: int, is_min: bool):
             ).to(v.dtype)
     idx = _plain.slot_index(g32, cm, num_slots)
     return _plain.scatter_minmax(idx, w, num_slots, is_min).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the sort tier
+# ---------------------------------------------------------------------------
+
+
+def compact_perm(mask):
+    """Stable permutation putting mask=True rows first: prefix sum and one
+    scatter, no sort (out_position[i] = cumsum(mask)[i] - 1 for kept
+    rows)."""
+    n = mask.shape[0]
+    rows = torch.arange(n, dtype=torch.int64, device=mask.device)
+    pos = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    target = torch.where(mask, pos, n)  # dropped rows land past the end
+    perm = torch.zeros(n + 1, dtype=torch.int64, device=mask.device)
+    perm.scatter_(0, target, rows)
+    return perm[:n]
+
+
+def _canonical_key(val, valid):
+    """(null_flag int8, canonical value) sort operands of one key column:
+    NaN and -0.0 become 0 so they cannot split a group, NULL rows get their
+    own flag (and value 0), booleans sort as int8."""
+    v = torch.as_tensor(val)
+    if v.dtype == torch.bool:
+        v = v.to(torch.int8)
+    if v.is_floating_point():
+        v = torch.where(torch.isnan(v) | (v == 0), torch.zeros((), dtype=v.dtype,
+                                                               device=v.device), v)
+    if valid is None:
+        return None, v
+    nullf = (~valid).to(torch.int8)
+    return nullf, torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                                    device=v.device))
+
+
+def _lex_sort_perm(operands):
+    """Permutation that sorts rows lexicographically by `operands` (most
+    significant first), stably: one stable torch.sort pass per operand,
+    least significant first."""
+    n = operands[0].shape[0]
+    perm = torch.arange(n, dtype=torch.int64, device=operands[0].device)
+    for op in reversed(operands):
+        _, p = torch.sort(op[perm], stable=True)
+        perm = perm[p]
+    return perm
+
+
+def sort_group_rows(key_tvs: Sequence[TV], mask, cap: int, payloads=(),
+                    need_rows: bool = True):
+    """Sort-based grouping that keeps the sorted row domain; payload row
+    arrays (aggregate arguments and validities) ride the same permutation.
+    Rows outside `mask` sort last.
+
+    Returns (sgid, s_rows, s_domain, changed, num_groups, sorted_keys,
+    sorted_payloads):
+      sgid[N] int64        contiguous group id per sorted row (cap for
+                           rows out of the domain or past cap)
+      s_rows[N] int64      original row of each sorted position
+      s_domain[N] bool     in-domain rows (sorted first)
+      changed[N] bool      first sorted row of each group
+      num_groups           0-d tensor, exact even above cap
+      sorted_keys          per key (canonical value, valid) in sorted order
+      sorted_payloads      the payloads in sorted order
+    """
+    n = torch.as_tensor(key_tvs[0][0]).shape[0]
+    operands = []
+    dom_idx = None
+    if mask is not None:
+        dom_idx = len(operands)
+        operands.append((~mask).to(torch.int8))
+    key_ops = []  # (null operand index or None, value operand index)
+    for val, valid in key_tvs:
+        nullf, v = _canonical_key(val, valid)
+        ni = None
+        if nullf is not None:
+            ni = len(operands)
+            operands.append(nullf)
+        key_ops.append((ni, len(operands)))
+        operands.append(v)
+    perm = _lex_sort_perm(operands)
+    sorted_ops = [o[perm] for o in operands]
+    device = perm.device
+    s_domain = (sorted_ops[dom_idx] == 0) if dom_idx is not None \
+        else torch.ones(n, dtype=torch.bool, device=device)
+    s_rows = perm if need_rows else torch.arange(n, device=device)
+    sorted_pl = [torch.as_tensor(p)[perm] for p in payloads]
+    changed = torch.zeros(n, dtype=torch.bool, device=device)
+    changed[:1] = True
+    for opnd in sorted_ops[1 if dom_idx is not None else 0:]:
+        changed[1:] |= opnd[1:] != opnd[:-1]
+    changed &= s_domain
+    sgid = torch.cumsum(changed, 0) - 1
+    num_groups = changed.sum()
+    sgid = torch.where(s_domain, sgid.clamp(max=cap), cap)
+    sorted_keys = []
+    for ni, vi in key_ops:
+        valid_s = (sorted_ops[ni] == 0) if ni is not None \
+            else torch.ones(n, dtype=torch.bool, device=device)
+        sorted_keys.append((sorted_ops[vi], valid_s))
+    return (sgid, s_rows, s_domain, changed, num_groups, sorted_keys,
+            sorted_pl)
+
+
+class _Deferred:
+    """Placeholder for a per-group array that materializes after the
+    shared compaction (SortedSegments.flush)."""
+
+    def __init__(self, idx: int, post):
+        self.idx = idx
+        self.post = post
+
+
+class SortedSegments:
+    """Sorted-domain counterpart of the segment_* functions of this module
+    (the `segs` hook of ops.agg).  gid arguments are the contiguous sorted
+    sgid; values and masks arrive in sorted order.
+
+    Counts and sums become prefix sums whose value at each group's first
+    row is deferred; one compaction (group-start rows first, group order
+    kept) then materializes every deferred array at [cap], and a group's
+    total is the difference of adjacent prefixes.  MIN/MAX reduce straight
+    into [cap] by the contiguous group id."""
+
+    def __init__(self, changed, s_domain, num_groups, cap: int):
+        self.changed = changed
+        self.s_domain = s_domain
+        self.num_groups = num_groups
+        self.cap = cap
+        self._pending = []  # sorted-domain arrays, read at group-start rows
+        self._compacted = []
+
+    # -- deferral plumbing --
+    def defer(self, start_vals, post=None):
+        self._pending.append(torch.as_tensor(start_vals))
+        return _Deferred(len(self._pending) - 1, post)
+
+    def flush(self):
+        """One compaction permutation materializes every pending array."""
+        if not self._pending:
+            return
+        perm = compact_perm(self.changed)[: self.cap]
+        comp = []
+        for p in self._pending:
+            c = p[perm]
+            if c.shape[0] < self.cap:
+                # a row domain shorter than the cap: entries past
+                # num_groups are unused, so zeros will do
+                c = torch.cat([c, torch.zeros(self.cap - c.shape[0],
+                                              dtype=c.dtype, device=c.device)])
+            comp.append(c)
+        self._compacted = comp
+
+    def resolve(self, obj):
+        if isinstance(obj, _Deferred):
+            c = self._compacted[obj.idx]
+            return obj.post(c) if obj.post is not None else c
+        return obj
+
+    def _prefix_total(self, c, out_dtype):
+        """Defer an inclusive prefix sum c: compacted entry g is the prefix
+        before group g, and a group's total is the next entry minus its
+        own (the last group closes against the grand total)."""
+        cprev = torch.cat([torch.zeros(1, dtype=c.dtype, device=c.device),
+                           c[:-1]])
+        total = c[-1]
+        ng = self.num_groups
+        cap = self.cap
+
+        def post(cp):
+            gi = torch.arange(cap, device=cp.device)
+            nxt = torch.where(gi + 1 < ng, torch.cat([cp[1:], cp[:1] * 0]),
+                              total)
+            return (nxt - cp).to(out_dtype)
+
+        return self.defer(cprev, post)
+
+    def _in_domain(self, gid, contrib_mask):
+        cm = contrib_mask if contrib_mask is not None \
+            else torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
+        return cm & self.s_domain
+
+    # -- the segment_* surface --
+    def segment_count(self, gid, contrib_mask, num_slots: int):
+        cm = self._in_domain(gid, contrib_mask)
+        return self._prefix_total(torch.cumsum(cm, 0, dtype=torch.int64),
+                                  torch.int64)
+
+    def segment_sum(self, gid, values, contrib_mask, num_slots: int,
+                    acc_dtype):
+        acc_dtype = np.dtype(acc_dtype)
+        # float accumulators take float64 prefixes: a difference of two
+        # float32 prefixes over millions of rows would carry an error of
+        # the order of whole elements
+        cum_t = torch.float64 if acc_dtype.kind == "f" else torch_dtype(acc_dtype)
+        cm = self._in_domain(gid, contrib_mask)
+        v = torch.as_tensor(values).to(cum_t)
+        v = torch.where(cm, v, torch.zeros((), dtype=cum_t, device=v.device))
+        return self._prefix_total(torch.cumsum(v, 0), torch_dtype(acc_dtype))
+
+    def segment_minmax(self, gid, values, contrib_mask, num_slots: int,
+                       is_min: bool):
+        """Per-group MIN/MAX by the contiguous sorted group id; NaN
+        propagates as in the reference's jnp.minimum / maximum scan."""
+        v = torch.as_tensor(values)
+        cm = self._in_domain(gid, contrib_mask)
+        idx = torch.where(cm, gid.to(torch.int64), self.cap).clamp(max=self.cap)
+        return _plain.scatter_minmax(idx, v, self.cap, is_min)
+
+    def distinct_count_per_group(self, *args, **kwargs):
+        raise NotSupported("DISTINCT aggregates")
+
+    def distinct_sum_per_group(self, *args, **kwargs):
+        raise NotSupported("DISTINCT aggregates")
+
+    def hll_registers(self, *args, **kwargs):
+        raise NotSupported("APPROX_COUNT_DISTINCT")
+
+    def quantile_per_group(self, *args, **kwargs):
+        raise NotSupported("APPROX_QUANTILE")
+
+    def mode_per_group(self, *args, **kwargs):
+        raise NotSupported("MODE")

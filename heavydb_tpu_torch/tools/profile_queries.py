@@ -2,8 +2,9 @@
 
     python -m heavydb_tpu_torch.tools.profile_queries [--rows 100000000]
 
-Loads the synthetic benchmark's schema (uniform INT columns x10 .. x100k
-plus a FLOAT column v, random from a seed) on the CUDA device, runs each
+Loads the synthetic benchmark's schema (tools/synthetic.py: uniform INT
+columns x10 .. x10m, sparse BIGINT columns x10k_s10k and x1m_s10k, a FLOAT
+column v, random from a seed) on the CUDA device, runs each
 query warm under torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one

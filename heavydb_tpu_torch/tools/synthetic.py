@@ -1,10 +1,11 @@
 """The on-card workload shared by `chip_smoke.py` and `profile_queries`:
-the synthetic benchmark's schema, the seven SELECTs of the slice and the
+the synthetic benchmark's schema, the SELECTs of the port's slices and the
 loader that builds the table on the device.
 
-Schema: uniform INT columns `x10 .. x100k` in [1, card] (the reference's
-benchmarks/synthetic.py) plus `v FLOAT` uniform in [0, 1) (BASELINE
-config 1), in HeavyDB's 32M-row fragments.
+Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
+columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
+`x10k_s10k` and `x1m_s10k` = randint(1, card) * 10000; plus `v FLOAT`
+uniform in [0, 1) (BASELINE config 1); in HeavyDB's 32M-row fragments.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ import torch
 FRAGMENT_ROWS = 33_554_432
 
 COLUMNS = [("x10", 10), ("y10", 10), ("x100", 100), ("y100", 100),
-           ("x1k", 1000), ("x10k", 10_000), ("x100k", 100_000)]
+           ("x1k", 1000), ("x10k", 10_000), ("x100k", 100_000),
+           ("x10m", 10_000_000)]
+# (name, card, step): BIGINT randint(1, card) * step
+SPARSE_COLUMNS = [("x10k_s10k", 10_000, 10_000), ("x1m_s10k", 1_000_000, 10_000)]
 
 QUERIES = {
     "NGA03": "SELECT COUNT(*) FROM bench WHERE x100 > 50 AND y100 <= 75",
@@ -27,6 +31,13 @@ QUERIES = {
     "Q1K_MINMAX": "SELECT x1k, MIN(x10k), MAX(v), AVG(v) FROM bench GROUP BY x1k",
     "Q10K": "SELECT x10k, COUNT(*), SUM(v) FROM bench GROUP BY x10k",
     "PHS003": "SELECT x100k, COUNT(*) FROM bench GROUP BY x100k",
+    # keys with no dense range: the sort tier
+    "BH002": "SELECT x10k_s10k, COUNT(*) FROM bench GROUP BY x10k_s10k",
+    "BH003": "SELECT x1m_s10k, COUNT(*), SUM(y100) FROM bench GROUP BY x1m_s10k",
+    # 10^7 dense slots: the radix tier
+    "BH004": "SELECT x10m, COUNT(*) FROM bench GROUP BY x10m",
+    "Q10M_AGGS": "SELECT x10m, COUNT(*), SUM(x100), SUM(v), MIN(x10k), MAX(v) "
+                 "FROM bench WHERE x10 > 3 GROUP BY x10m",
 }
 
 
@@ -39,9 +50,13 @@ def load_bench(db, n: int, seed: int,
     data = {c: torch.randint(1, k + 1, (n,), dtype=torch.int32,
                              device=db.device, generator=gen)
             for c, k in COLUMNS}
+    for c, k, step in SPARSE_COLUMNS:
+        data[c] = torch.randint(1, k + 1, (n,), dtype=torch.int64,
+                                device=db.device, generator=gen) * step
     data["v"] = torch.rand(n, dtype=torch.float32, device=db.device,
                            generator=gen)
-    cols = ", ".join([f"{c} INT" for c, _ in COLUMNS] + ["v FLOAT"])
+    cols = ", ".join([f"{c} INT" for c, _ in COLUMNS]
+                     + [f"{c} BIGINT" for c, _, _ in SPARSE_COLUMNS] + ["v FLOAT"])
     db.sql(f"CREATE TABLE bench ({cols}) WITH (fragment_size={fragment_rows})")
     db.load_table_device("bench", data)
     return data

@@ -203,7 +203,7 @@ def test_division_by_zero_raises_in_both(engines):
     "SELECT k10, COUNT(*) FROM t GROUP BY k10 ORDER BY k10",
     "SELECT a.k10, COUNT(*) FROM t a JOIN t b ON a.k100 = b.k100 GROUP BY a.k10",
     "SELECT x FROM t ORDER BY x LIMIT 3",
-    "SELECT b, COUNT(*) FROM t GROUP BY b",
+    "SELECT k10, COUNT(DISTINCT k100) FROM t GROUP BY k10",
 ])
 def test_out_of_slice_queries_raise(engines, sql):
     _, port = engines

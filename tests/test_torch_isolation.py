@@ -18,6 +18,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def test_import_loads_no_jax_and_no_reference_module():
     code = (
         "import sys, heavydb_tpu_torch, heavydb_tpu_torch.kernels.gate\n"
+        "import heavydb_tpu_torch.exec.radix_tier, heavydb_tpu_torch.kernels.tile_sort\n"
+        "import heavydb_tpu_torch.kernels.radix_groupby\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heavydb_tpu' or m.startswith('heavydb_tpu.')]\n"
         "print(','.join(bad))\n"
