@@ -6,10 +6,12 @@ Needs one CUDA card (an H100); exits non-zero without one.  Phases, each
 printing JSON lines:
 
   env      card, power limit, torch / CUDA / nvcc versions
-  build    builds kernels B1-B6 from heavydb_tpu_torch/kernels/csrc into
-           build/kernels and runs the kernel gate
+  build    builds kernels B1-B6 and B3a-c from heavydb_tpu_torch/kernels/csrc
+           into build/kernels and runs the kernel gate
   kernels  each kernel against its plain PyTorch version at 100M rows and
-           the shapes the main path gives it; times with CUDA events
+           the shapes the main path gives it; times with CUDA events.  B3a-c
+           (kernels/groupby_slots.py), which no SQL route runs, are driven
+           through their own entry points here and count launches there
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
            schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
@@ -56,6 +58,12 @@ KERNELS = [
      "heavydb_tpu/kernels/radix_groupby.py:425", "6 streams"),
     ("radix_group", "heavydb_tpu_torch/kernels/csrc/radix_groupby.cu",
      "heavydb_tpu/kernels/radix_groupby.py:657", "6 streams"),
+    ("count_per_slot", "heavydb_tpu_torch/kernels/csrc/groupby_slots.cu",
+     "heavydb_tpu/kernels/groupby_pallas.py:142", 1000),
+    ("sum_f32_per_slot", "heavydb_tpu_torch/kernels/csrc/groupby_slots.cu",
+     "heavydb_tpu/kernels/groupby_pallas.py:177", 1000),
+    ("sum_int_per_slot", "heavydb_tpu_torch/kernels/csrc/groupby_slots.cu",
+     "heavydb_tpu/kernels/groupby_pallas.py:243", 1000),
 ]
 KERNEL_NAMES = tuple(k[0] for k in KERNELS)
 
@@ -207,6 +215,77 @@ def run_kernels(n: int, rate: float):
         del gid, cm, i32, f32, idx
     torch.cuda.empty_cache()
     return shapes
+
+
+SLOT_SHAPES = (1000, 4096, 65_536)
+
+
+def run_slot_kernels(n: int, rate: float):
+    """B3a-c through their public entry points at n rows and 1000, 4096 and
+    65536 slots (65536 takes the global-atomics path of all three), each
+    against its plain version, then timed.  No SQL route runs them, so this
+    is their path: the counters are set to 0 just before each entry-point
+    run and read just after.  Returns the shape lines and those launches."""
+    from heavydb_tpu_torch.kernels import _plain, groupby_slots as GS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 4)
+    fns = {f.__name__: f for f in (GS.count_per_slot, GS.sum_f32_per_slot,
+                                   GS.sum_int_per_slot)}
+    path = dict.fromkeys(fns, 0)
+    shapes = []
+    for S in SLOT_SHAPES:
+        gid = torch.randint(0, S, (n,), dtype=torch.int32, device="cuda",
+                            generator=gen)
+        mask = torch.rand(n, device="cuda", generator=gen) < 0.9
+        f32 = torch.randn(n, device="cuda", generator=gen)
+        i32 = torch.randint(-2**31, 2**31 - 1, (n,), dtype=torch.int32,
+                            device="cuda", generator=gen)
+        # past +-2^31: each value adds its two's-complement int32
+        i64 = torch.randint(-2**40, 2**40, (n,), dtype=torch.int64, device="cuda",
+                            generator=gen)
+        # the library yardstick of B3c gets the index and the int64 values
+        # (int64 ones wrapped) ready-made
+        idx = _plain.slot_index(gid, mask, S)
+        w32, w64 = i32.to(torch.int64), i64.to(torch.int32).to(torch.int64)
+        buf = torch.zeros(S + 1, dtype=torch.int64, device="cuda")
+        # name, values, tolerance, library call, bytes read + written
+        cases = [
+            ("count_per_slot", None, None,
+             lambda: torch.bincount(gid, minlength=S), n * 5 + S * 8),
+            ("sum_f32_per_slot", f32, F32_TOL,
+             lambda: torch.bincount(gid, weights=f32, minlength=S), n * 9 + S * 4),
+            ("sum_int_per_slot", i32, None,
+             lambda: buf.index_add_(0, idx, w32), n * 9 + S * 8),
+            ("sum_int_per_slot", i64, None,
+             lambda: buf.index_add_(0, idx, w64), n * 13 + S * 8),
+        ]
+        for name, v, tol, library, nbytes in cases:
+            args = (gid, mask, S) if v is None else (gid, v, mask, S)
+            plain = getattr(GS, name + "_plain")
+            for f in fns.values():
+                f.launches = 0  # the entry-point run starts here
+            got = fns[name](*args)
+            for k, f in fns.items():
+                path[k] += f.launches
+            err = agree(got, plain(*args), tol)
+            del got
+            line = dict(
+                kernel=name, rows=n, slots=S, max_abs_err=err,
+                ms=timed(lambda: fns[name](*args), 10),
+                plain_ms=timed(lambda: plain(*args), 3),
+                bound_ms=nbytes / rate * 1e3, library_ms=timed(library, 10),
+                path="kernel entry point")
+            if v is not None:
+                line["values"] = str(v.dtype)[6:]
+            if v is i64:
+                line["tag"] = "int64 values"
+            shapes.append(line)
+        del gid, mask, f32, i32, i64, idx, w32, w64, buf, cases, args
+    torch.cuda.empty_cache()
+    if min(path.values()) < 1:
+        raise AssertionError(f"a kernel never launched on its entry point: {path}")
+    return shapes, path
 
 
 def check_tile_sort(keys, pays, got, want_keys, T):
@@ -629,8 +708,9 @@ def run_hot_key(db, counters):
 def main() -> None:
     card = smi()
     rate = mem_rate(card)
-    from heavydb_tpu_torch.kernels import (_build, gate, groupby_minmax, lane_agg,
-                                           radix_groupby, radix_hist, tile_sort)
+    from heavydb_tpu_torch.kernels import (_build, gate, groupby_minmax, groupby_slots,
+                                           lane_agg, radix_groupby, radix_hist,
+                                           tile_sort)
 
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
@@ -642,17 +722,20 @@ def main() -> None:
           "gate_s": time.perf_counter() - t0, "built": info["built"],
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln] for k, v in info["ptxas"].items()}})
-    shapes = run_kernels(ROWS, rate) + run_sort_kernels(ROWS, rate)
+    slot_shapes, slot_launches = run_slot_kernels(ROWS, rate)
+    shapes = run_kernels(ROWS, rate) + slot_shapes + run_sort_kernels(ROWS, rate)
     for s in shapes:
         emit({"phase": "kernels", **s})
     counters = [lane_agg.lane_agg, radix_hist.fused_hist,
                 groupby_minmax.minmax_per_slot, tile_sort.sort_tiles,
-                radix_groupby.radix_partition, radix_groupby.radix_group]
+                radix_groupby.radix_partition, radix_groupby.radix_group,
+                groupby_slots.count_per_slot, groupby_slots.sum_f32_per_slot,
+                groupby_slots.sum_int_per_slot]
     e2e, total, db = run_e2e(ROWS, card, counters)
     emit({"phase": "e2e", **e2e})
     launched = dict(zip(KERNEL_NAMES, total))
-    # every kernel of the path ran; B4's network runs inside radix_group
-    if min(v for k, v in launched.items() if k != "tile_sort") < 1:
+    # every kernel of an SQL route ran; B4's network runs inside radix_group
+    if min(launched[k] for k in set().union(*ROUTES.values())) < 1:
         raise AssertionError(f"a kernel never launched on the main path: {launched}")
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db
@@ -665,6 +748,8 @@ def main() -> None:
             launches=n_launched, max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by="bytes",
             library_ms=s.get("library_ms"), rows=s["rows"], shape=str(tag))
+        if name in slot_launches:
+            row.update(launches=slot_launches[name], path="kernel entry point")
         if name == "tile_sort":
             row["runs_inside"] = {"kernel": "radix_group",
                                   "launches": launched["radix_group"]}

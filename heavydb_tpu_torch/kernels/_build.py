@@ -31,6 +31,7 @@ SOURCES = {
     "groupby_minmax": "groupby_minmax.cu",
     "tile_sort": "tile_sort.cu",
     "radix_groupby": "radix_groupby.cu",
+    "groupby_slots": "groupby_slots.cu",
 }
 _HEADERS = ("agg_common.cuh", "tile_sort.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -134,6 +135,14 @@ def _bind(lib: ctypes.CDLL, name: str):
     elif name == "tile_sort":
         fn = lib.hdb_sort_tiles
         fn.argtypes = [p, p, p, ll, i, p]
+    elif name == "groupby_slots":
+        fns = {}
+        for kind in ("count", "sum_f32", "sum_int"):
+            f = getattr(lib, f"hdb_{kind}_per_slot")
+            f.argtypes = [p, p, p, i, ll, i, p, i, i, p]
+            f.restype = ctypes.c_int
+            fns[kind] = f
+        return fns
     else:
         part = lib.hdb_radix_partition
         part.argtypes = [p, ll, i, i, p, p, p, ctypes.POINTER(StreamSet), i, i,

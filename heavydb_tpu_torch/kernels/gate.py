@@ -2,10 +2,10 @@
 
 Counterpart of heavydb_tpu/ops/groupby.py `_pallas_probe_locked`, the
 one-block compile-and-run probe that gates the TPU's Pallas tiers.  Here
-the gate builds kernels B1-B6 from csrc/, launches each on a small input
-and holds it against its plain version.  On CUDA it raises on any failure;
-it never reports the kernels as unavailable.  Its launches do not count in
-the wrappers' launch counters.
+the gate builds kernels B1-B6 and B3a-c from csrc/, launches each on a
+small input and holds it against its plain version.  On CUDA it raises on
+any failure; it never reports the kernels as unavailable.  Its launches do
+not count in the wrappers' launch counters.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from heavydb_tpu_torch.kernels import _build, _plain, groupby_minmax, radix_groupby, tile_sort
+from heavydb_tpu_torch.kernels import (_build, _plain, groupby_minmax, groupby_slots,
+                                       radix_groupby, tile_sort)
 
 _LOCK = threading.Lock()
 _PASSED: Dict[str, dict] = {}
@@ -71,8 +72,8 @@ def _check_sorts(device):
 
 
 def kernel_gate(device) -> dict:
-    """Build and check B1-B6 on `device` once per process.  Returns the
-    build record (seconds, nvcc version, ptxas report)."""
+    """Build and check B1-B6 and B3a-c on `device` once per process.
+    Returns the build record (seconds, nvcc version, ptxas report)."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError("the kernel gate runs on CUDA devices only")
@@ -105,6 +106,15 @@ def kernel_gate(device) -> dict:
                 want = groupby_minmax.minmax_per_slot_plain(
                     gid, vals, mask, 3000, is_min)
                 _same(got, want, f"groupby_minmax {vals.dtype} is_min={is_min}")
+        # B3a-c on the shared-memory path (1000 slots) and the global one
+        for num_slots in (1000, 40000):
+            gid, mask, _, f, i32, i64 = _inputs(device, n, num_slots, num_slots + 1)
+            for kind, vals in (("count", None), ("sum_f32", f), ("sum_int", i32),
+                               ("sum_int", i64)):
+                got = groupby_slots.launch(kind, gid, vals, mask, num_slots)
+                want = groupby_slots.plain(kind, gid, vals, mask, num_slots)
+                _same(got, want, f"groupby_slots {kind} at {num_slots} slots, "
+                      f"{None if vals is None else vals.dtype} values")
         counters = (tile_sort.sort_tiles, radix_groupby.radix_partition,
                     radix_groupby.radix_group)
         before = [c.launches for c in counters]
