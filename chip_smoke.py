@@ -8,10 +8,15 @@ printing JSON lines:
   env      card, power limit, torch / CUDA / nvcc versions
   build    builds kernels B1-B6 and B3a-c from heavydb_tpu_torch/kernels/csrc
            into build/kernels and runs the kernel gate
+  kernel_info  registers, shared memory and resident blocks per SM of B4-B6
+           as they are launched
   kernels  each kernel against its plain PyTorch version at 100M rows and
            the shapes the main path gives it; times with CUDA events.  B3a-c
            (kernels/groupby_slots.py), which no SQL route runs, are driven
-           through their own entry points here and count launches there
+           through their own entry points here and count launches there.
+           B4 at 1024-, 4096- and 16384-key tiles with 8 and 16 keys a
+           thread; B6 counts only, with 6 streams, and skewed (partitions
+           past 4096 rows and a hot group in each)
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
            schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
@@ -116,7 +121,13 @@ def agree(got, want, tol=None) -> float:
 # ---------------------------------------------------------------------------
 
 SPARSE_SLOTS = 10_000_000
-SORT_TILE = 4096
+SORT_TILE = 4096  # B4's tile in the summary line
+SORT_TILES = (1024, 4096, 16384)
+# B6's skewed shape: one group of SKEW_ROWS rows added to each of
+# SKEW_PARTS partitions, so each of those holds ~3052 + 4500 rows, between
+# SMALL_TILE and GROUP_TILE (the second launch), with no bit 0
+SKEW_PARTS = 64
+SKEW_ROWS = 4500
 
 
 def kernel_inputs(n: int, num_slots: int, gen):
@@ -303,10 +314,10 @@ def check_tile_sort(keys, pays, got, want_keys, T):
         agree(o, torch.gather(p.view(-1, T), 1, idx).reshape(-1))
 
 
-def sparse_streams(n, gen):
-    """gid over SPARSE_SLOTS and one stream of each class; the sumi stream
-    is the row number, so B5's output names each row's origin."""
-    gid = torch.randint(0, SPARSE_SLOTS, (n,), dtype=torch.int32, device="cuda",
+def sparse_streams(n, gen, num_slots=SPARSE_SLOTS):
+    """gid over num_slots and one stream of each class; the sumi stream is
+    the row number, so B5's output names each row's origin."""
+    gid = torch.randint(0, num_slots, (n,), dtype=torch.int32, device="cuda",
                         generator=gen)
     cm = torch.rand(n, device="cuda", generator=gen) < 0.8
     f = torch.where(cm, torch.rand(n, device="cuda", generator=gen), 0.0)
@@ -320,6 +331,22 @@ def sparse_streams(n, gen):
                (torch.where(cm, i, 2**31 - 1), "min"),
                (torch.where(cm, f, float("-inf")), "max")]
     return gid, streams
+
+
+def skewed(gid, streams):
+    """B6's skewed shape: SKEW_ROWS more rows of one key in each of
+    SKEW_PARTS partitions of plan(len(gid)), their values those of the
+    first rows."""
+    from heavydb_tpu_torch.kernels import radix_groupby as RG
+
+    pbits = RG.plan(gid.shape[0] + SKEW_PARTS * SKEW_ROWS)
+    cand = torch.arange(1, 1 << 14, device="cuda")
+    part = ((cand * RG._MULT) & 0xFFFFFFFF) >> (32 - pbits)
+    _, first = np.unique(part.cpu().numpy(), return_index=True)
+    hot = cand[torch.from_numpy(np.sort(first)[:SKEW_PARTS]).cuda()]
+    extra = SKEW_PARTS * SKEW_ROWS
+    gid = torch.cat([gid, hot.to(torch.int32).repeat_interleave(SKEW_ROWS)])
+    return gid, [(torch.cat([v, v[:extra]]), op) for v, op in streams]
 
 
 def stream_bytes(streams) -> int:
@@ -339,29 +366,35 @@ def run_sort_kernels(n: int, rate: float):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED + 2)
     shapes = []
-    T = SORT_TILE
-    nt = n // T * T
-    keys = torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
-                         device="cuda", generator=gen)
-    local = torch.arange(T, dtype=torch.int32, device="cuda").repeat(nt // T)
-    for n_pay in (0, 4):
-        pays = [local] + [torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
-                                        device="cuda", generator=gen)
-                          for _ in range(n_pay - 1)] if n_pay else []
-        got = TS.sort_tiles(keys, pays, T)
-        want = TS.sort_tiles_plain(keys, pays, T)
-        check_tile_sort(keys, pays, got, want[0], T)
-        del got, want
-        shapes.append(dict(
-            kernel="tile_sort", tag=f"{n_pay} payloads", rows=nt, tile=T,
-            max_abs_err=0.0,
-            ms=timed(lambda: TS.sort_tiles(keys, pays, T), 10),
-            plain_ms=timed(lambda: TS.sort_tiles_plain(keys, pays, T), 3),
-            library_ms=timed(lambda: torch.sort(keys.view(-1, T), dim=1), 10),
-            bound_ms=nt * 8 * (1 + n_pay) / rate * 1e3))
-        del pays
-    del keys, local
-    torch.cuda.empty_cache()
+    for T in SORT_TILES:
+        nt = n // T * T
+        keys = torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
+                             device="cuda", generator=gen)
+        # many equal keys: the payloads must still follow their rows
+        dups = torch.randint(-50, 50, (nt,), dtype=torch.int32, device="cuda",
+                             generator=gen)
+        local = torch.arange(T, dtype=torch.int32, device="cuda").repeat(nt // T)
+        library_ms = timed(lambda: torch.sort(keys.view(-1, T), dim=1), 10)
+        for n_pay in (0, 4):
+            pays = [local] + [torch.randint(-2**31, 2**31 - 1, (nt,), dtype=torch.int32,
+                                            device="cuda", generator=gen)
+                              for _ in range(n_pay - 1)] if n_pay else []
+            for k in (keys, dups):
+                got = TS.sort_tiles(k, pays, T)
+                want = TS.sort_tiles_plain(k, pays, T)
+                check_tile_sort(k, pays, got, want[0], T)
+                del got, want
+            tag = f"{n_pay} payloads" + ("" if T == SORT_TILE else f", {T}-key tiles")
+            shapes.append(dict(
+                kernel="tile_sort", tag=tag, rows=nt, tile=T, max_abs_err=0.0,
+                ms=timed(lambda: TS.sort_tiles(keys, pays, T), 10),
+                plain_ms=timed(lambda: TS.sort_tiles_plain(keys, pays, T), 3),
+                library_ms=library_ms,
+                bound_ms=nt * 8 * (1 + n_pay) / rate * 1e3,
+                kernel_info=TS.kernel_info(T, n_pay)))
+            del pays
+        del keys, dups, local
+        torch.cuda.empty_cache()
 
     gid, streams = sparse_streams(n, gen)
     pbits = RG.plan(n)
@@ -389,15 +422,16 @@ def run_sort_kernels(n: int, rate: float):
         plain_ms=timed(lambda: RG.radix_partition_plain(gid, streams, SPARSE_SLOTS,
                                                          pbits), 3),
         library_ms=None, bound_ms=part_bytes / rate * 1e3))
+    del hb, parts, counts, offsets
 
     cap = bucket(SPARSE_SLOTS)
-    ops = [op for _, op in streams]
-    for tag, ss in (("counts only", []), ("6 streams", streams)):
+
+    def b6_case(tag, gid, ss, library=None):
         got = RG.sparse_groupby(gid, ss, SPARSE_SLOTS, cap)
         want = RG.sparse_groupby_plain(gid, ss, SPARSE_SLOTS, cap)
         ng = int(got[3])
         if int(got[4]) != 0 or ng != int(want[3]):
-            raise AssertionError(f"sparse_groupby: overflow {int(got[4])}, "
+            raise AssertionError(f"sparse_groupby {tag}: overflow {int(got[4])}, "
                                  f"{ng} groups vs {int(want[3])}")
         agree(got[0], want[0])
         agree(got[1], want[1])
@@ -406,23 +440,37 @@ def run_sort_kernels(n: int, rate: float):
             err = max(err, agree(g, w, F32_TOL if op == "sumf" else
                                  (F64_TOL if op == "sumd" else None)))
         del got, want
+        n = gid.shape[0]
         out_bytes = ng * (4 + 8 + total_bytes(ss))
         whole_ms = timed(lambda: RG.sparse_groupby(gid, ss, SPARSE_SLOTS, cap), 5)
         plain_ms = timed(lambda: RG.sparse_groupby_plain(gid, ss, SPARSE_SLOTS, cap), 3)
+        pbits = RG.plan(n)
         hb, parts, counts, offsets = RG.radix_partition(gid, ss, SPARSE_SLOTS, pbits)
-        group_ms = timed(lambda: RG.radix_group(hb, parts, ops[:len(ss)], counts,
-                                                offsets, cap), 5)
-        library_ms = timed(lambda: torch.unique(gid, return_counts=True), 5) \
-            if not ss else None
+        nv = int(counts.sum())
+        ops = [op for _, op in ss]
+        group_ms = timed(lambda: RG.radix_group(hb, parts, ops, counts, offsets, cap), 5)
+        launch = RG.group_launch(counts)
         shapes.append(dict(
             kernel="radix_group", tag=tag, rows=n, slots=SPARSE_SLOTS,
             groups=ng, cap=cap, max_abs_err=err, ms=group_ms, plain_ms=plain_ms,
-            library_ms=library_ms,
+            library_ms=timed(library, 5) if library else None,
             bound_ms=(nv * (4 + stream_bytes(ss)) + out_bytes) / rate * 1e3,
             sparse_groupby_ms=whole_ms,
             sparse_groupby_bound_ms=(n * (4 + stream_bytes(ss)) + out_bytes)
-            / rate * 1e3))
-        del hb, parts, counts, offsets
+            / rate * 1e3,
+            largest_partition=int(counts.max()),
+            partitions_by_launch=[int((launch == j).sum())
+                                  for j in range(len(RG.GROUP_LAUNCHES))]))
+
+    b6_case("counts only", gid, [],
+            lambda: torch.unique(gid, return_counts=True))
+    b6_case("6 streams", gid, streams)
+    gid, streams = skewed(gid, streams)
+    b6_case("skewed, 6 streams", gid, streams)
+    if shapes[-1]["partitions_by_launch"][1] != SKEW_PARTS:
+        raise AssertionError(f"skewed shape: {shapes[-1]['partitions_by_launch']} "
+                             f"partitions by B6 launch, expected {SKEW_PARTS} in "
+                             "the second")
     del gid, streams
     torch.cuda.empty_cache()
     return shapes
@@ -722,6 +770,14 @@ def main() -> None:
           "gate_s": time.perf_counter() - t0, "built": info["built"],
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln] for k, v in info["ptxas"].items()}})
+    # registers, shared memory and resident blocks per SM of B4-B6 as
+    # they are launched (cudaFuncGetAttributes, the occupancy calculator)
+    for name, ki in radix_groupby.kernel_info().items():
+        emit({"phase": "kernel_info", "kernel": name, **ki})
+    for T in SORT_TILES:
+        for n_pay in (0, 4):
+            emit({"phase": "kernel_info", "kernel": "tile_sort", "tile": T,
+                  "payloads": n_pay, **tile_sort.kernel_info(T, n_pay)})
     slot_shapes, slot_launches = run_slot_kernels(ROWS, rate)
     shapes = run_kernels(ROWS, rate) + slot_shapes + run_sort_kernels(ROWS, rate)
     for s in shapes:
@@ -740,6 +796,7 @@ def main() -> None:
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db
     rows = []
+    rg_info = radix_groupby.kernel_info()
     for (name, src, replaces, tag), n_launched in zip(KERNELS, total):
         s = next(x for x in shapes
                  if x["kernel"] == name and x.get("tag", x.get("slots")) == tag)
@@ -753,6 +810,10 @@ def main() -> None:
         if name == "tile_sort":
             row["runs_inside"] = {"kernel": "radix_group",
                                   "launches": launched["radix_group"]}
+            row["kernel_info"] = s["kernel_info"]
+        if name in ("radix_partition", "radix_group"):
+            row["kernel_info"] = {k: v for k, v in rg_info.items()
+                                  if (k.startswith("part") == (name == "radix_partition"))}
         rows.append(row)
     emit({"kernels": rows})
 

@@ -17,9 +17,11 @@ stream (int64 totals), DOUBLE sums one `sumd` stream (float64) and FLOAT
 sums one `sumf` stream (float32 within the group's one partition).
 
 Stream budget: B6 (csrc/radix_groupby.cu group_kernel) reduces the streams
-one after another through a single 8-byte scan buffer in shared memory, so
-its shared-memory layout (21 B per tile row) does not grow with the stream
-count; the budget is the kernels' StreamSet width, RG.MAX_STREAMS = 16.
+one after another into a single accumulator array of 8 B per group, which
+reuses its sort buffer, so its shared-memory layout (18.5 B per partition
+row: sort buffer / accumulators, a hash table of two 4-byte entries and a
+2-byte rank per row) does not grow with the stream count; the budget is
+the kernels' StreamSet width, RG.MAX_STREAMS = 16.
 """
 
 from __future__ import annotations

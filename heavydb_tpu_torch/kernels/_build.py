@@ -134,7 +134,7 @@ def _bind(lib: ctypes.CDLL, name: str):
         fn.argtypes = [p, p, p, i, ll, i, i, p, i, i, p]
     elif name == "tile_sort":
         fn = lib.hdb_sort_tiles
-        fn.argtypes = [p, p, p, ll, i, p]
+        fn.argtypes = [p, p, p, ll, i, p, p]
     elif name == "groupby_slots":
         fns = {}
         for kind in ("count", "sum_f32", "sum_int"):
@@ -150,10 +150,13 @@ def _bind(lib: ctypes.CDLL, name: str):
         part.restype = ctypes.c_int
         group = lib.hdb_radix_group
         group.argtypes = [p, ctypes.POINTER(StreamSet),
-                          ctypes.POINTER(StreamSet), p, p, i, i, p, p, p, p, p,
-                          ll, p, p, i, p]
+                          ctypes.POINTER(StreamSet), p, p, i, i, i, i, p, p, p,
+                          p, p, ll, p, p, i, i, p]
         group.restype = ctypes.c_int
-        return types.SimpleNamespace(partition=part, group=group)
+        info = lib.hdb_radix_info
+        info.argtypes = [i, i, p]
+        info.restype = ctypes.c_int
+        return types.SimpleNamespace(partition=part, group=group, info=info)
     fn.restype = ctypes.c_int
     return fn
 
@@ -172,6 +175,15 @@ def entry(name: str):
 def check(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc}")
+
+
+def launch_info(call, what: str) -> dict:
+    """Run an entry point's kernel_info query (csrc/agg_common.cuh):
+    `call(out)` passes the address of five ints for it to fill."""
+    out = (ctypes.c_int * 5)()
+    check(call(ctypes.addressof(out)), what)
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2],
+                blocks_per_sm=out[3], threads=out[4])
 
 
 def stream_ptr(device) -> int:

@@ -190,3 +190,23 @@ static inline int set_smem(const void* fn, size_t smem) {
   }
   return 0;
 }
+
+// What a launch of fn with `block` threads and `smem` dynamic bytes gets:
+// out = registers a thread, local (stack) bytes a thread, shared bytes a
+// block (static + dynamic), resident blocks per SM, threads a block.
+static inline int kernel_info(const void* fn, int block, size_t smem, int* out) {
+  int rc = set_smem(fn, smem);
+  if (rc) return rc;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return (int)e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, block, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)(a.sharedSizeBytes + smem);
+  out[3] = blocks;
+  out[4] = block;
+  return 0;
+}

@@ -21,34 +21,58 @@
 // stream written once and read once); the scatter's random writes and the
 // per-row cursor atomics are the cost to watch.
 //
-// B6, one block per partition (group_kernel):
-//   1. load the partition's hb into shared memory and sort (hb, local
-//      index) with B4's block_bitonic_sort;
-//   2. mark segment heads (hb differs from its left neighbour) and reduce
-//      every segment with a block-wide segmented scan (seg_scan: each thread
-//      walks a fixed run of at most tile / blockDim elements, then warp
-//      shuffles and one shared array carry the runs' aggregates), so a hot
-//      group costs what any other run of rows costs;
-//   3. write one record per group (hb, row count, one total per stream) at
-//      its rank within the partition into a staging area laid out like the
-//      partitioned input, and the partition's group count;
-// then compact_kernel copies the records of partition p to
-// [goff[p], goff[p] + ng[p]) of the [cap] outputs, goff being the exclusive
-// scan of the group counts (host glue), and turns hb back into gid.
-// Partitions follow the top bits of h and are sorted inside, so the output
-// is in ascending h order.  A partition with more rows than the tile sets
-// flag bit 0 and writes no records.  Bound: bytes (the partitioned rows
-// read once, the records written twice); the shared-memory sort comes next.
+// B6, group_kernel, one partition at a time per block.  Bound: bytes (the
+// partitioned rows read once, one record per group written twice, ~0.16 ms
+// for 10^8 rows and 10^7 groups counts-only).  The first port of it
+// sorted every row with the block sort, reduced each operand with a
+// block-wide segmented scan, gathered the streams through the sort index
+// and sized 172 KB of shared memory for a full tile, so one block ran per
+// SM.  This one aggregates by hashing and sorts only the groups:
+//   1. read the partition's hb once, coalesced (16-byte loads where
+//      aligned), and insert each key into an open-addressing table in
+//      shared memory (atomicCAS, linear probing, a power of two of at least
+//      2 entries a row, the key mixed by a second odd multiplier); keep
+//      each row's table slot (2 B a row);
+//   2. compact the occupied entries into 64-bit words (key, slot) and sort
+//      only those ng words with block_sort of tile_sort.cuh: a word's
+//      position is its group's rank, so records stay in ascending hb order;
+//   3. counts, then each stream in turn, read the partition's rows in order
+//      and add into one accumulator per rank with shared-memory atomics
+//      (64-bit int add for count / sumi, f64 add for sumd, f32 add for
+//      sumf, int32 min / max on the order keys for MIN / MAX).  A warp
+//      whose lanes all carry one rank (a hot group) first folds them into
+//      one atomic; any other warp adds one atomic a lane.  The one
+//      accumulator array is reused stream after stream, so shared memory
+//      does not grow with the stream count;
+//   4. write one record per group (hb, row count, one total per stream) at
+//      off + rank into a staging area laid out like the partitioned input,
+//      and the partition's group count.
+// Shared memory follows the partitions that occur: a first launch, one
+// block per partition, takes the partitions of at most 4096 rows with
+// 74 KB a block (three resident blocks an SM); a second, persistent launch
+// skips those and takes the rest up to the tile (8192 rows, 148 KB).  A
+// partition with more rows than the tile sets flag bit 0 and writes no
+// records.  Both launches read the counts on the device.  compact_kernel
+// then copies the records of partition p to [goff[p], goff[p] + ng[p]) of
+// the [cap] outputs, goff being the exclusive scan of the group counts
+// (host glue), and turns hb back into gid.
 //
-// Precision: counts and sumi are exact int64; sumf adds in float32 (a group
-// lives in one partition); sumd adds in float64; MIN / MAX are exact on the
-// order-preserving int32 keys of agg_common.cuh.
+// Precision: counts, sumi and MIN / MAX are exact (int64 adds, and exact
+// int32 compares on the order-preserving keys of agg_common.cuh); sumd adds
+// in float64; sumf adds in float32 within the group's one partition, in
+// atomic order, which changes from run to run: it stays within rtol 1e-4 /
+// atol 1e-3 of the float64 sum rounded once.
+#include <stdint.h>
+
 #include "agg_common.cuh"
 #include "tile_sort.cuh"
 
 #define RG_MULT 0x9E3779B1u
 #define RG_INV 0x0E8B2F51u  // RG_MULT^-1 mod 2^32
-#define RG_SENT 0x7FFFFFFF  // biased hash of no valid gid; sorts last
+// biased hash of no valid gid (gid = 0xF174D0AF < 0): the table's empty entry
+#define RG_SENT 0x7FFFFFFF
+#define RG_SLOT_MULT 0x85EBCA6Bu  // spreads a partition's keys over its table
+#define RG_E 16                   // words a thread holds in B6's sort
 
 __device__ __forceinline__ unsigned rg_hash(int g) { return (unsigned)g * RG_MULT; }
 
@@ -134,6 +158,53 @@ extern "C" int hdb_radix_partition(const int* gid, long long n, int S, int pbits
 // B6
 // ---------------------------------------------------------------------------
 
+// Bytes of the sort buffer, which the accumulators reuse (8 B a group).
+__host__ __device__ __forceinline__ size_t group_buf_bytes(int rows) {
+  const size_t sort = bsort_smem_bytes(rows, RG_E, sizeof(hdb_u64));
+  return sort > (size_t)rows * 8 ? sort : (size_t)rows * 8;
+}
+
+// Dynamic shared memory of group_kernel for partitions of at most `rows`
+// rows (a power of two): sort buffer / accumulators, the hash table (2
+// entries of 4 B a row), each row's table slot and then rank (2 B a row).
+__host__ __device__ __forceinline__ size_t group_smem_bytes(int rows) {
+  return group_buf_bytes(rows) + (size_t)rows * 2 * 4 + (size_t)rows * 2;
+}
+
+// Add each lane's x (the identity where !ok) into acc[r] with
+// shared-memory atomics: where the whole warp carries one rank (a hot
+// group) its lanes fold first into one atomic, else each lane adds its own.
+// Every lane of the warp calls it.
+template <typename T, typename Red, typename Atom>
+__device__ __forceinline__ void warp_add(T* acc, int r, bool ok, T x, Red red, Atom atom) {
+  const int r0 = __shfl_sync(HDB_FULL_MASK, r, 0);
+  if (__all_sync(HDB_FULL_MASK, r == r0)) {
+    for (int o = 16; o > 0; o >>= 1) x = red(x, __shfl_xor_sync(HDB_FULL_MASK, x, o));
+    if ((threadIdx.x & 31) == 0 && ok) atom(acc + r0, x);
+  } else if (ok) {
+    atom(acc + r, x);
+  }
+}
+
+// One stream of one partition: acc[r] = the reduction of the rows of rank
+// r, then out[r] = acc[r] for r < ng.  load(i) reads row i of the
+// partition; red combines two values; atom adds a value into an
+// accumulator in shared memory.  Every thread of the block calls it.
+template <typename T, typename Load, typename Red, typename Atom>
+__device__ __forceinline__ void reduce_stream(T* acc, T ident, const unsigned short* rank, int cnt,
+                                              int ng, Load load, Red red, Atom atom, T* out) {
+  for (int r = threadIdx.x; r < ng; r += blockDim.x) acc[r] = ident;
+  __syncthreads();
+  for (int i0 = 0; i0 < cnt; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    const bool ok = i < cnt;
+    warp_add(acc, ok ? (int)rank[i] : -1, ok, ok ? load(i) : ident, red, atom);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < ng; r += blockDim.x) out[r] = acc[r];
+  __syncthreads();
+}
+
 struct AddOp {
   template <typename T>
   __device__ __forceinline__ T operator()(T a, T b) const { return a + b; }
@@ -145,226 +216,185 @@ struct MaxOp {
   __device__ __forceinline__ int operator()(int a, int b) const { return a > b ? a : b; }
 };
 
-// Inclusive segmented scan of buf[0, n) in place: at element i, the op
-// reduction of its segment's elements up to i.  A segment starts where
-// head[i] is nonzero (head == nullptr: one segment).  Every thread of the
-// block calls it; blockDim.x is a multiple of 32 and at most 1024.
-template <typename T, typename Op>
-__device__ void seg_scan(T* buf, const unsigned char* head, int n, Op op) {
-  __shared__ T s_v[32];
-  __shared__ int s_f[32];
-  __shared__ int s_ok[32];
-  const int items = (n + blockDim.x - 1) / blockDim.x;
-  const int s = threadIdx.x * items;
-  const int e = min(s + items, n);
-  // 1. each thread's own run
-  T v = T();
-  int f = 0;
-  const bool ok0 = s < e;
-  if (ok0) {
-    v = buf[s];
-    f = head ? head[s] != 0 : s == 0;
-    for (int i = s + 1; i < e; ++i) {
-      if (head && head[i]) {
-        f = 1;
-        v = buf[i];
-      } else {
-        v = op(v, buf[i]);
-      }
-      buf[i] = v;
+// Step 3 of group_partition: row counts into stage_len[off + rank] (and
+// rank[i] from row i's table slot to its group rank), then each stream's
+// totals into its staging array, ng groups of cnt rows.
+template <int BLOCK>
+__device__ __forceinline__ void aggregate(const StreamSet& ss, int cnt, long long off, int ng,
+                                          hdb_u64* buf, const int* table, unsigned short* rank,
+                                          long long* __restrict__ stage_len) {
+  unsigned* cnt_acc = (unsigned*)buf;
+  for (int r = threadIdx.x; r < ng; r += BLOCK) cnt_acc[r] = 0u;
+  __syncthreads();
+  for (int i0 = 0; i0 < cnt; i0 += BLOCK) {
+    const int i = i0 + threadIdx.x;
+    int r = -1;
+    if (i < cnt) {
+      r = table[rank[i]];
+      rank[i] = (unsigned short)r;
     }
-  }
-  // 2. segmented scan of the runs' (aggregate, has-head) pairs; a thread
-  // with no elements is the identity
-  int ok = ok0;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  for (int d = 1; d < 32; d <<= 1) {
-    const T pv = __shfl_up_sync(HDB_FULL_MASK, v, d);
-    const int pf = __shfl_up_sync(HDB_FULL_MASK, f, d);
-    const int pok = __shfl_up_sync(HDB_FULL_MASK, ok, d);
-    if (lane >= d && pok) {
-      if (!ok) {
-        v = pv;
-        f = pf;
-        ok = 1;
-      } else if (!f) {
-        v = op(pv, v);
-        f = pf;
-      }
-    }
-  }
-  // exclusive prefix within the warp
-  T xv = __shfl_up_sync(HDB_FULL_MASK, v, 1);
-  int xf = __shfl_up_sync(HDB_FULL_MASK, f, 1);
-  int xok = __shfl_up_sync(HDB_FULL_MASK, ok, 1) && lane > 0;
-  if (lane == 31) {
-    s_v[warp] = v;
-    s_f[warp] = f;
-    s_ok[warp] = ok;
+    warp_add(cnt_acc, r, i < cnt, i < cnt ? 1u : 0u, AddOp(),
+             [](unsigned* a, unsigned x) { atomicAdd(a, x); });
   }
   __syncthreads();
-  if (warp == 0) {
-    const int nw = blockDim.x >> 5;
-    T wv = lane < nw ? s_v[lane] : T();
-    int wf = lane < nw ? s_f[lane] : 0;
-    int wok = lane < nw ? s_ok[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const T pv = __shfl_up_sync(HDB_FULL_MASK, wv, d);
-      const int pf = __shfl_up_sync(HDB_FULL_MASK, wf, d);
-      const int pok = __shfl_up_sync(HDB_FULL_MASK, wok, d);
-      if (lane >= d && pok) {
-        if (!wok) {
-          wv = pv;
-          wf = pf;
-          wok = 1;
-        } else if (!wf) {
-          wv = op(pv, wv);
-          wf = pf;
-        }
-      }
-    }
-    // exclusive prefix over warps
-    const T ev = __shfl_up_sync(HDB_FULL_MASK, wv, 1);
-    const int ef = __shfl_up_sync(HDB_FULL_MASK, wf, 1);
-    const int eok = __shfl_up_sync(HDB_FULL_MASK, wok, 1) && lane > 0;
-    __syncwarp();
-    if (lane < nw) {
-      s_v[lane] = ev;
-      s_f[lane] = ef;
-      s_ok[lane] = eok;
-    }
-  }
-  __syncthreads();
-  // carry into this thread = (warps before) then (lanes before)
-  if (warp > 0 && s_ok[warp]) {
-    if (!xok) {
-      xv = s_v[warp];
-      xf = s_f[warp];
-      xok = 1;
-    } else if (!xf) {
-      xv = op(s_v[warp], xv);
-    }
-  }
-  // 3. the carry reaches this run's elements before its first head
-  if (xok && ok0) {
-    for (int i = s; i < e; ++i) {
-      if (head ? head[i] != 0 : i == 0) break;
-      buf[i] = op(xv, buf[i]);
-    }
-  }
-  __syncthreads();
-}
-
-// Shared-memory bytes of group_kernel for a tile: keys, indices, group
-// ranks (int32 each), one 8-byte scan buffer, head flags.
-__host__ __device__ __forceinline__ size_t group_smem_bytes(int tile) {
-  return (size_t)tile * (4 + 4 + 4 + 8 + 1);
-}
-
-__device__ __forceinline__ bool seg_end(const unsigned char* head, int i, int n) {
-  return i == n - 1 || head[i + 1] != 0;
-}
-
-__global__ void group_kernel(const int* __restrict__ hb, StreamSet ss,
-                             const unsigned long long* __restrict__ counts,
-                             const long long* __restrict__ offsets, int tile,
-                             int* __restrict__ stage_hb, long long* __restrict__ stage_len,
-                             int* __restrict__ ng_part, int* __restrict__ flag) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  double* buf_raw = (double*)smem;  // 8-byte scan buffer first, for alignment
-  int* keys = (int*)(smem + (size_t)tile * 8);
-  int* idx = keys + tile;
-  int* rank = idx + tile;
-  unsigned char* head = (unsigned char*)(rank + tile);
-
-  const int p = blockIdx.x;
-  const long long cnt_ll = (long long)counts[p];
-  const long long off = offsets[p];
-  if (cnt_ll == 0) {
-    if (threadIdx.x == 0) ng_part[p] = 0;
-    return;
-  }
-  if (cnt_ll > tile) {
-    if (threadIdx.x == 0) {
-      ng_part[p] = 0;
-      atomicOr(flag, 1);
-    }
-    return;
-  }
-  const int cnt = (int)cnt_ll;
-  int n2 = 32;
-  while (n2 < cnt) n2 <<= 1;
-  for (int i = threadIdx.x; i < n2; i += blockDim.x) {
-    keys[i] = i < cnt ? hb[off + i] : RG_SENT;
-    idx[i] = i;
-  }
-  __syncthreads();
-  block_bitonic_sort(keys, idx, n2);
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    const unsigned char hd = (i == 0 || keys[i] != keys[i - 1]) ? 1 : 0;
-    head[i] = hd;
-    rank[i] = hd;
-  }
-  __syncthreads();
-  seg_scan<int>(rank, nullptr, cnt, AddOp());  // 1-based group rank
-  const int ng = rank[cnt - 1];
-
-  // row counts per group
-  long long* lbuf = (long long*)buf_raw;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) lbuf[i] = 1;
-  __syncthreads();
-  seg_scan<long long>(lbuf, head, cnt, AddOp());
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    if (!seg_end(head, i, cnt)) continue;
-    const long long g = off + rank[i] - 1;
-    stage_hb[g] = keys[i];
-    stage_len[g] = lbuf[i];
-  }
+  for (int r = threadIdx.x; r < ng; r += BLOCK) stage_len[off + r] = cnt_acc[r];
   __syncthreads();
 
   for (int k = 0; k < ss.n; ++k) {
-    const void* v = ss.vals[k];
+    const void* vals = ss.vals[k];
     const int dt = ss.dt[k];
     const int op = ss.op[k];
+    auto add_ll = [](long long* a, long long x) {
+      atomicAdd((unsigned long long*)a, (unsigned long long)x);
+    };
     if (op == OP_COUNT || op == OP_SUMI) {
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-        const long long x = load_int(v, dt, off + idx[i]);
-        lbuf[i] = op == OP_COUNT ? (x != 0) : x;
-      }
-      __syncthreads();
-      seg_scan<long long>(lbuf, head, cnt, AddOp());
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        if (seg_end(head, i, cnt)) ((long long*)ss.out[k])[off + rank[i] - 1] = lbuf[i];
+      const bool is_count = op == OP_COUNT;
+      reduce_stream<long long>(
+          (long long*)buf, 0ll, rank, cnt, ng,
+          [&](int i) {
+            const long long x = load_int(vals, dt, off + i);
+            return is_count ? (long long)(x != 0) : x;
+          },
+          AddOp(), add_ll, (long long*)ss.out[k] + off);
     } else if (op == OP_SUMF) {
-      float* fbuf = (float*)buf_raw;
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        fbuf[i] = ((const float*)v)[off + idx[i]];
-      __syncthreads();
-      seg_scan<float>(fbuf, head, cnt, AddOp());
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        if (seg_end(head, i, cnt)) ((float*)ss.out[k])[off + rank[i] - 1] = fbuf[i];
+      reduce_stream<float>(
+          (float*)buf, 0.f, rank, cnt, ng, [&](int i) { return ((const float*)vals)[off + i]; },
+          AddOp(), [](float* a, float x) { atomicAdd(a, x); }, (float*)ss.out[k] + off);
     } else if (op == OP_SUMD) {
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        buf_raw[i] = load_f64(v, dt, off + idx[i]);
-      __syncthreads();
-      seg_scan<double>(buf_raw, head, cnt, AddOp());
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        if (seg_end(head, i, cnt)) ((double*)ss.out[k])[off + rank[i] - 1] = buf_raw[i];
+      reduce_stream<double>(
+          (double*)buf, 0.0, rank, cnt, ng, [&](int i) { return load_f64(vals, dt, off + i); },
+          AddOp(), [](double* a, double x) { atomicAdd(a, x); }, (double*)ss.out[k] + off);
+    } else if (op == OP_MIN) {
+      reduce_stream<int>(
+          (int*)buf, key_ident(dt, true), rank, cnt, ng,
+          [&](int i) { return load_key(vals, dt, off + i, true); }, MinOp(),
+          [](int* a, int x) { atomicMin(a, x); }, (int*)ss.out[k] + off);
     } else {
-      const bool is_min = op == OP_MIN;
-      int* ibuf = (int*)buf_raw;
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        ibuf[i] = load_key(v, dt, off + idx[i], is_min);
-      __syncthreads();
-      if (is_min) seg_scan<int>(ibuf, head, cnt, MinOp());
-      else seg_scan<int>(ibuf, head, cnt, MaxOp());
-      for (int i = threadIdx.x; i < cnt; i += blockDim.x)
-        if (seg_end(head, i, cnt)) ((int*)ss.out[k])[off + rank[i] - 1] = ibuf[i];
+      reduce_stream<int>(
+          (int*)buf, key_ident(dt, false), rank, cnt, ng,
+          [&](int i) { return load_key(vals, dt, off + i, false); }, MaxOp(),
+          [](int* a, int x) { atomicMax(a, x); }, (int*)ss.out[k] + off);
     }
+  }
+}
+
+// Group partition p (cnt > 0 rows from off) into records at off + rank.
+template <int BLOCK>
+__device__ __forceinline__ void group_partition(const int* __restrict__ hb, const StreamSet& ss,
+                                                int p, int cnt, long long off, int max_rows,
+                                                unsigned char* smem, int* __restrict__ stage_hb,
+                                                long long* __restrict__ stage_len,
+                                                int* __restrict__ ng_part, int* s_ng) {
+  hdb_u64* buf = (hdb_u64*)smem;
+  int* table = (int*)(smem + group_buf_bytes(max_rows));
+  unsigned short* rank = (unsigned short*)(table + 2 * max_rows);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+
+  // 1. insert every key; rank[i] = row i's table slot
+  int tbits = 5;
+  while ((1 << tbits) < 2 * cnt) ++tbits;
+  const int ts = 1 << tbits;
+  for (int s = tid; s < ts; s += BLOCK) table[s] = RG_SENT;
+  if (tid == 0) *s_ng = 0;
+  __syncthreads();
+  const int* src = hb + off;
+  auto insert = [&](int i, int key) {
+    unsigned s = ((unsigned)key * RG_SLOT_MULT) >> (32 - tbits);
+    for (;;) {
+      int cur = ((volatile int*)table)[s];
+      if (cur == RG_SENT) {
+        cur = atomicCAS(table + s, RG_SENT, key);
+        if (cur == RG_SENT) cur = key;
+      }
+      if (cur == key) break;
+      s = (s + 1) & (unsigned)(ts - 1);
+    }
+    rank[i] = (unsigned short)s;
+  };
+  int head = (int)((16 - ((uintptr_t)src & 15)) & 15) / 4;
+  head = head < cnt ? head : cnt;
+  if (tid < head) insert(tid, src[tid]);
+  const int nvec = (cnt - head) / 4;
+  const int4* src4 = (const int4*)(src + head);
+  for (int q = tid; q < nvec; q += BLOCK) {
+    const int4 x = src4[q];
+    const int i = head + 4 * q;
+    insert(i, x.x);
+    insert(i + 1, x.y);
+    insert(i + 2, x.z);
+    insert(i + 3, x.w);
+  }
+  for (int i = head + 4 * nvec + tid; i < cnt; i += BLOCK) insert(i, src[i]);
+  __syncthreads();
+
+  // 2. the occupied entries as words (key, slot), at the positions the
+  // sort's threads load them from
+  for (int s0 = 0; s0 < ts; s0 += BLOCK) {
+    const int s = s0 + tid;
+    const int key = s < ts ? table[s] : RG_SENT;  // whole warps lie past ts
+    const bool occ = key != RG_SENT;
+    const unsigned b = __ballot_sync(HDB_FULL_MASK, occ);
+    int at = 0;
+    if (lane == 0 && b) at = atomicAdd(s_ng, __popc(b));
+    at = __shfl_sync(HDB_FULL_MASK, at, 0) + __popc(b & ((1u << lane) - 1u));
+    if (occ) buf[bsort_pad(at, RG_E)] = bsort_word(key, (unsigned)s);
+  }
+  __syncthreads();
+  const int ng = *s_ng;
+  int n2 = 1;
+  while (n2 < ng) n2 <<= 1;
+  hdb_u64 v[RG_E];
+  const int base = tid * RG_E;
+#pragma unroll
+  for (int e = 0; e < RG_E; ++e) v[e] = base + e < ng ? buf[bsort_pad(base + e, RG_E)] : ~0ull;
+  block_sort<RG_E>(v, n2, buf);
+
+  // the table entry of each group now holds its rank; its record's key
+#pragma unroll
+  for (int e = 0; e < RG_E; ++e) {
+    if (base + e < ng) {
+      table[(unsigned)v[e]] = base + e;
+      stage_hb[off + base + e] = bsort_key(v[e]);
+    }
+  }
+  __syncthreads();
+
+  // 3. row counts and streams
+  aggregate<BLOCK>(ss, cnt, off, ng, buf, table, rank, stage_len);
+  if (tid == 0) ng_part[p] = ng;
+}
+
+// Blocks walk the partitions p = blockIdx.x, + gridDim.x, ... and group
+// those of min_rows..max_rows rows.  A partition of more rows sets bit 0
+// when max_rows reaches the tile, and is left to a later launch otherwise.
+template <int BLOCK>
+__global__ void __launch_bounds__(BLOCK, BLOCK == 256 ? 3 : 1)
+    group_kernel(const int* __restrict__ hb, StreamSet ss,
+                 const unsigned long long* __restrict__ counts,
+                 const long long* __restrict__ offsets, int P, int min_rows, int max_rows,
+                 int tile, int* __restrict__ stage_hb, long long* __restrict__ stage_len,
+                 int* __restrict__ ng_part, int* __restrict__ flag) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_ng;
+  for (int p = blockIdx.x; p < P; p += gridDim.x) {
+    const long long cnt = (long long)counts[p];
+    if (cnt < min_rows) continue;
+    if (cnt > max_rows) {
+      if (max_rows >= tile && threadIdx.x == 0) {
+        ng_part[p] = 0;
+        atomicOr(flag, 1);
+      }
+      continue;
+    }
+    if (cnt == 0) {
+      if (threadIdx.x == 0) ng_part[p] = 0;
+      continue;
+    }
+    group_partition<BLOCK>(hb, ss, p, (int)cnt, offsets[p], max_rows, smem, stage_hb, stage_len,
+                           ng_part, &s_ng);
     __syncthreads();
   }
-  if (threadIdx.x == 0) ng_part[p] = ng;
 }
 
 __host__ __device__ __forceinline__ int total_bytes(int op) {
@@ -394,21 +424,68 @@ __global__ void compact_kernel(const long long* __restrict__ offsets,
   }
 }
 
+// group_kernel's launch for partitions of at most max_rows rows: threads
+// a block (max_rows <= threads * RG_E) and its shared memory.
+static const void* group_fn(int max_rows, int* block) {
+  *block = max_rows <= 256 * RG_E ? 256 : 512;
+  return *block == 256 ? (const void*)group_kernel<256> : (const void*)group_kernel<512>;
+}
+
+static int group_prepare(const void* fn, size_t smem) {
+  int rc = set_smem(fn, smem);
+  if (rc) return rc;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// pass 0: group_kernel over the partitions of min_rows..max_rows rows
+// (max_rows a power of two <= 8192), `grid` blocks; pass 1: compact_kernel.
 extern "C" int hdb_radix_group(const int* hb, const StreamSet* parts, const StreamSet* stage,
                                const unsigned long long* counts, const long long* offsets, int P,
-                               int tile, int* stage_hb, long long* stage_len, int* ng_part,
-                               int* flag, const long long* goff, long long cap, int* gid_out,
-                               long long* len_out, int pass, void* stream) {
-  if (tile < 32 || (tile & (tile - 1)) != 0 || P < 1) return (int)cudaErrorInvalidValue;
+                               int min_rows, int max_rows, int tile, int* stage_hb,
+                               long long* stage_len, int* ng_part, int* flag,
+                               const long long* goff, long long cap, int* gid_out,
+                               long long* len_out, int pass, int grid, void* stream) {
+  if (P < 1) return (int)cudaErrorInvalidValue;
   if (pass == 0) {
-    size_t smem = group_smem_bytes(tile);
-    int rc = set_smem((const void*)group_kernel, smem);
+    if (max_rows < 32 || (max_rows & (max_rows - 1)) != 0 || max_rows > 512 * RG_E ||
+        grid < 1)
+      return (int)cudaErrorInvalidValue;
+    int block;
+    const void* fn = group_fn(max_rows, &block);
+    const size_t smem = group_smem_bytes(max_rows);
+    int rc = group_prepare(fn, smem);
     if (rc) return rc;
-    group_kernel<<<P, 256, smem, (cudaStream_t)stream>>>(hb, *parts, counts, offsets, tile,
-                                                         stage_hb, stage_len, ng_part, flag);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (block == 256)
+      group_kernel<256><<<grid, 256, smem, s>>>(hb, *parts, counts, offsets, P, min_rows,
+                                                max_rows, tile, stage_hb, stage_len, ng_part,
+                                                flag);
+    else
+      group_kernel<512><<<grid, 512, smem, s>>>(hb, *parts, counts, offsets, P, min_rows,
+                                                max_rows, tile, stage_hb, stage_len, ng_part,
+                                                flag);
   } else {
     compact_kernel<<<P, 128, 0, (cudaStream_t)stream>>>(offsets, ng_part, goff, cap, stage_hb,
                                                         stage_len, *stage, gid_out, len_out);
   }
   return (int)cudaGetLastError();
+}
+
+// kernel_info of one kernel as it is launched: which = 0 part_hist_kernel
+// (arg = pbits), 1 part_scatter_kernel, 2 group_kernel (arg = max_rows),
+// 3 compact_kernel.
+extern "C" int hdb_radix_info(int which, int arg, int* out) {
+  switch (which) {
+    case 0: return kernel_info((const void*)part_hist_kernel, 256, (size_t)4 << arg, out);
+    case 1: return kernel_info((const void*)part_scatter_kernel, 256, 0, out);
+    case 2: {
+      int block;
+      const void* fn = group_fn(arg, &block);
+      const size_t smem = group_smem_bytes(arg);
+      int rc = group_prepare(fn, smem);
+      return rc ? rc : kernel_info(fn, block, smem, out);
+    }
+    default: return kernel_info((const void*)compact_kernel, 128, 0, out);
+  }
 }

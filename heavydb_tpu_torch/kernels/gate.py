@@ -47,25 +47,35 @@ def _same(a, b, what: str):
 
 def _check_sorts(device):
     """B4 on distinct keys (so payloads compare exactly) and B5 + B6 over
-    four partitions with every stream class."""
+    four partitions with every stream class, through both B6 launches."""
     rng = np.random.default_rng(4)
     n = 4096
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
     key = t(rng.permutation(n).astype(np.int32) - 2000)
     pay = [t(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)),
            t(rng.standard_normal(n).astype(np.float32))]
-    for got, want in zip(tile_sort.sort_tiles(key, pay, 1024),
-                         tile_sort.sort_tiles_plain(key, pay, 1024)):
-        _same(got, want, "tile_sort")
+    for pays in ([], pay):  # the kernel of bare keys, and of (key, index) words
+        for got, want in zip(tile_sort.sort_tiles(key, pays, 1024),
+                             tile_sort.sort_tiles_plain(key, pays, 1024)):
+            _same(got, want, "tile_sort")
     n = 1 << 14
     gid, mask, cm, f, i32, i64 = _inputs(device, n, 3000, 5)
     gid = torch.where(mask, gid, -1)
-    streams = [(cm, "count"), (i64, "sumi"), (f, "sumf"), (f, "sumd"),
-               (torch.where(cm, f, float("inf")), "min"),
-               (torch.where(cm, i32, -2**31), "max")]
-    for cap in (4096, 100):
-        got = radix_groupby.sparse_groupby(gid, streams, 3000, cap)
-        want = radix_groupby.sparse_groupby_plain(gid, streams, 3000, cap)
+
+    def streams(f):
+        return [(cm, "count"), (i64, "sumi"), (f, "sumf"), (f, "sumd"),
+                (torch.where(cm, f, float("inf")), "min"),
+                (torch.where(cm, i32, -2**31), "max")]
+
+    # then a hot group of 4400 rows, whose partition (~6800 rows) takes B6's
+    # second launch; its float values are multiples of 1/8, so every float32
+    # partial sum is exact in any order
+    hot = gid.clone()
+    hot[:4400] = 7
+    for g, ss, cap in ((gid, streams(f), 4096), (gid, streams(f), 100),
+                       (hot, streams(torch.round(f * 8) / 8), 4096)):
+        got = radix_groupby.sparse_groupby(g, ss, 3000, cap)
+        want = radix_groupby.sparse_groupby_plain(g, ss, 3000, cap)
         for j, (a, b) in enumerate(zip(got[:2] + tuple(got[2]) + got[3:],
                                        want[:2] + tuple(want[2]) + want[3:])):
             _same(a, b.to(a.dtype), f"sparse_groupby cap={cap}, output {j}")

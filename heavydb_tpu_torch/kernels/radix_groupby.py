@@ -7,10 +7,12 @@ holds both kernels:
 - `radix_partition` (B5, TPU `_partition_call`): a histogram and a scatter
   that move every valid row's biased hash hb and its streams into one
   exactly sized region per bucket of the top `pbits` hash bits;
-- `radix_group` (B6, TPU `_groupby_call`): one block per partition sorts
-  the partition by hb in shared memory (B4's device function), reduces
-  every group with a segmented scan, and writes compacted per-group
-  records in hash order.
+- `radix_group` (B6, TPU `_groupby_call`): a block inserts its
+  partition's keys into a hash table in shared memory, sorts only the
+  distinct keys (B4's network) to rank the groups, adds each operand per
+  rank with shared-memory atomics, and writes compacted per-group records
+  in hash order.  Two launches: partitions of at most SMALL_TILE rows,
+  then the rest up to GROUP_TILE (`group_launch`).
 
 Contract of `sparse_groupby(gid, streams, num_slots, cap)`: rows whose gid
 lies outside [0, num_slots) are dropped.  `streams` are (values, op) with
@@ -43,9 +45,15 @@ from heavydb_tpu_torch.kernels import _build, _plain
 
 _MULT = 0x9E3779B1
 _INV = pow(_MULT, -1, 1 << 32)
-# rows one B6 block sorts in shared memory: 8192 x 21 B = 172 KB of the
-# 227 KB a block may use (radix_groupby.cu group_smem_bytes)
+# most rows a B6 block groups: 8192 x 18.5 B = 148 KB of the 227 KB a
+# block may use (radix_groupby.cu group_smem_bytes); a partition past it
+# sets overflow bit 0
 GROUP_TILE = 8192
+# most rows of a partition in B6's first launch: 74 KB a block, three
+# blocks an SM
+SMALL_TILE = 4096
+# B6's launches: (fewest, most) rows of the partitions each one groups
+GROUP_LAUNCHES = ((0, SMALL_TILE), (SMALL_TILE + 1, GROUP_TILE))
 # mean rows per partition the plan aims at: half a tile leaves room for the
 # spread of a uniform hash (about +-2 % at 4096 rows)
 _TARGET_FILL = GROUP_TILE // 2
@@ -60,6 +68,16 @@ def plan(n: int) -> int:
     if n <= _TARGET_FILL:
         return 0
     return min(MAX_PART_BITS, math.ceil(math.log2(n / _TARGET_FILL)))
+
+
+def group_launch(counts):
+    """Index into GROUP_LAUNCHES of the B6 launch that groups each
+    partition of `counts` rows; -1 where no launch does (more rows than
+    GROUP_TILE: overflow bit 0)."""
+    out = torch.full_like(counts, -1)
+    for j, (lo, hi) in enumerate(GROUP_LAUNCHES):
+        out = torch.where((counts >= lo) & (counts <= hi), j, out)
+    return out
 
 
 def _check(gid, streams, num_slots: int, cap: int):
@@ -167,23 +185,27 @@ def radix_group(hb, parts, ops, counts, offsets, cap: int):
     ss_parts = _stream_set(parts, stage, ops)
     ss_stage = _stream_set(stage, keys_out, ops)
     if n:
-        _build.check(fn.group(hb.data_ptr(), ctypes.byref(ss_parts), None,
-                              counts.data_ptr(), offsets.data_ptr(), P,
-                              GROUP_TILE, stage_hb.data_ptr(),
-                              stage_len.data_ptr(), ng_part.data_ptr(),
-                              flag.data_ptr(), None, cap, None, None, 0, sp),
-                     "radix_group")
+        # one block per partition, then one persistent block per SM that
+        # skips the partitions the first launch took
+        grids = (P, _build.grid_for(P, dev, 1, 1))
+        for (lo, hi), grid in zip(GROUP_LAUNCHES, grids):
+            _build.check(fn.group(hb.data_ptr(), ctypes.byref(ss_parts), None,
+                                  counts.data_ptr(), offsets.data_ptr(), P,
+                                  lo, hi, GROUP_TILE, stage_hb.data_ptr(),
+                                  stage_len.data_ptr(), ng_part.data_ptr(),
+                                  flag.data_ptr(), None, cap, None, None, 0,
+                                  grid, sp), "radix_group")
         radix_group.launches += 1
     ng64 = ng_part.to(torch.int64)
     goff = torch.cumsum(ng64, 0) - ng64
     num_groups = ng64.sum()
     if n:
         _build.check(fn.group(None, None, ctypes.byref(ss_stage),
-                              counts.data_ptr(), offsets.data_ptr(), P,
+                              counts.data_ptr(), offsets.data_ptr(), P, 0, 0,
                               GROUP_TILE, stage_hb.data_ptr(),
                               stage_len.data_ptr(), ng_part.data_ptr(), None,
                               goff.data_ptr(), cap, gid_out.data_ptr(),
-                              len_out.data_ptr(), 1, sp), "radix_group compact")
+                              len_out.data_ptr(), 1, P, sp), "radix_group compact")
     totals = []
     for v, op, o in zip(parts, ops, keys_out):
         if op in ("min", "max"):
@@ -195,6 +217,21 @@ def radix_group(hb, parts, ops, counts, offsets, cap: int):
 
 
 radix_group.launches = 0
+
+
+def kernel_info() -> dict:
+    """Registers, local and shared bytes, resident blocks per SM and
+    threads of B5's and B6's kernels as they are launched at 2^15
+    partitions (CUDA only)."""
+    fn = _build.entry("radix_groupby")
+    return {name: _build.launch_info(
+        lambda out, w=which, a=arg: fn.info(w, a, out), name)
+        for name, which, arg in (
+            ("part_hist_kernel", 0, MAX_PART_BITS),
+            ("part_scatter_kernel", 1, 0),
+            (f"group_kernel <= {SMALL_TILE} rows", 2, SMALL_TILE),
+            (f"group_kernel <= {GROUP_TILE} rows", 2, GROUP_TILE),
+            ("compact_kernel", 3, 0))}
 
 
 # ---------------------------------------------------------------------------

@@ -2,17 +2,19 @@
 (kernel B4).
 
 Port of heavydb_tpu/kernels/tile_sort.py (`sort_tiles`, TPU body
-`_tile_bitonic`).  csrc/tile_sort.cuh holds the block-level bitonic sort of
-(key, local index) pairs in shared memory that B6 (csrc/radix_groupby.cu)
-also runs on every partition; csrc/tile_sort.cu is this standalone entry
-point: one block per tile, then one gather of each payload through the
-sorted indices.  It is bound by bytes: each key and payload read and
-written once.
+`_tile_bitonic`).  csrc/tile_sort.cuh holds the network, a
+register-blocked bitonic sort that B6 (csrc/radix_groupby.cu) also runs on
+each partition's distinct keys; csrc/tile_sort.cu is this standalone entry
+point: one block per tile, 16 keys in each thread's registers,
+sorting the int32 keys alone when there is no payload and 64-bit (key,
+local index) words otherwise, then one gather of each payload, staged in
+shared memory, through the sorted indices.
 
 Contract: `key` int32[n], n a multiple of `rows_per_tile` (a power of two
 in [32, 16384]); up to four payloads of 4 bytes each.  Returns
 [key_sorted, *payloads_sorted], every tile sorted ascending on its own.
-The sort is unstable: payloads of equal keys come in no fixed order.
+The contract promises no order among equal keys (the kernel gives them in
+row order, the plain version in `torch.sort`'s).
 
 CPU tensors take the plain version; CUDA tensors launch the kernel.
 """
@@ -74,13 +76,24 @@ def sort_tiles(key, payloads=(), rows_per_tile: int = 4096):
     if key.shape[0]:
         fn = _build.entry("tile_sort")
         _build.check(fn(key.data_ptr(), key_out.data_ptr(), ctypes.addressof(ps),
-                        key.shape[0], rows_per_tile,
+                        key.shape[0], rows_per_tile, None,
                         _build.stream_ptr(key.device)), "tile_sort")
         sort_tiles.launches += 1
     return [key_out] + outs
 
 
 sort_tiles.launches = 0
+
+
+def kernel_info(rows_per_tile: int = 4096, n_payloads: int = 0) -> dict:
+    """Registers, local and shared bytes, resident blocks per SM and
+    threads of the kernel as sort_tiles launches it (CUDA only)."""
+    ps = Payloads()
+    ps.n = n_payloads
+    fn = _build.entry("tile_sort")
+    return _build.launch_info(
+        lambda out: fn(None, None, ctypes.addressof(ps), 0, rows_per_tile,
+                       out, None), "tile_sort info")
 
 
 def sort_tiles_plain(key, payloads=(), rows_per_tile: int = 4096):
