@@ -10,13 +10,15 @@ printing JSON lines:
            into build/kernels and runs the kernel gate
   kernel_info  registers, shared memory and resident blocks per SM of B4-B6
            as they are launched
+  sass     the shared-memory atomics B3a-c compile to (cuobjdump), once
   kernels  each kernel against its plain PyTorch version at 100M rows and
            the shapes the main path gives it; times with CUDA events.  B3a-c
            (kernels/groupby_slots.py), which no SQL route runs, are driven
-           through their own entry points here and count launches there.
-           B4 at 1024-, 4096- and 16384-key tiles with 8 and 16 keys a
-           thread; B6 counts only, with 6 streams, and skewed (partitions
-           past 4096 rows and a hot group in each)
+           through their own entry points here and count launches there;
+           also at 100M + 3 rows and on inputs offset by one element.  B4
+           at 1024-, 4096- and 16384-key tiles (16 keys a thread); B5 with
+           6 streams and with none; B6 counts only, with 6 streams, and
+           skewed (partitions past 4096 rows and a hot group in each)
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
            schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
@@ -293,10 +295,79 @@ def run_slot_kernels(n: int, rate: float):
                 line["tag"] = "int64 values"
             shapes.append(line)
         del gid, mask, f32, i32, i64, idx, w32, w64, buf, cases, args
+    shapes += slot_edges(n, rate)
     torch.cuda.empty_cache()
     if min(path.values()) < 1:
         raise AssertionError(f"a kernel never launched on its entry point: {path}")
     return shapes, path
+
+
+def slot_edges(n: int, rate: float, S: int = 1000):
+    """B3a-c at n + 3 rows (a ragged tail after the 4-row vectors) and on
+    views that start one element into their storage (a scalar head before
+    gid's first 16-byte boundary), each against its plain version."""
+    from heavydb_tpu_torch.kernels import groupby_slots as GS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 5)
+    m = n + 4
+    gid = torch.randint(-3, S + 3, (m,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    mask = torch.rand(m, device="cuda", generator=gen) < 0.9
+    f32 = torch.randn(m, device="cuda", generator=gen)
+    i64 = torch.randint(-2**40, 2**40, (m,), dtype=torch.int64, device="cuda",
+                        generator=gen)
+    i32 = i64.to(torch.int32)
+    lines = []
+    for tag, sl in (("n + 3 rows", slice(0, n + 3)),
+                    ("offset by one element", slice(1, n + 4))):
+        g, mk = gid[sl], mask[sl]
+        for name, v, tol, per_row in (
+                ("count_per_slot", None, None, 5), ("sum_f32_per_slot", f32, F32_TOL, 9),
+                ("sum_int_per_slot", i32, None, 9), ("sum_int_per_slot", i64, None, 13)):
+            args = (g, mk, S) if v is None else (g, v[sl], mk, S)
+            fn, plain = getattr(GS, name), getattr(GS, name + "_plain")
+            err = agree(fn(*args), plain(*args), tol)
+            lines.append(dict(
+                kernel=name, tag=tag, rows=g.shape[0], slots=S,
+                storage_offset=g.storage_offset(),
+                values=None if v is None else str(v.dtype)[6:], max_abs_err=err,
+                ms=timed(lambda: fn(*args), 10),
+                bound_ms=(g.shape[0] * per_row + S * 8) / rate * 1e3))
+    return lines
+
+
+def sass_atomics():
+    """The atomic instructions of each B3a-c kernel as built
+    (cuobjdump -sass of its library): whether the shared-memory f32 add of
+    B3b is a native ATOMS add or a compare-and-swap loop."""
+    import os
+    import re
+    import shutil
+
+    from heavydb_tpu_torch.kernels import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        raise FileNotFoundError("cuobjdump not found: the SASS phase cannot run")
+    text = subprocess.run([tool, "-sass", _build._lib_path("groupby_slots")],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, fn = {}, None
+    for ln in text.splitlines():
+        head = re.search(r"Function : (\S+)", ln)
+        if head:
+            fn = head.group(1)
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+        if fn and op and op.group(1).startswith(("ATOM", "RED")):
+            out.setdefault(fn, set()).add(op.group(1))
+    res = {k: sorted(v) for k, v in out.items()}
+    f32 = [ops for k, ops in res.items() if "SumF32Op" in k and "Lb1E" in k]
+    return {"kernels": res,
+            "sum_f32_private_shared_add": f32[0] if f32 else None,
+            "sum_f32_shared_add_is_cas_loop":
+                any("CAS" in o for o in f32[0]) if f32 else None}
 
 
 def check_tile_sort(keys, pays, got, want_keys, T):
@@ -358,6 +429,57 @@ def total_bytes(streams) -> int:
     return sum(4 if op in ("sumf", "min", "max") else 8 for _, op in streams)
 
 
+def b5_case(tag, gid, streams, pbits, rate):
+    """B5 against radix_partition_plain: counts and offsets exactly, every
+    valid row once in the partition of its top hash bits with its own hb
+    (and with streams, each output row carries its origin in the sumi
+    stream, so every stream must follow its row)."""
+    from heavydb_tpu_torch.kernels import radix_groupby as RG
+
+    n = gid.shape[0]
+    hb, parts, counts, offsets = RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits)
+    phb, _, pcounts, poffsets = RG.radix_partition_plain(gid, streams,
+                                                         SPARSE_SLOTS, pbits)
+    agree(counts, pcounts)
+    agree(offsets, poffsets)
+    nv = int(counts.sum())
+    region = torch.repeat_interleave(torch.arange(1 << pbits, device="cuda"), counts)
+    if streams:
+        rows = parts[1][:nv].long()
+        agree(torch.sort(rows).values, torch.arange(n, device="cuda"))
+        h_of = (gid.long()[rows] * RG._MULT) & 0xFFFFFFFF
+        agree(hb[:nv], (h_of ^ 0x80000000).to(torch.int32))
+        agree(h_of >> (32 - pbits), region)
+        for (v, _), o in zip(streams, parts):
+            agree(o[:nv], v[rows])
+        del rows, h_of
+    else:
+        # hb names the gid: each partition's multiset of hb equals the plain one
+        def keyed(x):
+            return torch.sort((region << 32) | (x[:nv].long() & 0xFFFFFFFF)).values
+
+        agree(keyed(hb), keyed(phb))
+        h = (hb[:nv].long() & 0xFFFFFFFF) ^ 0x80000000
+        agree(h >> (32 - pbits), region)
+    del hb, parts, phb, region
+    sb = stream_bytes(streams)
+    part_bytes = n * (4 + sb) + nv * (4 + sb)
+    p1, p2 = RG.level_bits(pbits)
+    # what the design moves: gid twice (histogram, level 1), the streams
+    # in, hb and the streams out, and with two levels once more through
+    # the scratch (read and written)
+    design = n * 4 + part_bytes + (2 * nv * (4 + sb) if p2 else 0)
+    return dict(
+        kernel="radix_partition", tag=tag, rows=n, slots=SPARSE_SLOTS,
+        partitions=1 << pbits, levels=[p1, p2], max_abs_err=0.0,
+        ms=timed(lambda: RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits), 10),
+        plain_ms=timed(lambda: RG.radix_partition_plain(gid, streams, SPARSE_SLOTS,
+                                                         pbits), 3),
+        library_ms=None, bound_ms=part_bytes / rate * 1e3,
+        design_bytes=design, design_bound_ms=design / rate * 1e3,
+        scratch_bytes=n * (4 + sb) if p2 else 0)
+
+
 def run_sort_kernels(n: int, rate: float):
     """B4, B5 and B6 against their plain versions at n rows."""
     from heavydb_tpu_torch.exec.batch import bucket
@@ -398,31 +520,8 @@ def run_sort_kernels(n: int, rate: float):
 
     gid, streams = sparse_streams(n, gen)
     pbits = RG.plan(n)
-    # B5 alone: each output row carries its origin in the sumi stream
-    hb, parts, counts, offsets = RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits)
-    phb, _, pcounts, poffsets = RG.radix_partition_plain(gid, streams,
-                                                         SPARSE_SLOTS, pbits)
-    agree(counts, pcounts)
-    agree(offsets, poffsets)
-    nv = int(counts.sum())
-    rows = parts[1][:nv].long()
-    agree(torch.sort(rows).values, torch.arange(n, device="cuda"))
-    h_of = (gid.long()[rows] * RG._MULT) & 0xFFFFFFFF
-    agree(hb[:nv], (h_of ^ 0x80000000).to(torch.int32))
-    region = torch.repeat_interleave(torch.arange(1 << pbits, device="cuda"), counts)
-    agree(h_of >> (32 - pbits), region)
-    for (v, _), o in zip(streams, parts):
-        agree(o[:nv], v[rows])
-    del phb, rows, h_of, region
-    part_bytes = n * (4 + stream_bytes(streams)) + nv * (4 + stream_bytes(streams))
-    shapes.append(dict(
-        kernel="radix_partition", tag="6 streams", rows=n, slots=SPARSE_SLOTS,
-        partitions=1 << pbits, max_abs_err=0.0,
-        ms=timed(lambda: RG.radix_partition(gid, streams, SPARSE_SLOTS, pbits), 10),
-        plain_ms=timed(lambda: RG.radix_partition_plain(gid, streams, SPARSE_SLOTS,
-                                                         pbits), 3),
-        library_ms=None, bound_ms=part_bytes / rate * 1e3))
-    del hb, parts, counts, offsets
+    for tag, ss in (("6 streams", streams), ("no streams", [])):
+        shapes.append(b5_case(tag, gid, ss, pbits, rate))
 
     cap = bucket(SPARSE_SLOTS)
 
@@ -445,9 +544,22 @@ def run_sort_kernels(n: int, rate: float):
         whole_ms = timed(lambda: RG.sparse_groupby(gid, ss, SPARSE_SLOTS, cap), 5)
         plain_ms = timed(lambda: RG.sparse_groupby_plain(gid, ss, SPARSE_SLOTS, cap), 3)
         pbits = RG.plan(n)
-        hb, parts, counts, offsets = RG.radix_partition(gid, ss, SPARSE_SLOTS, pbits)
-        nv = int(counts.sum())
         ops = [op for _, op in ss]
+        # device memory of each phase above what the caller holds: B5's
+        # scratch is freed before B6 allocates its larger stage arrays, so
+        # B5 must not set the radix tier's peak
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        hb, parts, counts, offsets = RG.radix_partition(gid, ss, SPARSE_SLOTS, pbits)
+        b5_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        RG.radix_group(hb, parts, ops, counts, offsets, cap)
+        tier_peak = torch.cuda.max_memory_allocated() - base
+        if b5_peak > tier_peak:
+            raise AssertionError(f"sparse_groupby {tag}: B5 peaks at {b5_peak} B, "
+                                 f"above B6's {tier_peak} B")
+        nv = int(counts.sum())
         group_ms = timed(lambda: RG.radix_group(hb, parts, ops, counts, offsets, cap), 5)
         launch = RG.group_launch(counts)
         shapes.append(dict(
@@ -458,6 +570,7 @@ def run_sort_kernels(n: int, rate: float):
             sparse_groupby_ms=whole_ms,
             sparse_groupby_bound_ms=(n * (4 + stream_bytes(ss)) + out_bytes)
             / rate * 1e3,
+            b5_peak_bytes=b5_peak, tier_peak_bytes=tier_peak,
             largest_partition=int(counts.max()),
             partitions_by_launch=[int((launch == j).sum())
                                   for j in range(len(RG.GROUP_LAUNCHES))]))
@@ -768,6 +881,9 @@ def main() -> None:
     info = gate.kernel_gate(torch.device("cuda"))
     emit({"phase": "build", "build_s": info["seconds"],
           "gate_s": time.perf_counter() - t0, "built": info["built"],
+          "source_s": info["source_seconds"],
+          "entry_functions": {k: v.count("Compiling entry function")
+                              for k, v in info["ptxas"].items()},
           "ptxas": {k: [ln for ln in v.splitlines() if "registers" in ln
                         or "spill" in ln] for k, v in info["ptxas"].items()}})
     # registers, shared memory and resident blocks per SM of B4-B6 as
@@ -778,6 +894,7 @@ def main() -> None:
         for n_pay in (0, 4):
             emit({"phase": "kernel_info", "kernel": "tile_sort", "tile": T,
                   "payloads": n_pay, **tile_sort.kernel_info(T, n_pay)})
+    emit({"phase": "sass", **sass_atomics()})
     slot_shapes, slot_launches = run_slot_kernels(ROWS, rate)
     shapes = run_kernels(ROWS, rate) + slot_shapes + run_sort_kernels(ROWS, rate)
     for s in shapes:
@@ -814,6 +931,9 @@ def main() -> None:
         if name in ("radix_partition", "radix_group"):
             row["kernel_info"] = {k: v for k, v in rg_info.items()
                                   if (k.startswith("part") == (name == "radix_partition"))}
+        if name == "radix_partition":
+            row.update(design_bytes=s["design_bytes"],
+                       design_bound_ms=s["design_bound_ms"])
         rows.append(row)
     emit({"kernels": rows})
 

@@ -9,6 +9,7 @@ time: the first CUDA launch (or `build_all`) builds.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -85,27 +86,32 @@ def _lib_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{_digest(SOURCES[name])}.so")
 
 
+def _nvcc(cmd, t0: float):
+    """Run one nvcc: (return code, its report, seconds from t0 to its end)."""
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True, timeout=600)
+    return p.returncode, p.stdout, time.perf_counter() - t0
+
+
 def build_all() -> Dict[str, object]:
     """Build every kernel library that is not built yet, one nvcc per
     source, all at once.  Returns BUILD_INFO.  Raises on any failure."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     todo = {n: _lib_path(n) for n in SOURCES if not os.path.exists(_lib_path(n))}
     t0 = time.perf_counter()
-    procs = {}
+    done = {}
     if todo:
         nvcc = nvcc_path()
-        for name, out in todo.items():
-            tmp = out + f".tmp{os.getpid()}"
-            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
-            procs[name] = (subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
-                tmp, out)
-    reports = {}
+        with concurrent.futures.ThreadPoolExecutor(len(todo)) as pool:
+            jobs = {}
+            for name, out in todo.items():
+                tmp = out + f".tmp{os.getpid()}"
+                cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCES[name])]
+                jobs[name] = (pool.submit(_nvcc, cmd, t0), tmp, out)
+            done = {name: (f.result(), tmp, out) for name, (f, tmp, out) in jobs.items()}
     failed = []
-    for name, (p, tmp, out) in procs.items():
-        text, _ = p.communicate(timeout=600)
-        reports[name] = text
-        if p.returncode != 0:
+    for name, ((rc, text, _), tmp, out) in done.items():
+        if rc != 0:
             failed.append(f"{name}:\n{text}")
         else:
             os.replace(tmp, out)
@@ -113,7 +119,9 @@ def build_all() -> Dict[str, object]:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["built"] = sorted(todo)
-    BUILD_INFO["ptxas"] = reports
+    # each source's nvcc, from the common start to its end
+    BUILD_INFO["source_seconds"] = {n: r[2] for n, (r, _, _) in done.items()}
+    BUILD_INFO["ptxas"] = {n: r[1] for n, (r, _, _) in done.items()}
     if todo:
         BUILD_INFO["nvcc"] = subprocess.run(
             [nvcc_path(), "--version"], capture_output=True, text=True
@@ -139,13 +147,13 @@ def _bind(lib: ctypes.CDLL, name: str):
         fns = {}
         for kind in ("count", "sum_f32", "sum_int"):
             f = getattr(lib, f"hdb_{kind}_per_slot")
-            f.argtypes = [p, p, p, i, ll, i, p, i, i, p]
+            f.argtypes = [p, p, p, i, ll, i, p, p]
             f.restype = ctypes.c_int
             fns[kind] = f
         return fns
     else:
         part = lib.hdb_radix_partition
-        part.argtypes = [p, ll, i, i, p, p, p, ctypes.POINTER(StreamSet), i, i,
+        part.argtypes = [p, ll, i, i, i, p, p, p, p, ctypes.POINTER(StreamSet),
                          i, p]
         part.restype = ctypes.c_int
         group = lib.hdb_radix_group

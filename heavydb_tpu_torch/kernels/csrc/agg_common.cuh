@@ -191,6 +191,22 @@ static inline int set_smem(const void* fn, size_t smem) {
   return 0;
 }
 
+// Blocks of a grid-stride launch of fn: as many as stay resident on all the
+// SMs at once (the occupancy calculator, after set_smem), at most `work`,
+// at least one.
+static inline int resident_grid(const void* fn, int block, size_t smem, long long work,
+                                int* grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, block, smem);
+  if (e != cudaSuccess) return (int)e;
+  long long g = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (g > work) g = work;
+  *grid = g < 1 ? 1 : (int)g;
+  return 0;
+}
+
 // What a launch of fn with `block` threads and `smem` dynamic bytes gets:
 // out = registers a thread, local (stack) bytes a thread, shared bytes a
 // block (static + dynamic), resident blocks per SM, threads a block.

@@ -9,17 +9,42 @@
 // hb = h ^ 2^31 orders as h under signed compares.
 //
 // B5, radix partition by the top `pbits` bits of h into P = 2^pbits
-// buckets, in two passes:
-//   part_hist_kernel     block-private shared counters (4 B x P <= 128 KB),
-//                        merged into counts[P] with global atomics;
-//   part_scatter_kernel  after an exclusive scan of counts (host glue),
-//                        each valid row takes a slot from its bucket's
-//                        atomic cursor and writes hb and every stream at its
-//                        own width into exactly sized regions.
-// The TPU kernel's fixed regions, sentinel padding, fringe rows and 1.45x
-// margin do not exist here.  Bound: bytes (gid read twice, hb and each
-// stream written once and read once); the scatter's random writes and the
-// per-row cursor atomics are the cost to watch.
+// partitions.  Scattering each row on its own (a cursor atomic a row, a
+// partial 32-byte sector write a row for hb and each stream) keeps 32768 x
+// (1 + streams) regions open, more than the L2 holds.  So B5 partitions in
+// at most two levels of <= 256 buckets each and writes whole runs, as the
+// TPU kernel's L1 / L2 passes do:
+//   part_hist_kernel  counts all P final partitions (1024 threads, 4 B x P
+//                     <= 128 KB of shared counters, gid read 16 B at a time),
+//                     merged into counts[P] with global atomics.  Their
+//                     exclusive scan (host glue) gives every final offset and
+//                     every level-1 region: bucket b1 spans
+//                     [offsets[b1 << p2], offsets[(b1 + 1) << p2]);
+//   part_l1_kernel    tiles of PT_TILE input rows: a block ranks its tile's
+//                     valid rows by level-1 bucket (the top p1 bits) with a
+//                     256-bin shared histogram and a block scan, reserves one
+//                     range per non-empty bucket with one global atomicAdd on
+//                     that bucket's cursor, then moves hb and each stream in
+//                     turn: a coalesced load, a store into shared memory at
+//                     the row's rank, and each bucket's run written from
+//                     shared memory by consecutive threads to consecutive
+//                     addresses.  One column is staged at a time, so shared
+//                     memory (PT_TILE x (widest column + 1) B, 80-144 KB)
+//                     does not grow with the stream count.  With one level
+//                     (pbits <= 8) it writes the final arrays; else a
+//                     scratch set laid out like them;
+//   part_l2_kernel    the same inside each level-1 region, by the low p2
+//                     bits, from the scratch into the final arrays.  Tiles
+//                     never straddle two regions: each block scans the
+//                     regions' tile counts on the device and blocks stride
+//                     over all tiles, so a region that holds most rows (a hot
+//                     key) spreads over every SM.
+// Each row moves twice (scratch, then final) and gid is read twice; about
+// 12 GB at 10^8 rows and 25 B of streams, against the 5.8 GB that one pass
+// must move.  The scratch, n x (4 + stream bytes) (2.9 GB there), is
+// allocated by the wrapper for the time of the call; the kernels allocate
+// nothing.  The TPU kernel's fixed regions, sentinel padding, fringe
+// rows and 1.45x margin do not exist here.
 //
 // B6, group_kernel, one partition at a time per block.  Bound: bytes (the
 // partitioned rows read once, one record per group written twice, ~0.16 ms
@@ -101,56 +126,332 @@ __device__ __forceinline__ void copy_elem(void* dst, long long d, const void* sr
   }
 }
 
+// Let fn take `smem` dynamic bytes beside its static ones (whose sum may
+// pass 48 KB even where smem alone does not) and prefer shared memory to L1.
+static int prefer_shared(const void* fn, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                   (int)cudaSharedmemCarveoutMaxShared);
+}
+
 // ---------------------------------------------------------------------------
 // B5
 // ---------------------------------------------------------------------------
 
-__global__ void part_hist_kernel(const int* __restrict__ gid, long long n, int S, int pbits,
-                                 unsigned long long* __restrict__ counts) {
+#define PH_BLOCK 1024  // part_hist_kernel's threads
+#define PH_VECS 4      // 16-byte gid loads a thread has in flight
+// part_l1 / l2 threads (one block of 1024 an SM, at most 64 registers a
+// thread) and the rows each ranks in a tile of 16384, whose runs then
+// average 64 rows at 256 buckets (8192-row tiles lost 18 % at 6 streams,
+// PERF.md section 6).
+#define PT_BLOCK 1024
+#define PT_E 16
+#define PT_TILE (PT_BLOCK * PT_E)
+#define PT_MAXB 256    // buckets of a level
+
+__global__ void __launch_bounds__(PH_BLOCK)
+    part_hist_kernel(const int* __restrict__ gid, long long n, int S, int pbits,
+                     unsigned long long* __restrict__ counts) {
   extern __shared__ unsigned int s_hist[];
   const int P = 1 << pbits;
-  for (int i = threadIdx.x; i < P; i += blockDim.x) s_hist[i] = 0u;
+  for (int i = threadIdx.x; i < P; i += PH_BLOCK) s_hist[i] = 0u;
   __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    const int g = gid[r];
-    if ((unsigned)g >= (unsigned)S) continue;
-    atomicAdd(&s_hist[rg_bucket(rg_hash(g), pbits)], 1u);
+  auto add = [&](int g) {
+    if ((unsigned)g < (unsigned)S) atomicAdd(&s_hist[rg_bucket(rg_hash(g), pbits)], 1u);
+  };
+  const long long tid = (long long)blockIdx.x * PH_BLOCK + threadIdx.x;
+  const long long stride = (long long)gridDim.x * PH_BLOCK;
+  // scalar rows before the first 16-byte boundary and after the last
+  long long head = (long long)(((16 - ((uintptr_t)gid & 15)) & 15) / 4);
+  head = head < n ? head : n;
+  const long long nvec = (n - head) / 4;
+  if (tid < head) add(gid[tid]);
+  for (long long r = head + 4 * nvec + tid; r < n; r += stride) add(gid[r]);
+  const int4* g4 = (const int4*)(gid + head);
+  for (long long q0 = tid; q0 < nvec; q0 += stride * PH_VECS) {
+    int4 x[PH_VECS];
+#pragma unroll
+    for (int u = 0; u < PH_VECS; ++u) {
+      const long long q = q0 + u * stride;
+      x[u] = q < nvec ? g4[q] : make_int4(-1, -1, -1, -1);
+    }
+#pragma unroll
+    for (int u = 0; u < PH_VECS; ++u) {
+      add(x[u].x);
+      add(x[u].y);
+      add(x[u].z);
+      add(x[u].w);
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < P; i += blockDim.x)
+  for (int i = threadIdx.x; i < P; i += PH_BLOCK)
     if (s_hist[i]) atomicAdd(counts + i, (unsigned long long)s_hist[i]);
 }
 
-__global__ void part_scatter_kernel(const int* __restrict__ gid, long long n, int S, int pbits,
-                                    unsigned long long* __restrict__ cursor,
-                                    int* __restrict__ hb_out, StreamSet ss) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    const int g = gid[r];
-    if ((unsigned)g >= (unsigned)S) continue;
-    const unsigned h = rg_hash(g);
-    const long long pos = (long long)atomicAdd(cursor + rg_bucket(h, pbits), 1ull);
-    hb_out[pos] = (int)(h ^ 0x80000000u);
-    for (int k = 0; k < ss.n; ++k) copy_elem(ss.out[k], pos, ss.vals[k], r, elem_bytes(ss.dt[k]));
+// A block's bins for one tile.
+struct PartBins {
+  unsigned hist[PT_MAXB];  // rows of each bucket in the tile
+  unsigned base[PT_MAXB];  // their exclusive scan: a bucket's first tile rank
+  long long adj[PT_MAXB];  // rank j of bucket b goes to output row adj[b] + j
+  unsigned wtot[PT_MAXB / 32];
+};
+
+// Exclusive scan of in[0, m) (m <= PT_MAXB) into out; returns the total.
+// Every thread of the block calls it; it ends with a barrier.
+__device__ __forceinline__ unsigned scan_bins(const unsigned* in, unsigned* out, int m,
+                                              unsigned* wtot) {
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  unsigned x = 0, incl = 0;
+  if (t < PT_MAXB) {
+    x = t < m ? in[t] : 0u;
+    incl = x;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const unsigned y = __shfl_up_sync(HDB_FULL_MASK, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) wtot[t >> 5] = incl;
+  }
+  __syncthreads();
+  unsigned total = 0;
+#pragma unroll
+  for (int w = 0; w < PT_MAXB / 32; ++w) {
+    if (t < PT_MAXB && w == (t >> 5)) x = total + incl - x;
+    total += wtot[w];
+  }
+  if (t < m) out[t] = x;
+  __syncthreads();
+  return total;
+}
+
+// Level 1 reads gid (rows outside [0, S) dropped) and writes hb; level 2
+// reads hb.
+template <bool FROM_GID>
+__device__ __forceinline__ bool row_hash(int key, int S, unsigned* h) {
+  if (FROM_GID) {
+    *h = rg_hash(key);
+    return (unsigned)key < (unsigned)S;
+  }
+  *h = (unsigned)key ^ 0x80000000u;
+  return true;
+}
+
+// Each bucket's run of the staged tile out to its reserved range, by
+// consecutive threads to consecutive addresses.  Every thread calls it
+// after staging its rows; it ends with a barrier.
+template <typename W>
+__device__ __forceinline__ void write_runs(const W* stage, const unsigned char* bucket_of,
+                                           const long long* adj, int cnt, W* __restrict__ dst) {
+  __syncthreads();
+  for (int j = threadIdx.x; j < cnt; j += PT_BLOCK) dst[adj[bucket_of[j]] + j] = stage[j];
+  __syncthreads();
+}
+
+// One stream of a tile: each thread's rows into shared memory at their
+// tile ranks (pos[k] of its k-th row, -1: no row), then out in runs.
+template <typename W>
+__device__ __forceinline__ void move_column(const W* __restrict__ src, long long r0,
+                                            const int (&pos)[PT_E], W* stage,
+                                            const unsigned char* bucket_of, const long long* adj,
+                                            int cnt, W* __restrict__ dst) {
+  constexpr int CH = 8;  // loads a thread has in flight
+#pragma unroll
+  for (int k0 = 0; k0 < PT_E; k0 += CH) {
+    W v[CH];
+#pragma unroll
+    for (int k = 0; k < CH; ++k)
+      v[k] = pos[k0 + k] >= 0 ? src[r0 + (k0 + k) * PT_BLOCK + threadIdx.x] : (W)0;
+#pragma unroll
+    for (int k = 0; k < CH; ++k)
+      if (pos[k0 + k] >= 0) stage[pos[k0 + k]] = v[k];
+  }
+  write_runs(stage, bucket_of, adj, cnt, dst);
+}
+
+// Partition the tile of `rows` rows from r0: bucket (part >> lo) & (nb - 1)
+// of each valid row, part being its final partition; a bucket's range is
+// reserved at cursor[cbase + (bucket << cshift)].  smem: the staging area
+// (PT_TILE x the widest column) and then each tile rank's bucket.
+template <bool FROM_GID>
+__device__ __forceinline__ void part_tile(const int* __restrict__ keys, long long r0, int rows,
+                                          int S, int pbits, int lo, int nb, long long cbase,
+                                          int cshift, unsigned long long* __restrict__ cursor,
+                                          int* __restrict__ hb_out, const StreamSet& ss,
+                                          PartBins& bins, unsigned char* smem, int stage_w) {
+  const int tid = threadIdx.x;
+  unsigned char* bucket_of = smem + (size_t)PT_TILE * stage_w;
+  for (int b = tid; b < nb; b += PT_BLOCK) bins.hist[b] = 0u;
+  __syncthreads();
+  int key[PT_E];
+#pragma unroll
+  for (int k = 0; k < PT_E; ++k) {
+    const int i = k * PT_BLOCK + tid;
+    key[k] = i < rows ? keys[r0 + i] : 0;
+  }
+  // pos = bucket << 16 | rank within the bucket, until the bases are known
+  int pos[PT_E];
+#pragma unroll
+  for (int k = 0; k < PT_E; ++k) {
+    unsigned h;
+    pos[k] = -1;
+    if (k * PT_BLOCK + tid < rows && row_hash<FROM_GID>(key[k], S, &h)) {
+      const unsigned b = (rg_bucket(h, pbits) >> lo) & (unsigned)(nb - 1);
+      pos[k] = (int)(b << 16 | atomicAdd(&bins.hist[b], 1u));
+    }
+  }
+  __syncthreads();
+  const int cnt = (int)scan_bins(bins.hist, bins.base, nb, bins.wtot);
+  for (int b = tid; b < nb; b += PT_BLOCK) {
+    const unsigned c = bins.hist[b];
+    if (c)
+      bins.adj[b] = (long long)atomicAdd(cursor + cbase + ((long long)b << cshift),
+                                         (unsigned long long)c) -
+                    (long long)bins.base[b];
+  }
+#pragma unroll
+  for (int k = 0; k < PT_E; ++k) {
+    if (pos[k] < 0) continue;
+    const int b = pos[k] >> 16;
+    const int p = (int)bins.base[b] + (pos[k] & 0xFFFF);
+    bucket_of[p] = (unsigned char)b;
+    pos[k] = p;
+  }
+  // hb from the keys still in registers (write_runs' first barrier
+  // publishes adj and bucket_of)
+  int* st = (int*)smem;
+#pragma unroll
+  for (int k = 0; k < PT_E; ++k)
+    if (pos[k] >= 0) st[pos[k]] = FROM_GID ? (int)(rg_hash(key[k]) ^ 0x80000000u) : key[k];
+  write_runs(st, bucket_of, bins.adj, cnt, hb_out);
+  for (int c = 0; c < ss.n; ++c) {
+    switch (elem_bytes(ss.dt[c])) {
+      case 1:
+        move_column((const unsigned char*)ss.vals[c], r0, pos, smem, bucket_of, bins.adj, cnt,
+                    (unsigned char*)ss.out[c]);
+        break;
+      case 2:
+        move_column((const unsigned short*)ss.vals[c], r0, pos, (unsigned short*)smem, bucket_of,
+                    bins.adj, cnt, (unsigned short*)ss.out[c]);
+        break;
+      case 4:
+        move_column((const unsigned*)ss.vals[c], r0, pos, (unsigned*)smem, bucket_of, bins.adj,
+                    cnt, (unsigned*)ss.out[c]);
+        break;
+      default:
+        move_column((const unsigned long long*)ss.vals[c], r0, pos, (unsigned long long*)smem,
+                    bucket_of, bins.adj, cnt, (unsigned long long*)ss.out[c]);
+        break;
+    }
   }
 }
 
-extern "C" int hdb_radix_partition(const int* gid, long long n, int S, int pbits,
-                                   unsigned long long* counts, unsigned long long* cursor,
-                                   int* hb_out, const StreamSet* ss, int pass, int grid,
-                                   int block, void* stream) {
-  if (pbits < 0 || pbits > 15) return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  if (pass == 0) {
-    size_t smem = (size_t)sizeof(unsigned int) << pbits;
-    int rc = set_smem((const void*)part_hist_kernel, smem);
-    if (rc) return rc;
-    part_hist_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(gid, n, S, pbits, counts);
-  } else {
-    part_scatter_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(gid, n, S, pbits, cursor,
-                                                                  hb_out, *ss);
+// Level 1: the input in tiles of PT_TILE rows, by the top p1 = pbits - p2
+// bits; cursor[b1 << p2] starts at offsets[b1 << p2].
+__global__ void __launch_bounds__(PT_BLOCK, 1)
+    part_l1_kernel(const int* __restrict__ gid, long long n, int S, int pbits, int p2,
+                   unsigned long long* __restrict__ cursor, int* __restrict__ hb_out,
+                   StreamSet ss, int stage_w) {
+  extern __shared__ __align__(16) unsigned char pt_smem[];
+  __shared__ PartBins bins;
+  const long long ntiles = (n + PT_TILE - 1) / PT_TILE;
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long r0 = t * PT_TILE;
+    const int rows = (int)(n - r0 < PT_TILE ? n - r0 : PT_TILE);
+    part_tile<true>(gid, r0, rows, S, pbits, p2, 1 << (pbits - p2), 0, p2, cursor, hb_out, ss,
+                    bins, pt_smem, stage_w);
   }
+}
+
+// Level 2: each level-1 region of the scratch (hb_in, ss.vals) in tiles of
+// at most PT_TILE rows, by the low p2 bits, into the final arrays; cursor
+// starts at offsets.
+__global__ void __launch_bounds__(PT_BLOCK, 1)
+    part_l2_kernel(const int* __restrict__ hb_in, const unsigned long long* __restrict__ counts,
+                   const long long* __restrict__ offsets, int pbits, int p2,
+                   unsigned long long* __restrict__ cursor, int* __restrict__ hb_out,
+                   StreamSet ss, int stage_w) {
+  extern __shared__ __align__(16) unsigned char pt_smem[];
+  __shared__ PartBins bins;
+  __shared__ long long s_r0[PT_MAXB], s_r1[PT_MAXB];  // each region's rows
+  __shared__ unsigned s_t0[PT_MAXB];                  // its first tile
+  const int nr = 1 << (pbits - p2);
+  const int P = 1 << pbits;
+  for (int r = threadIdx.x; r < nr; r += PT_BLOCK) {
+    const long long a = offsets[r << p2];
+    const long long b =
+        r + 1 < nr ? offsets[(r + 1) << p2] : offsets[P - 1] + (long long)counts[P - 1];
+    s_r0[r] = a;
+    s_r1[r] = b;
+    bins.hist[r] = (unsigned)((b - a + PT_TILE - 1) / PT_TILE);
+  }
+  __syncthreads();
+  const unsigned ntiles = scan_bins(bins.hist, s_t0, nr, bins.wtot);
+  for (unsigned t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    // the region of tile t: the last r with s_t0[r] <= t (empty regions
+    // share their successor's first tile and are passed over)
+    int lo = 0, hi = nr - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (s_t0[mid] <= t) lo = mid;
+      else hi = mid - 1;
+    }
+    const long long r0 = s_r0[lo] + (long long)(t - s_t0[lo]) * PT_TILE;
+    const int rows = (int)(s_r1[lo] - r0 < PT_TILE ? s_r1[lo] - r0 : PT_TILE);
+    part_tile<false>(hb_in, r0, rows, 0, pbits, 0, 1 << p2, (long long)lo << p2, 0, cursor,
+                     hb_out, ss, bins, pt_smem, stage_w);
+  }
+}
+
+// Bytes of the widest column a tile stages: hb, or a wider stream.
+static int stage_width(const StreamSet* ss) {
+  int w = 4;
+  for (int k = 0; ss != nullptr && k < ss->n; ++k)
+    w = elem_bytes(ss->dt[k]) > w ? elem_bytes(ss->dt[k]) : w;
+  return w;
+}
+
+static size_t part_tile_smem(int stage_w) { return (size_t)PT_TILE * (stage_w + 1); }
+
+// pass 0: part_hist_kernel into counts (zeroed by the caller).  pass 1:
+// level 1 from keys = gid, cursor = a copy of offsets; into the final
+// arrays (hb_out, ss->out) when p2 = 0, else into the scratch ones.
+// pass 2: level 2 from keys = the scratch hb and ss->vals = the scratch
+// streams into the final arrays, cursor = a fresh copy of offsets.  Each
+// launch is a grid-stride over its tiles, as many blocks as stay resident.
+extern "C" int hdb_radix_partition(const int* keys, long long n, int S, int pbits, int p2,
+                                   unsigned long long* counts, const long long* offsets,
+                                   unsigned long long* cursor, int* hb_out, const StreamSet* ss,
+                                   int pass, void* stream) {
+  if (pbits < 0 || pbits > 15 || p2 < 0 || pbits - p2 > 8 || p2 > 8 || pass < 0 || pass > 2 ||
+      (pass == 2 && p2 == 0))
+    return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  int grid = 1;
+  int rc;
+  if (pass == 0) {
+    const void* fn = (const void*)part_hist_kernel;
+    const size_t smem = (size_t)sizeof(unsigned int) << pbits;
+    if ((rc = prefer_shared(fn, smem)) ||
+        (rc = resident_grid(fn, PH_BLOCK, smem, (n + 4095) / 4096, &grid)))
+      return rc;
+    part_hist_kernel<<<grid, PH_BLOCK, smem, s>>>(keys, n, S, pbits, counts);
+    return (int)cudaGetLastError();
+  }
+  const int stage_w = stage_width(ss);
+  const size_t smem = part_tile_smem(stage_w);
+  const long long tiles = (n + PT_TILE - 1) / PT_TILE + (pass == 2 ? (1 << (pbits - p2)) : 0);
+  const void* fn = pass == 1 ? (const void*)part_l1_kernel : (const void*)part_l2_kernel;
+  if ((rc = prefer_shared(fn, smem)) || (rc = resident_grid(fn, PT_BLOCK, smem, tiles, &grid)))
+    return rc;
+  if (pass == 1)
+    part_l1_kernel<<<grid, PT_BLOCK, smem, s>>>(keys, n, S, pbits, p2, cursor, hb_out, *ss,
+                                                stage_w);
+  else
+    part_l2_kernel<<<grid, PT_BLOCK, smem, s>>>(keys, counts, offsets, pbits, p2, cursor, hb_out,
+                                                *ss, stage_w);
   return (int)cudaGetLastError();
 }
 
@@ -431,13 +732,6 @@ static const void* group_fn(int max_rows, int* block) {
   return *block == 256 ? (const void*)group_kernel<256> : (const void*)group_kernel<512>;
 }
 
-static int group_prepare(const void* fn, size_t smem) {
-  int rc = set_smem(fn, smem);
-  if (rc) return rc;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                   (int)cudaSharedmemCarveoutMaxShared);
-}
-
 // pass 0: group_kernel over the partitions of min_rows..max_rows rows
 // (max_rows a power of two <= 8192), `grid` blocks; pass 1: compact_kernel.
 extern "C" int hdb_radix_group(const int* hb, const StreamSet* parts, const StreamSet* stage,
@@ -454,7 +748,7 @@ extern "C" int hdb_radix_group(const int* hb, const StreamSet* parts, const Stre
     int block;
     const void* fn = group_fn(max_rows, &block);
     const size_t smem = group_smem_bytes(max_rows);
-    int rc = group_prepare(fn, smem);
+    int rc = prefer_shared(fn, smem);
     if (rc) return rc;
     cudaStream_t s = (cudaStream_t)stream;
     if (block == 256)
@@ -473,19 +767,23 @@ extern "C" int hdb_radix_group(const int* hb, const StreamSet* parts, const Stre
 }
 
 // kernel_info of one kernel as it is launched: which = 0 part_hist_kernel
-// (arg = pbits), 1 part_scatter_kernel, 2 group_kernel (arg = max_rows),
-// 3 compact_kernel.
+// (arg = pbits), 1 part_l1_kernel and 4 part_l2_kernel (arg = the widest
+// column's bytes), 2 group_kernel (arg = max_rows), 3 compact_kernel.
 extern "C" int hdb_radix_info(int which, int arg, int* out) {
+  const void* fn;
+  int block;
+  size_t smem = 0;
   switch (which) {
-    case 0: return kernel_info((const void*)part_hist_kernel, 256, (size_t)4 << arg, out);
-    case 1: return kernel_info((const void*)part_scatter_kernel, 256, 0, out);
-    case 2: {
-      int block;
-      const void* fn = group_fn(arg, &block);
-      const size_t smem = group_smem_bytes(arg);
-      int rc = group_prepare(fn, smem);
-      return rc ? rc : kernel_info(fn, block, smem, out);
-    }
-    default: return kernel_info((const void*)compact_kernel, 128, 0, out);
+    case 0: fn = (const void*)part_hist_kernel, block = PH_BLOCK, smem = (size_t)4 << arg; break;
+    case 1:
+    case 4:
+      fn = which == 1 ? (const void*)part_l1_kernel : (const void*)part_l2_kernel;
+      block = PT_BLOCK;
+      smem = part_tile_smem(arg);
+      break;
+    case 2: fn = group_fn(arg, &block), smem = group_smem_bytes(arg); break;
+    default: fn = (const void*)compact_kernel, block = 128; break;
   }
+  int rc = prefer_shared(fn, smem);
+  return rc ? rc : kernel_info(fn, block, smem, out);
 }

@@ -46,8 +46,9 @@ def _same(a, b, what: str):
 
 
 def _check_sorts(device):
-    """B4 on distinct keys (so payloads compare exactly) and B5 + B6 over
-    four partitions with every stream class, through both B6 launches."""
+    """B4 on distinct keys (so payloads compare exactly), B5 alone with two
+    levels, and B5 + B6 over four partitions with every stream class,
+    through both B6 launches."""
     rng = np.random.default_rng(4)
     n = 4096
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
@@ -66,6 +67,23 @@ def _check_sorts(device):
         return [(cm, "count"), (i64, "sumi"), (f, "sumf"), (f, "sumd"),
                 (torch.where(cm, f, float("inf")), "min"),
                 (torch.where(cm, i32, -2**31), "max")]
+
+    # B5 alone with two levels (2^9 partitions: 5 + 4 bits); the row id
+    # stream names each output row's origin
+    rows = torch.arange(n, dtype=torch.int32, device=device)
+    got = radix_groupby.radix_partition(gid, [(rows, "sumi"), (f, "sumf")], 3000, 9)
+    want = radix_groupby.radix_partition_plain(gid, [(rows, "sumi"), (f, "sumf")],
+                                               3000, 9)
+    _same(got[2], want[2], "radix_partition counts")
+    nv = int(want[2].sum())
+    region = torch.repeat_interleave(torch.arange(1 << 9, device=device), want[2])
+
+    def by_row(hb, parts):
+        order = torch.argsort(region * n + parts[0][:nv].long())
+        return [hb[:nv][order]] + [p[:nv][order] for p in parts]
+
+    for a, b in zip(by_row(got[0], got[1]), by_row(want[0], want[1])):
+        _same(a, b, "radix_partition rows")
 
     # then a hot group of 4400 rows, whose partition (~6800 rows) takes B6's
     # second launch; its float values are multiples of 1/8, so every float32
@@ -121,10 +139,13 @@ def kernel_gate(device) -> dict:
             gid, mask, _, f, i32, i64 = _inputs(device, n, num_slots, num_slots + 1)
             for kind, vals in (("count", None), ("sum_f32", f), ("sum_int", i32),
                                ("sum_int", i64)):
-                got = groupby_slots.launch(kind, gid, vals, mask, num_slots)
-                want = groupby_slots.plain(kind, gid, vals, mask, num_slots)
-                _same(got, want, f"groupby_slots {kind} at {num_slots} slots, "
-                      f"{None if vals is None else vals.dtype} values")
+                # aligned rows, and views one element in (a scalar head)
+                for sl in (slice(None), slice(1, None)):
+                    v = None if vals is None else vals[sl]
+                    got = groupby_slots.launch(kind, gid[sl], v, mask[sl], num_slots)
+                    want = groupby_slots.plain(kind, gid[sl], v, mask[sl], num_slots)
+                    _same(got, want, f"groupby_slots {kind} at {num_slots} slots, "
+                          f"{None if vals is None else vals.dtype} values")
         counters = (tile_sort.sort_tiles, radix_groupby.radix_partition,
                     radix_groupby.radix_group)
         before = [c.launches for c in counters]

@@ -5,8 +5,11 @@ Port of heavydb_tpu/kernels/groupby_pallas.py `count_per_slot`,
 `sum_f32_per_slot` and `sum_int_per_slot` (a [block, slots] one-hot summed
 on the TPU's matrix unit).  csrc/groupby_slots.cu is a histogram: block-
 private shared-memory cells while the slots fit in 96 KB, global atomics
-above.  It is bound by the bytes it reads: gid (4 B/row), the mask
-(1 B/row) and the values (4 or 8 B/row).  No SQL route calls these, in the
+above, each thread loading 4 rows at a time with several such loads in
+flight.  It is bound by the bytes it reads: gid (4 B/row), the mask
+(1 B/row) and the values (4 or 8 B/row).  The kernel picks its grid (as
+many 256-thread blocks as stay resident) and its vector or one-row path
+(by the alignment of the inputs).  No SQL route calls these, in the
 port as in the reference; the query engine's counts and sums go through
 lane_agg and radix_hist.
 
@@ -113,8 +116,8 @@ def launch(kind: str, gid, values, mask, num_slots: int, counter=None):
                         mask.data_ptr() if mask is not None else None,
                         values.data_ptr() if values is not None else None,
                         _build.DT_CODES[str(vdt)[6:]] if vdt is not None else -1,
-                        n, num_slots, out.data_ptr(), _build.grid_for(n, dev, 4),
-                        256, _build.stream_ptr(dev)), f"{kind}_per_slot")
+                        n, num_slots, out.data_ptr(), _build.stream_ptr(dev)),
+                     f"{kind}_per_slot")
         if counter is not None:
             counter.launches += 1
     return out.to(torch.float32) if kind == "sum_f32" else out

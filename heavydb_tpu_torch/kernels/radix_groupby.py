@@ -4,9 +4,12 @@ and B6, entry point `sparse_groupby`).
 Port of heavydb_tpu/kernels/radix_groupby.py.  csrc/radix_groupby.cu
 holds both kernels:
 
-- `radix_partition` (B5, TPU `_partition_call`): a histogram and a scatter
-  that move every valid row's biased hash hb and its streams into one
-  exactly sized region per bucket of the top `pbits` hash bits;
+- `radix_partition` (B5, TPU `_partition_call`): a histogram of the
+  2^pbits partitions, then one or two levels of at most 256 buckets
+  (`level_bits`) that move every valid row's biased hash hb and its
+  streams, a tile of PART_TILE rows at a time ranked in shared memory, in
+  whole runs into one exactly sized region per partition; two levels go
+  through a scratch copy of hb and the streams;
 - `radix_group` (B6, TPU `_groupby_call`): a block inserts its
   partition's keys into a hash table in shared memory, sorts only the
   distinct keys (B4's network) to rank the groups, adds each operand per
@@ -59,6 +62,11 @@ GROUP_LAUNCHES = ((0, SMALL_TILE), (SMALL_TILE + 1, GROUP_TILE))
 _TARGET_FILL = GROUP_TILE // 2
 # B5's histogram keeps 4 B per bucket in shared memory: 2^15 x 4 B = 128 KB
 MAX_PART_BITS = 15
+# most bits one B5 level partitions by: 256 buckets, so a tile's runs
+# average PART_TILE / 256 = 64 rows
+LEVEL_BITS = 8
+# rows a B5 block ranks at once (radix_groupby.cu PT_TILE)
+PART_TILE = 16384
 MAX_STREAMS = _build.MAX_STREAMS
 
 
@@ -68,6 +76,16 @@ def plan(n: int) -> int:
     if n <= _TARGET_FILL:
         return 0
     return min(MAX_PART_BITS, math.ceil(math.log2(n / _TARGET_FILL)))
+
+
+def level_bits(pbits: int):
+    """B5's levels for 2^pbits partitions: (p1, p2) bits, level 1 by the
+    top p1 bits and level 2 by the next p2 (p2 = 0: one level).  Above
+    LEVEL_BITS, p1 = ceil(pbits / 2), as the reference's `_plan` splits."""
+    if pbits <= LEVEL_BITS:
+        return pbits, 0
+    p1 = (pbits + 1) // 2
+    return p1, pbits - p1
 
 
 def group_launch(counts):
@@ -104,6 +122,12 @@ def _total_dtype(v, op):
     return v.dtype
 
 
+def record_dtype(v, op):
+    """dtype of B6's per-row stage and per-group record of stream (v, op):
+    MIN / MAX records are int32 order keys until radix_group decodes them."""
+    return torch.int32 if op in ("min", "max") else _total_dtype(v, op)
+
+
 def sparse_groupby(gid, streams, num_slots: int, cap: int):
     streams = [(v.contiguous(), op) for v, op in streams]
     _check(gid, streams, num_slots, cap)
@@ -132,7 +156,16 @@ def radix_partition(gid, streams, num_slots: int, pbits: int):
     """B5 on CUDA: (hb int32[n], partitioned streams [n] each, counts
     int64[P], offsets int64[P]).  Partition p holds rows
     [offsets[p], offsets[p] + counts[p]); entries past the valid rows are
-    unset."""
+    unset.  With two levels (`level_bits`) it takes a scratch copy of hb
+    and the streams, n x (4 + stream bytes), for the time of the call: it
+    is freed before `radix_group` allocates its stage arrays, n x (12 +
+    record bytes), larger for every stream class (`record_dtype`), so it
+    does not raise `sparse_groupby`'s peak memory.  CPU tensors take `radix_partition_plain` (its arrays hold only the
+    valid rows)."""
+    if gid.device.type == "cpu":
+        return radix_partition_plain(gid, streams, num_slots, pbits)
+    if gid.device.type != "cuda":
+        raise ValueError(f"radix_partition: no kernel for device {gid.device}")
     dev = gid.device
     n = gid.shape[0]
     P = 1 << pbits
@@ -142,20 +175,31 @@ def radix_partition(gid, streams, num_slots: int, pbits: int):
     if n == 0:
         return hb, parts, counts, torch.zeros_like(counts)
     fn = _build.entry("radix_groupby")
-    ss = _stream_set([v for v, _ in streams], parts, [op for _, op in streams])
     sp = _build.stream_ptr(dev)
-    # the histogram's shared counters take up to 128 KB: one block per SM
-    grid = _build.grid_for(n, dev, 1 if pbits > 12 else 4)
-    _build.check(fn.partition(gid.data_ptr(), n, num_slots, pbits,
-                              counts.data_ptr(), None, None, ctypes.byref(ss),
-                              0, grid, 256, sp), "radix_partition histogram")
+    vals = [v for v, _ in streams]
+    ops = [op for _, op in streams]
+    _, p2 = level_bits(pbits)
+
+    def run(keys, outs, ins, dst_hb, offsets, cursor, pass_, what):
+        ss = _stream_set(ins, outs, ops)
+        _build.check(fn.partition(
+            keys.data_ptr(), n, num_slots, pbits, p2, counts.data_ptr(),
+            None if offsets is None else offsets.data_ptr(),
+            None if cursor is None else cursor.data_ptr(),
+            None if dst_hb is None else dst_hb.data_ptr(), ctypes.byref(ss),
+            pass_, sp), f"radix_partition {what}")
+
+    run(gid, [], [], None, None, None, 0, "histogram")
     offsets = torch.cumsum(counts, 0) - counts
     cursor = offsets.clone()
-    _build.check(fn.partition(gid.data_ptr(), n, num_slots, pbits, None,
-                              cursor.data_ptr(), hb.data_ptr(),
-                              ctypes.byref(ss), 1,
-                              _build.grid_for(n, dev, 8), 256, sp),
-                 "radix_partition scatter")
+    if p2 == 0:
+        run(gid, parts, vals, hb, offsets, cursor, 1, "level 1")
+    else:
+        s_hb = torch.empty_like(hb)
+        s_parts = [torch.empty_like(v) for v in vals]
+        run(gid, s_parts, vals, s_hb, offsets, cursor, 1, "level 1")
+        cursor.copy_(offsets)
+        run(s_hb, parts, s_parts, hb, offsets, cursor, 2, "level 2")
     radix_partition.launches += 1
     return hb, parts, counts, offsets
 
@@ -171,9 +215,7 @@ def radix_group(hb, parts, ops, counts, offsets, cap: int):
     P = counts.shape[0]
     stage_hb = torch.empty(n, dtype=torch.int32, device=dev)
     stage_len = torch.empty(n, dtype=torch.int64, device=dev)
-    # MIN / MAX records are int32 order keys until they are decoded below
-    rec_dt = [torch.int32 if op in ("min", "max") else _total_dtype(v, op)
-              for v, op in zip(parts, ops)]
+    rec_dt = [record_dtype(v, op) for v, op in zip(parts, ops)]
     stage = [torch.empty(n, dtype=dt, device=dev) for dt in rec_dt]
     ng_part = torch.zeros(P, dtype=torch.int32, device=dev)
     flag = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -222,13 +264,17 @@ radix_group.launches = 0
 def kernel_info() -> dict:
     """Registers, local and shared bytes, resident blocks per SM and
     threads of B5's and B6's kernels as they are launched at 2^15
-    partitions (CUDA only)."""
+    partitions, B5's levels with 4- and 8-byte widest columns (CUDA
+    only)."""
     fn = _build.entry("radix_groupby")
     return {name: _build.launch_info(
         lambda out, w=which, a=arg: fn.info(w, a, out), name)
         for name, which, arg in (
             ("part_hist_kernel", 0, MAX_PART_BITS),
-            ("part_scatter_kernel", 1, 0),
+            ("part_l1_kernel, 4-byte columns", 1, 4),
+            ("part_l1_kernel, 8-byte columns", 1, 8),
+            ("part_l2_kernel, 4-byte columns", 4, 4),
+            ("part_l2_kernel, 8-byte columns", 4, 8),
             (f"group_kernel <= {SMALL_TILE} rows", 2, SMALL_TILE),
             (f"group_kernel <= {GROUP_TILE} rows", 2, GROUP_TILE),
             ("compact_kernel", 3, 0))}

@@ -220,3 +220,47 @@ def test_wrappers_reject_bad_arguments():
         GS.launch("sum_f32", g, g, None, 3)  # int values to the float kernel
     with pytest.raises(ValueError):
         GS.launch("sum_int", g, v, None, 3)
+
+
+# ---------------------------------------------------------------------------
+# ragged and misaligned rows (the kernel's vector path starts at gid's first
+# 16-byte boundary and leaves a scalar head and tail)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [4097, 12_003, 1, 6])
+@pytest.mark.parametrize("kind", ["count", "sum_f32", "sum_int"])
+def test_ragged_rows_match_pallas_interpret(kind, n):
+    d = _rows(n + 31, n, 700)
+    v = {"count": None, "sum_f32": d["f32"], "sum_int": d["i32"]}[kind]
+    _check(kind, d["gid"], v, d["mask"], 700)
+
+
+@pytest.mark.parametrize("offset", [1, 3])
+@pytest.mark.parametrize("kind", ["count", "sum_f32", "sum_int", "sum_int64"])
+def test_offset_views_match_pallas_interpret(kind, offset):
+    # gid, mask and values are views that start `offset` elements into
+    # their storage (contiguous, but not 16-byte aligned)
+    n = 9_001
+    d = _rows(40 + offset, n + offset, 129)
+    v = {"count": None, "sum_f32": d["f32"], "sum_int": d["i32"],
+         "sum_int64": d["i32"].astype(np.int64) * 3 + 2**33}[kind]
+    kind = kind.replace("64", "")
+    sl = slice(offset, None)
+    g, m = _t(d["gid"])[sl], _t(d["mask"])[sl]
+    assert g.storage_offset() == offset and g.is_contiguous()
+    if kind == "count":
+        got = GS.count_per_slot(g, m, 129)
+        want = GP.count_per_slot(_j(d["gid"][sl]), _j(d["mask"][sl]), 129,
+                                 interpret=True)
+    else:
+        port = GS.sum_f32_per_slot if kind == "sum_f32" else GS.sum_int_per_slot
+        ref = GP.sum_f32_per_slot if kind == "sum_f32" else GP.sum_int_per_slot
+        got = port(g, _t(v)[sl], m, 129)
+        want = ref(_j(d["gid"][sl]), _j(v[sl]), _j(d["mask"][sl]), 129,
+                   interpret=True)
+    want = np.asarray(want)
+    if kind == "sum_f32":
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    else:
+        assert np.array_equal(got.numpy(), want)
