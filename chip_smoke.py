@@ -8,11 +8,18 @@ printing JSON lines:
   env      card, power limit, torch / CUDA / nvcc versions
   build    builds kernels B1-B6 and B3a-c from heavydb_tpu_torch/kernels/csrc
            into build/kernels and runs the kernel gate
-  kernel_info  registers, shared memory and resident blocks per SM of B4-B6
-           as they are launched
-  sass     the shared-memory atomics B3a-c compile to (cuobjdump), once
+  kernel_info  registers, shared memory and resident blocks per SM of B1,
+           B2 (each tier, with its cluster size) and B4-B6 as they are
+           launched
+  sass     the shared-memory atomics B1, B2 and B3a-c compile to
+           (cuobjdump), once
   kernels  each kernel against its plain PyTorch version at 100M rows and
-           the shapes the main path gives it; times with CUDA events.  B3a-c
+           the shapes the main path gives it; times with CUDA events.  B1 at
+           10 / 100 / 256 slots with a copy of the cells a warp and a
+           block, B2 on each of its tiers with 4 and with 16 streams and
+           its cluster tier against its global one at 2-16 blocks; both at
+           100M + 3 rows, offset by one element, with int64 sums past 2^32,
+           a NaN and an inf, and 17 streams (two launches).  B3a-c
            (kernels/groupby_slots.py), which no SQL route runs, are driven
            through their own entry points here and count launches there;
            also at 100M + 3 rows and on inputs offset by one element.  B4
@@ -159,49 +166,131 @@ def out_bytes(v, op) -> int:
     return v.element_size() if op in ("min", "max") else 8
 
 
+# B1 and B2 at the main path's stream sets
+B1_OPS = ["count", "sumi", "sumf", "sumd", "min", "max"]
+B2_OPS = ["count", "sumi", "sumf", "sumd"]
+B1_SHAPES = (10, 100, 256)
+# one shape on each tier of radix_hist.plan with 4 streams: four 256-thread
+# blocks, two 512-thread blocks, one 1024-thread block an SM, clusters of
+# 2 and 4, global atomics
+B2_SHAPES = (1000, 3000, 6000, 10_000, 24_577, 65_536)
+# 16 streams of every B2 class, and their tiers (256 / 512 / 1024-thread
+# private copies, clusters of 2 and 4, global atomics)
+B2_WIDE = [("count", torch.bool), ("sumi", torch.bool), ("sumi", torch.int8),
+           ("sumi", torch.int16), ("sumi", torch.int32), ("sumi", torch.int64),
+           ("sumf", torch.float32), ("sumd", torch.float32), ("sumd", torch.float64),
+           ("count", torch.bool), ("sumi", torch.int8), ("sumi", torch.int16),
+           ("sumi", torch.int32), ("sumi", torch.int64), ("sumf", torch.float32),
+           ("sumd", torch.float64)]
+B2_WIDE_SHAPES = (300, 800, 1500, 3000, 6000, 65_536)
+
+
+def tol_of(op):
+    return F32_TOL if op == "sumf" else (F64_TOL if op == "sumd" else None)
+
+
+def check_streams(got, want, streams) -> float:
+    err = 0.0
+    for (_, op), g, w in zip([(None, "count")] + list(streams), got, want):
+        err = max(err, agree(g, w, tol_of(op)))
+    return err
+
+
+def plan_of(name, num_slots, ops):
+    """The plan the wrapper launches B1 / B2 (`name`) with."""
+    from heavydb_tpu_torch.kernels import lane_agg, radix_hist
+
+    if name == "lane_agg":
+        return lane_agg.plan(num_slots, ops)
+    return radix_hist.plan(num_slots, ops)
+
+
+def plan_fields(p) -> dict:
+    return dict(tier=p.tier, cluster=p.cluster, threads=p.threads,
+                smem_bytes=p.smem_bytes)
+
+
+def agg_bytes(n, num_slots, mask, streams) -> int:
+    """Bytes B1 / B2 must move: each input read once (gid, mask, each
+    stream at its width), each per-slot output written once."""
+    read = n * (4 + (mask.element_size() if mask is not None else 0)
+                + sum(v.element_size() for v, _ in streams))
+    return read + num_slots * (8 + sum(out_bytes(v, op) for v, op in streams))
+
+
+def wide_streams(n, gen, cm):
+    """B2_WIDE: one tensor a stream, zero where cm is False."""
+    out = []
+    for op, dt in B2_WIDE:
+        if dt == torch.bool:
+            v = cm & (torch.rand(n, device="cuda", generator=gen) < 0.5)
+        elif dt.is_floating_point:
+            v = torch.where(cm, torch.rand(n, device="cuda", generator=gen,
+                                           dtype=dt) * 100, 0.0).to(dt)
+        else:
+            info = torch.iinfo(dt)
+            v = torch.where(cm, torch.randint(info.min, info.max, (n,), device="cuda",
+                                              generator=gen, dtype=torch.int64),
+                            0).to(dt)
+        out.append((v, op))
+    return out
+
+
 def run_kernels(n: int, rate: float):
     from heavydb_tpu_torch.kernels import _plain, groupby_minmax, lane_agg, radix_hist
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     shapes = []
-    stream_sets = {
-        "lane_agg": ["count", "sumi", "sumf", "sumd", "min", "max"],
-        "radix_hist": ["count", "sumi", "sumf", "sumd"],
-    }
-    for name, fn, slots_list in (
-        ("lane_agg", lane_agg.lane_agg, (10, 100, 256)),
-        ("radix_hist", radix_hist.fused_hist, (1000, 10_000, 65_536)),
-    ):
-        for num_slots in slots_list:
-            gid, mask, vals = kernel_inputs(n, num_slots, gen)
-            streams = [(vals[op], op) for op in stream_sets[name]]
-            del vals
-            got = fn(gid, mask, streams, num_slots)
-            want = _plain.scatter_scan(gid, mask, streams, num_slots)
-            err = 0.0
-            for (_, op), g, w in zip([(None, "count")] + streams, got, want):
-                err = max(err, agree(g, w, F32_TOL if op == "sumf" else
-                                     (F64_TOL if op == "sumd" else None)))
-            del got, want
-            ms = timed(lambda: fn(gid, mask, streams, num_slots), 10)
-            plain_ms = timed(lambda: _plain.scatter_scan(gid, mask, streams,
-                                                         num_slots), 3)
-            # yardstick: per-slot counts alone, the kernel with no streams
-            # against torch.bincount (unmasked gid)
-            count_ms = timed(lambda: fn(gid, None, [], num_slots), 10)
-            bincount_ms = timed(lambda: torch.bincount(gid, minlength=num_slots), 10)
-            read = n * (gid.element_size() + mask.element_size()
-                        + sum(v.element_size() for v, _ in streams))
-            write = num_slots * (8 + sum(out_bytes(v, op) for v, op in streams))
-            shapes.append(dict(
-                kernel=name, rows=n, slots=num_slots,
-                streams=stream_sets[name], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=(read + write) / rate * 1e3,
-                counts_only_ms=count_ms, bincount_ms=bincount_ms,
-                counts_only_bound_ms=(n * 4 + num_slots * 8) / rate * 1e3,
-            ))
-            del gid, mask, streams
+    fns = {"lane_agg": lane_agg.lane_agg, "radix_hist": radix_hist.fused_hist}
+    cases = [("lane_agg", S) for S in B1_SHAPES] + [("radix_hist", S) for S in B2_SHAPES]
+    for name, num_slots in cases:
+        ops = B1_OPS if name == "lane_agg" else B2_OPS
+        gid, mask, vals = kernel_inputs(n, num_slots, gen)
+        streams = [(vals[op], op) for op in ops]
+        del vals
+        plan = plan_of(name, num_slots, ops)
+        run = lambda: fns[name](gid, mask, streams, num_slots)  # noqa: E731
+        err = check_streams(run(), _plain.scatter_scan(gid, mask, streams, num_slots),
+                            streams)
+        line = dict(kernel=name, rows=n, slots=num_slots, streams=ops,
+                    max_abs_err=err, **plan_fields(plan), ms=timed(run, 10),
+                    plain_ms=timed(lambda: _plain.scatter_scan(gid, mask, streams,
+                                                               num_slots), 3),
+                    bound_ms=agg_bytes(n, num_slots, mask, streams) / rate * 1e3,
+                    # yardstick: per-slot counts alone, the kernel with no
+                    # streams against torch.bincount (unmasked gid)
+                    counts_only_ms=timed(lambda: fns[name](gid, None, [], num_slots), 10),
+                    bincount_ms=timed(lambda: torch.bincount(gid, minlength=num_slots), 10),
+                    counts_only_bound_ms=(n * 4 + num_slots * 8) / rate * 1e3,
+                    counts_only_tier=plan_of(name, num_slots, []).tier)
+        shapes.append(line)
+        del gid, mask, streams
+    # B2 with 16 streams of every class, on each tier
+    wide_tiers = set()
+    for num_slots in B2_WIDE_SHAPES:
+        gid, mask, vals = kernel_inputs(n, num_slots, gen)
+        streams = wide_streams(n, gen, vals["count"])
+        del vals
+        ops = [op for _, op in streams]
+        err = check_streams(radix_hist.fused_hist(gid, mask, streams, num_slots),
+                            _plain.scatter_scan(gid, mask, streams, num_slots), streams)
+        plan = radix_hist.plan(num_slots, ops)
+        wide_tiers.add((plan.tier, plan.cluster, plan.threads))
+        shapes.append(dict(
+            kernel="radix_hist", tag="16 streams", rows=n, slots=num_slots,
+            streams=[f"{op} {str(v.dtype)[6:]}" for v, op in streams],
+            max_abs_err=err, **plan_fields(plan),
+            ms=timed(lambda: radix_hist.fused_hist(gid, mask, streams, num_slots), 10),
+            plain_ms=timed(lambda: _plain.scatter_scan(gid, mask, streams, num_slots), 3),
+            bound_ms=agg_bytes(n, num_slots, mask, streams) / rate * 1e3))
+        del gid, mask, streams
+    want_tiers = {("shared", 1, 256), ("shared", 1, 512), ("shared_sm", 1, 1024),
+                  ("cluster", 2, 1024), ("cluster", 4, 1024), ("global", 1, 256)}
+    if wide_tiers != want_tiers:
+        raise AssertionError(f"16-stream shapes cover tiers {sorted(wide_tiers)}, "
+                             f"not {sorted(want_tiers)}")
+    shapes += agg_edges(n, rate)
     for num_slots in (1000, 4096):
         gid, _, vals = kernel_inputs(n, num_slots, gen)
         cm, i32, f32 = vals["count"], vals["min"], vals["max"]
@@ -228,6 +317,93 @@ def run_kernels(n: int, rate: float):
         del gid, cm, i32, f32, idx
     torch.cuda.empty_cache()
     return shapes
+
+
+def agg_edges(n: int, rate: float):
+    """B1 at 100 slots and B2 at 1000 against their plain versions at n + 3
+    rows (a ragged tail) and on views one element into their storage (a
+    scalar head), with an int64 SUMI stream whose per-slot sums pass 2^32
+    and a NaN and an inf in the SUMF stream; then 17 streams, which take a
+    second launch."""
+    from heavydb_tpu_torch.kernels import _plain, lane_agg, radix_hist
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 6)
+    m = n + 4
+    lines = []
+    for name, fn, S, ops in (("lane_agg", lane_agg.lane_agg, 100, B1_OPS),
+                             ("radix_hist", radix_hist.fused_hist, 1000, B2_OPS)):
+        gid = torch.randint(-3, S + 3, (m,), dtype=torch.int32, device="cuda",
+                            generator=gen)
+        mask = torch.rand(m, device="cuda", generator=gen) < 0.9
+        cm = mask & (torch.rand(m, device="cuda", generator=gen) < 0.8)
+        f = torch.where(cm, torch.rand(m, device="cuda", generator=gen), 0.0)
+        f[10], f[20] = float("nan"), float("inf")
+        gid[10], gid[20], mask[10], mask[20] = 1, 2, True, True
+        vals = {"count": cm,
+                "sumi": torch.where(cm, torch.randint(-2**40, 2**40, (m,), device="cuda",
+                                                      generator=gen), 0),
+                "sumf": f,
+                "sumd": torch.where(cm, torch.rand(m, device="cuda", generator=gen,
+                                                   dtype=torch.float64), 0.0),
+                "min": torch.where(cm, torch.randint(-10**6, 10**6, (m,), device="cuda",
+                                                     dtype=torch.int32, generator=gen), 0),
+                "max": torch.where(cm, torch.randn(m, device="cuda", generator=gen), 0.0)}
+        streams = [(vals[op], op) for op in ops]
+        for tag, sl in (("n + 3 rows", slice(0, n + 3)),
+                        ("offset by one element", slice(1, n + 4))):
+            g, mk = gid[sl], mask[sl]
+            ss = [(v[sl], op) for v, op in streams]
+            want = _plain.scatter_scan(g, mk, ss, S)
+            big = int(want[ops.index("sumi") + 1].abs().max())
+            if big <= 2**32:
+                raise AssertionError(f"{name} {tag}: SUMI sums stay below 2^32")
+            sumf = want[ops.index("sumf") + 1]
+            if not (bool(sumf.isnan().any()) and bool(sumf.isinf().any())):
+                raise AssertionError(f"{name} {tag}: no NaN or inf slot in SUMF")
+            err = check_streams(fn(g, mk, ss, S), want, ss)
+            lines.append(dict(
+                kernel=name, tag=tag, rows=g.shape[0], slots=S,
+                storage_offset=g.storage_offset(), streams=ops, max_abs_err=err,
+                sumi_max_abs=big, ms=timed(lambda: fn(g, mk, ss, S), 10),
+                bound_ms=agg_bytes(g.shape[0], S, mk, ss) / rate * 1e3))
+        # 17 streams: the first 16 in one launch, the 17th in a second
+        ss = (streams * 17)[:17]
+        before = fn.launches
+        err = check_streams(fn(gid, mask, ss, S), _plain.scatter_scan(gid, mask, ss, S), ss)
+        if fn.launches - before != 2:
+            raise AssertionError(f"{name}: 17 streams took {fn.launches - before} "
+                                 "launches, not 2")
+        lines.append(dict(
+            kernel=name, tag="17 streams", rows=m, slots=S, launches=2,
+            streams=[op for _, op in ss], max_abs_err=err,
+            ms=timed(lambda: fn(gid, mask, ss, S), 10),
+            bound_ms=agg_bytes(m, S, mask, ss) / rate * 1e3))
+        del gid, mask, cm, f, vals, streams, ss
+    torch.cuda.empty_cache()
+    return lines
+
+
+def agg_info():
+    """Registers, local and shared bytes, blocks per SM and cluster size of
+    B1 and B2 as each shape of the kernels phase launches them."""
+    from heavydb_tpu_torch.kernels import _build
+
+    kinds = {"count": "bool", "sumi": "int32", "sumf": "float32", "sumd": "float32",
+             "min": "int32", "max": "float32"}
+    cases = [("lane_agg", S, [(op, kinds[op]) for op in B1_OPS]) for S in B1_SHAPES]
+    cases += [("radix_hist", S, [(op, kinds[op]) for op in B2_OPS]) for S in B2_SHAPES]
+    cases += [("radix_hist", S, [(op, str(dt)[6:]) for op, dt in B2_WIDE])
+              for S in B2_WIDE_SHAPES]
+    lines = []
+    for name, S, specs in cases:
+        plan = plan_of(name, S, [op for op, _ in specs])
+        ki = _build.stream_info(name, S, specs, plan)
+        if plan.tier == "cluster" and ki["resident_clusters"] < 1:
+            raise AssertionError(f"{name} at {S} slots: no cluster fits")
+        lines.append(dict(kernel=name, slots=S, streams=len(specs),
+                          **{**plan_fields(plan), **ki}))
+    return lines
 
 
 SLOT_SHAPES = (1000, 4096, 65_536)
@@ -338,9 +514,11 @@ def slot_edges(n: int, rate: float, S: int = 1000):
 
 
 def sass_atomics():
-    """The atomic instructions of each B3a-c kernel as built
-    (cuobjdump -sass of its library): whether the shared-memory f32 add of
-    B3b is a native ATOMS add or a compare-and-swap loop."""
+    """The atomic instructions of each B1, B2 and B3a-c kernel as built
+    (cuobjdump -sass of its library): whether a shared-memory add is a
+    native ATOMS instruction or a compare-and-swap loop (ATOMS.CAST.SPIN).
+    B1 / B2 add integer sums as 32-bit halves, so their SUMI cells need no
+    64-bit compare-and-swap."""
     import os
     import re
     import shutil
@@ -350,21 +528,30 @@ def sass_atomics():
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise FileNotFoundError("cuobjdump not found: the SASS phase cannot run")
-    text = subprocess.run([tool, "-sass", _build._lib_path("groupby_slots")],
-                          capture_output=True, text=True, check=True,
-                          timeout=120).stdout
-    out, fn = {}, None
-    for ln in text.splitlines():
-        head = re.search(r"Function : (\S+)", ln)
-        if head:
-            fn = head.group(1)
-            continue
-        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
-        if fn and op and op.group(1).startswith(("ATOM", "RED")):
-            out.setdefault(fn, set()).add(op.group(1))
-    res = {k: sorted(v) for k, v in out.items()}
-    f32 = [ops for k, ops in res.items() if "SumF32Op" in k and "Lb1E" in k]
+    res = {}
+    for lib in ("lane_agg", "radix_hist", "groupby_slots"):
+        text = subprocess.run([tool, "-sass", _build._lib_path(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+        out, fn = {}, None
+        for ln in text.splitlines():
+            head = re.search(r"Function : (\S+)", ln)
+            if head:
+                fn = head.group(1)
+                continue
+            op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", ln)
+            if fn and op and op.group(1).startswith(("ATOM", "RED")):
+                out.setdefault(fn, set()).add(op.group(1))
+        res[lib] = {k: sorted(v) for k, v in out.items()}
+    f32 = [ops for k, ops in res["groupby_slots"].items()
+           if "SumF32Op" in k and "Lb1E" in k]
+    # native 32-bit shared adds that return the old value (the SUMI low
+    # word) in B1 / B2's shared-memory instantiations
+    native = {lib: sorted(k for k, ops in res[lib].items()
+                          if any(o.startswith("ATOMS.ADD") for o in ops))
+              for lib in ("lane_agg", "radix_hist")}
     return {"kernels": res,
+            "b1_b2_native_shared_add": native,
             "sum_f32_private_shared_add": f32[0] if f32 else None,
             "sum_f32_shared_add_is_cas_loop":
                 any("CAS" in o for o in f32[0]) if f32 else None}
@@ -894,6 +1081,8 @@ def main() -> None:
         for n_pay in (0, 4):
             emit({"phase": "kernel_info", "kernel": "tile_sort", "tile": T,
                   "payloads": n_pay, **tile_sort.kernel_info(T, n_pay)})
+    for ki in agg_info():
+        emit({"phase": "kernel_info", **ki})
     emit({"phase": "sass", **sass_atomics()})
     slot_shapes, slot_launches = run_slot_kernels(ROWS, rate)
     shapes = run_kernels(ROWS, rate) + slot_shapes + run_sort_kernels(ROWS, rate)

@@ -79,7 +79,10 @@ def build_compound_kernel(node, batches, plan, device):
         cols = dict(zip(present_cols, args[:len(present_cols)]))
         nrows = args[len(present_cols)]
         error_flags: Dict[str, torch.Tensor] = {}
-        mask = torch.arange(domain_size, device=device) < nrows
+        # the rows [0, nrows) of the padded domain: a bool fill and a
+        # cleared tail, not an int64 iota compared with nrows
+        mask = torch.ones(domain_size, dtype=torch.bool, device=device)
+        mask[nrows:] = False
         trivial = True  # mask == iota<nrows, no compaction needed
         tv_cache: Dict[int, tuple] = {}
 

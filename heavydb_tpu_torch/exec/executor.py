@@ -332,9 +332,16 @@ class Executor:
                 plan.group_strategy = ("perfect", tuple(
                     (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
                 plan.group_cap = slots
-            elif cfg.enable_hash_groupby:
-                raise NotSupported("hash group-by")
             else:
+                # the reference's hash tier, where it would take it: keys
+                # that pack, a known NDV, and both a low collision depth
+                # (rows / NDV) and a small claim table; else the sort tier
+                if cfg.enable_hash_groupby \
+                        and _hash_pack_spec(node.group_exprs, ranges) is not _NO_PACK:
+                    ndv = self._estimate_group_ndv(node)
+                    if ndv is not None and max(batches[0].nrows, 1) // max(ndv, 1) <= 32 \
+                            and ndv <= (1 << 19):
+                        raise NotSupported("hash group-by")
                 plan.group_strategy = ("sort", None)
                 plan.group_cap = B.bucket(
                     min(cfg.baseline_groupby_initial_entries, padded))
@@ -342,6 +349,63 @@ class Executor:
             plan.group_strategy = ("keyless", None)
             plan.group_cap = 1
         return plan
+
+    def _estimate_group_ndv(self, node) -> Optional[int]:
+        """Chao1 distinct estimate from a host sample of the group key
+        columns (the reference's `_estimate_group_ndv`, which stands in for
+        HeavyDB's CardinalityEstimator).  Only for plain column keys over a
+        single Scan; None = unknown.  A device-backed chunk gives its first
+        65536 values with one small copy, never the whole fragment."""
+        if len(node.inputs) != 1 or not isinstance(node.inputs[0], R.Scan):
+            return None
+        t = node.inputs[0].table
+        idxs = []
+        for g in node.group_exprs:
+            e = g
+            while isinstance(e, E.Cast):
+                e = e.operand
+            if not isinstance(e, E.InputRef):
+                return None
+            idxs.append(e.field_idx)
+        cols = []
+        for i in idxs:
+            if i >= len(t.columns):  # virtual rowid field: no chunk stats
+                return None
+            cd = t.columns[i]
+            if cd.type.is_array:
+                return None
+            frag = next((f for f in t.fragments if f.num_rows), None)
+            if frag is None:
+                return 1
+            raw = frag.chunks[cd.col_id]
+            if hasattr(raw, "head"):
+                chunk = raw.head(65536)
+            else:
+                chunk = np.asarray(raw[:65536])
+            if cd.type.is_none_string:
+                # object array with None holes: estimate over a
+                # NULL-sentineled unicode copy
+                chunk = np.array(
+                    ["\x00\x00<null>" if v is None else v for v in chunk])
+            cols.append(chunk)
+        if not cols:
+            return None
+        m = len(cols[0])
+        if m == 0:
+            return 1
+        sample = cols[0] if len(cols) == 1 else np.rec.fromarrays(cols)
+        _, counts = np.unique(sample, return_counts=True)
+        u = len(counts)
+        f1 = int((counts == 1).sum())
+        f2 = int((counts == 2).sum())
+        # Chao1 for saturated samples; it explodes as f2 -> 0 (all
+        # singletons), where the linear unseen-mass extrapolation is the
+        # right model: take the smaller of the two
+        chao = u + (f1 * f1) / (2.0 * (f2 + 1))
+        frac_unique = f1 / m
+        linear = u + frac_unique * max(t.num_rows - m, 0)
+        est = min(chao + frac_unique * max(t.num_rows - m, 0), linear * 1.5)
+        return max(int(est), 1)
 
     # ---- kernel build & cache ----
     def _get_kernel(self, node, batches, plan):
@@ -420,3 +484,28 @@ class _CompoundPlan:
 class _KernelLayout:
     batch_cols: list = None  # [(batch_idx, [col_idx...])...]
     nrows_batches: list = None
+
+
+_NO_PACK = object()
+
+
+def _hash_pack_spec(group_exprs, ranges):
+    """Packing spec of the reference's hash tier: None = single-key
+    identity packing (any scalar key type); ((lo, span), ...) = range
+    packing of multi-key tuples with known ranges that fit 63 bits;
+    _NO_PACK = not hashable (the sort tier groups them)."""
+    for g in group_exprs:
+        if g.type.is_array or g.type.is_string and not g.type.is_dict_string:
+            return _NO_PACK
+    if len(group_exprs) == 1:
+        return None
+    spec = []
+    total = 1
+    for r in ranges:
+        if r is None or r.extent <= 0:
+            return _NO_PACK
+        spec.append((r.lo, r.extent))
+        total *= r.extent + 2
+        if total >= (1 << 62):
+            return _NO_PACK
+    return tuple(spec)

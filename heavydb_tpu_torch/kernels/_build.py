@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -34,7 +35,7 @@ SOURCES = {
     "radix_groupby": "radix_groupby.cu",
     "groupby_slots": "groupby_slots.cu",
 }
-_HEADERS = ("agg_common.cuh", "tile_sort.cuh")
+_HEADERS = ("agg_common.cuh", "stream_agg.cuh", "tile_sort.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -131,12 +132,13 @@ def build_all() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL, name: str):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "lane_agg":
-        fn = lib.hdb_lane_agg
-        fn.argtypes = [p, p, ll, i, ctypes.POINTER(StreamSet), p, i, i, p]
-    elif name == "radix_hist":
-        fn = lib.hdb_radix_hist
-        fn.argtypes = [p, p, ll, i, ctypes.POINTER(StreamSet), p, i, i, p]
+    if name in ("lane_agg", "radix_hist"):
+        run = getattr(lib, f"hdb_{name}")
+        run.argtypes = [p, p, ll, i, ctypes.POINTER(StreamSet), p, i, i, i, ll, p]
+        info = getattr(lib, f"hdb_{name}_info")
+        info.argtypes = [i, ctypes.POINTER(StreamSet), i, i, i, ll, p]
+        run.restype = info.restype = ctypes.c_int
+        return types.SimpleNamespace(run=run, info=info)
     elif name == "groupby_minmax":
         fn = lib.hdb_minmax
         fn.argtypes = [p, p, p, i, ll, i, i, p, i, i, p]
@@ -259,13 +261,77 @@ _ALLOWED = {
 }
 
 
-def launch_streams(name: str, gid, mask, streams, num_slots: int,
-                   blocks_per_sm: int = 4, block: int = 256, counter=None):
-    """Launch the StreamSet kernel `name` (lane_agg or radix_hist) on CUDA
-    tensors; `counter.launches` (the wrapper's launch count, if given)
-    rises by one per kernel launch.  Returns [counts int64[S]] + one output
-    per stream (count/sumi -> int64, sumf/sumd -> float64, min/max -> the
-    value's dtype)."""
+# ---- B1 / B2 (csrc/stream_agg.cuh) ----
+
+# shared memory a block may opt in to on sm_90 (227 KB), and the most that
+# lets four (two) blocks share an SM's 228 KB, 1 KB reserved a block
+SMEM_BLOCK_MAX = 232448
+SMEM_FOUR_BLOCKS = 56 * 1024
+SMEM_TWO_BLOCKS = 112 * 1024
+# stream_agg.cuh MODE of each tier
+TIER_MODES = {"shared": 0, "shared_sm": 0, "cluster": 0, "global": 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class AggPlan:
+    """How a B1 / B2 launch holds its cells: tier (shared: a private copy a
+    block, two or more blocks an SM; shared_sm: one block an SM; cluster:
+    the cells split over the blocks of a thread-block cluster, each block
+    scanning the cluster's rows for its own slots; global: atomics into the
+    outputs), blocks a cluster, threads a block, dynamic shared bytes a
+    block, and slots a block holds."""
+
+    tier: str
+    cluster: int
+    threads: int
+    smem_bytes: int
+    slots_per_block: int
+
+
+def smem_bytes(slots: int, ops) -> int:
+    """Shared bytes of `slots` slots' cells as csrc/stream_agg.cuh lays them
+    out (sa_smem_bytes, which checks the count at launch): u32 counts, then
+    one cell array a stream (SUMI and SUMD 8 bytes a cell, every other class
+    4), each from an 8-byte boundary."""
+    a8 = lambda x: (x + 7) & ~7  # noqa: E731
+    return a8(slots * 4) + sum(a8(slots * (8 if op in ("sumi", "sumd") else 4))
+                               for op in ops)
+
+
+def _stream_set(specs) -> StreamSet:
+    """A StreamSet of [(values or None, op, dtype name)], pointers null
+    where there are no values."""
+    ss = StreamSet()
+    ss.n = len(specs)
+    for j, (v, op, dt) in enumerate(specs):
+        ss.vals[j] = v.data_ptr() if v is not None else None
+        ss.op[j] = OP_CODES[op]
+        ss.dt[j] = DT_CODES[dt]
+    return ss
+
+
+def stream_info(name: str, num_slots: int, specs, plan: AggPlan) -> dict:
+    """What a launch of B1 / B2 (`name`) with `plan` over streams
+    [(op, dtype name)] gets: registers, local and shared bytes, resident
+    blocks per SM, threads, cluster size, resident clusters."""
+    ss = _stream_set([(None, op, dt) for op, dt in specs])
+    out = (ctypes.c_int * 7)()
+    check(entry(name).info(num_slots, ctypes.byref(ss), TIER_MODES[plan.tier],
+                           plan.cluster, plan.threads, plan.smem_bytes,
+                           ctypes.addressof(out)), f"{name} info")
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2],
+                blocks_per_sm=out[3], threads=out[4], cluster=out[5],
+                resident_clusters=out[6])
+
+
+def launch_streams(name: str, gid, mask, streams, num_slots: int, plan,
+                   counter=None):
+    """Launch B1 / B2 (`name`: lane_agg or radix_hist) on CUDA tensors.
+    `plan(ops)` gives the AggPlan of a launch over streams of those ops;
+    `counter.launches` (the wrapper's launch count, if given) rises by one
+    per kernel launch.  Returns [counts int64[S]] + one output per stream
+    (count/sumi -> int64, sumf/sumd -> float64, min/max -> the value's
+    dtype)."""
     import torch
 
     check_rows(gid, mask, [v for v, _ in streams])
@@ -274,7 +340,7 @@ def launch_streams(name: str, gid, mask, streams, num_slots: int,
             raise ValueError(f"{name}: stream {op!r} does not take {v.dtype}")
     dev = gid.device
     n = gid.shape[0]
-    fn = entry(name)
+    fn = entry(name).run
     counts = torch.zeros(num_slots, dtype=torch.int64, device=dev)
     outs = []
     for v, op in streams:
@@ -286,24 +352,21 @@ def launch_streams(name: str, gid, mask, streams, num_slots: int,
             outs.append(torch.full((num_slots,), key_ident(v.dtype, op == "min"),
                                    dtype=torch.int32, device=dev))
     if n:
-        grid = grid_for(n, dev, blocks_per_sm, block)
         sp = stream_ptr(dev)
         mptr = mask.data_ptr() if mask is not None else None
         # more than MAX_STREAMS streams: further launches over the same rows,
         # whose counts land in a scratch buffer
         for c0 in range(0, max(len(streams), 1), MAX_STREAMS):
-            chunk = list(range(c0, min(c0 + MAX_STREAMS, len(streams))))
-            ss = StreamSet()
-            ss.n = len(chunk)
-            for j, si in enumerate(chunk):
-                v, op = streams[si]
-                ss.vals[j] = v.data_ptr()
-                ss.out[j] = outs[si].data_ptr()
-                ss.op[j] = OP_CODES[op]
-                ss.dt[j] = DT_CODES[str(v.dtype).replace("torch.", "")]
+            chunk = streams[c0:c0 + MAX_STREAMS]
+            ss = _stream_set([(v, op, str(v.dtype).replace("torch.", ""))
+                              for v, op in chunk])
+            for j, o in enumerate(outs[c0:c0 + MAX_STREAMS]):
+                ss.out[j] = o.data_ptr()
+            p = plan([op for _, op in chunk])
             cbuf = counts if c0 == 0 else torch.zeros_like(counts)
             check(fn(gid.data_ptr(), mptr, n, num_slots, ctypes.byref(ss),
-                     cbuf.data_ptr(), grid, block, sp), name)
+                     cbuf.data_ptr(), TIER_MODES[p.tier], p.cluster, p.threads,
+                     p.smem_bytes, sp), name)
             if counter is not None:
                 counter.launches += 1
     res = [counts]

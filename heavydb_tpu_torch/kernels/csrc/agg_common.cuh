@@ -1,7 +1,8 @@
-// Shared pieces of the group-by aggregation kernels (lane_agg.cu,
-// radix_hist.cu, groupby_minmax.cu).
+// Shared pieces of the group-by aggregation kernels (stream_agg.cuh for
+// lane_agg.cu and radix_hist.cu, groupby_minmax.cu, groupby_slots.cu,
+// radix_groupby.cu).
 //
-// Row contract, common to all three: a row contributes when its slot id
+// Row contract, common to all: a row contributes when its slot id
 // g = gid[r] lies in [0, S) and mask[r] (if a mask is given) is nonzero.
 // Streams carry one value per row; the caller has already zeroed sum
 // streams on rows that must not contribute.
@@ -78,109 +79,6 @@ __device__ __forceinline__ bool row_slot(const int* __restrict__ gid,
   if (mask != nullptr && !mask[r]) return false;
   *g = v;
   return true;
-}
-
-// Bytes of one block-private accumulator cell for a stream class.
-__host__ __device__ __forceinline__ size_t cell_bytes(int op) {
-  return (op == OP_SUMI || op == OP_SUMD) ? 8 : 4;
-}
-
-__host__ __device__ __forceinline__ size_t align8(size_t x) { return (x + 7) & ~(size_t)7; }
-
-// Shared-memory bytes for S slots: int32 counts, then one cell array per stream.
-__host__ __device__ __forceinline__ size_t private_smem_bytes(int S, const StreamSet& ss) {
-  size_t off = align8((size_t)S * 4);
-  for (int k = 0; k < ss.n; ++k) off = align8(off + (size_t)S * cell_bytes(ss.op[k]));
-  return off;
-}
-
-// One block: grid-stride over rows into block-private shared accumulators,
-// then one merge of the nonzero slots into the global outputs with atomics.
-__device__ __forceinline__ void block_private_agg(const int* __restrict__ gid,
-                                                  const unsigned char* __restrict__ mask,
-                                                  long long n, int S, const StreamSet& ss,
-                                                  unsigned long long* __restrict__ counts) {
-  extern __shared__ __align__(8) unsigned char smem[];
-  unsigned int* s_cnt = (unsigned int*)smem;
-  unsigned char* acc[HDB_MAX_STREAMS];
-  size_t off = align8((size_t)S * 4);
-  for (int k = 0; k < ss.n; ++k) {
-    acc[k] = smem + off;
-    off = align8(off + (size_t)S * cell_bytes(ss.op[k]));
-  }
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    s_cnt[i] = 0u;
-    for (int k = 0; k < ss.n; ++k) {
-      switch (ss.op[k]) {
-        case OP_COUNT: ((unsigned int*)acc[k])[i] = 0u; break;
-        case OP_SUMI: ((unsigned long long*)acc[k])[i] = 0ull; break;
-        case OP_SUMF: ((float*)acc[k])[i] = 0.f; break;
-        case OP_SUMD: ((double*)acc[k])[i] = 0.0; break;
-        case OP_MIN: ((int*)acc[k])[i] = key_ident(ss.dt[k], true); break;
-        case OP_MAX: ((int*)acc[k])[i] = key_ident(ss.dt[k], false); break;
-      }
-    }
-  }
-  __syncthreads();
-
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    int g;
-    if (!row_slot(gid, mask, r, S, &g)) continue;
-    atomicAdd(&s_cnt[g], 1u);
-    for (int k = 0; k < ss.n; ++k) {
-      const void* v = ss.vals[k];
-      const int dt = ss.dt[k];
-      switch (ss.op[k]) {
-        case OP_COUNT:
-          if (load_int(v, dt, r)) atomicAdd(((unsigned int*)acc[k]) + g, 1u);
-          break;
-        case OP_SUMI: {
-          long long x = load_int(v, dt, r);
-          if (x) atomicAdd(((unsigned long long*)acc[k]) + g, (unsigned long long)x);
-        } break;
-        case OP_SUMF: {
-          float x = ((const float*)v)[r];
-          if (x != 0.f) atomicAdd(((float*)acc[k]) + g, x);
-        } break;
-        case OP_SUMD: {
-          double x = load_f64(v, dt, r);
-          if (x != 0.0) atomicAdd(((double*)acc[k]) + g, x);
-        } break;
-        case OP_MIN: atomicMin(((int*)acc[k]) + g, load_key(v, dt, r, true)); break;
-        case OP_MAX: atomicMax(((int*)acc[k]) + g, load_key(v, dt, r, false)); break;
-      }
-    }
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    unsigned int c = s_cnt[i];
-    if (c == 0u) continue;  // no row of this block reached slot i
-    atomicAdd(counts + i, (unsigned long long)c);
-    for (int k = 0; k < ss.n; ++k) {
-      switch (ss.op[k]) {
-        case OP_COUNT: {
-          unsigned int x = ((unsigned int*)acc[k])[i];
-          if (x) atomicAdd(((unsigned long long*)ss.out[k]) + i, (unsigned long long)x);
-        } break;
-        case OP_SUMI: {
-          unsigned long long x = ((unsigned long long*)acc[k])[i];
-          if (x) atomicAdd(((unsigned long long*)ss.out[k]) + i, x);
-        } break;
-        case OP_SUMF: {
-          float x = ((float*)acc[k])[i];
-          if (x != 0.f) atomicAdd(((double*)ss.out[k]) + i, (double)x);
-        } break;
-        case OP_SUMD: {
-          double x = ((double*)acc[k])[i];
-          if (x != 0.0) atomicAdd(((double*)ss.out[k]) + i, x);
-        } break;
-        case OP_MIN: atomicMin(((int*)ss.out[k]) + i, ((int*)acc[k])[i]); break;
-        case OP_MAX: atomicMax(((int*)ss.out[k]) + i, ((int*)acc[k])[i]); break;
-      }
-    }
-  }
 }
 
 static inline int set_smem(const void* fn, size_t smem) {

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch.kernels import (_build, _plain, groupby_minmax, groupby_slots,
-                                       radix_groupby, tile_sort)
+                                       lane_agg, radix_groupby, radix_hist, tile_sort)
 
 _LOCK = threading.Lock()
 _PASSED: Dict[str, dict] = {}
@@ -111,11 +111,21 @@ def kernel_gate(device) -> dict:
             return _PASSED[key]
         info = dict(_build.build_all())
         n = 1 << 14
+        counters = (lane_agg.lane_agg, radix_hist.fused_hist)
+        before = [c.launches for c in counters]
+        # B1 at 37 slots and at 256 slots with 16 streams; B2 on each tier
+        # of radix_hist.plan: 256 / 512 / 1024-thread private copies,
+        # clusters of 2 and 4 blocks, global atomics
+        b1 = ("count", "sumi", "sumi", "sumf", "sumd", "min", "max")
         for name, num_slots, ops in (
-            ("lane_agg", 37, ("count", "sumi", "sumi", "sumf", "sumd", "min",
-                              "max")),
+            ("lane_agg", 37, b1),
+            ("lane_agg", 256, (b1 * 3)[:16]),
             ("radix_hist", 1000, ("count", "sumi", "sumf", "sumd")),
-            ("radix_hist", 40000, ("count", "sumi", "sumi", "sumf", "sumd")),
+            ("radix_hist", 3000, ("count", "sumi", "sumf", "sumd", "sumi")),
+            ("radix_hist", 6000, ("count", "sumi", "sumf", "sumd", "sumi")),
+            ("radix_hist", 10000, ("count", "sumi", "sumf", "sumd", "sumi")),
+            ("radix_hist", 20000, ("count", "sumi", "sumf", "sumd", "sumi")),
+            ("radix_hist", 65536, ("sumi", "sumd") * 8),
         ):
             gid, mask, cm, f, i32, i64 = _inputs(device, n, num_slots, num_slots)
             vals = {"count": [cm], "sumi": [i32, i64], "sumf": [f],
@@ -124,10 +134,17 @@ def kernel_gate(device) -> dict:
             for op in ops:
                 streams.append((vals[op][0], op))
                 vals[op] = vals[op][1:] or vals[op]
-            got = _build.launch_streams(name, gid, mask, streams, num_slots)
-            want = _plain.scatter_scan(gid, mask, streams, num_slots)
-            for j, (a, b) in enumerate(zip(got, want)):
-                _same(a, b, f"{name} at {num_slots} slots, output {j}")
+            fn = lane_agg.lane_agg if name == "lane_agg" else radix_hist.fused_hist
+            # aligned rows, and views one element in (a scalar head)
+            for sl in (slice(None), slice(1, None)):
+                ss = [(v[sl], op) for v, op in streams]
+                got = fn(gid[sl], mask[sl], ss, num_slots)
+                want = _plain.scatter_scan(gid[sl], mask[sl], ss, num_slots)
+                for j, (a, b) in enumerate(zip(got, want)):
+                    _same(a, b, f"{name} at {num_slots} slots, {len(ops)} streams, "
+                          f"output {j}")
+        for c, b in zip(counters, before):
+            c.launches = b
         for vals in (i32, f):
             for is_min in (True, False):
                 got = groupby_minmax.launch(gid, vals, mask, 3000, is_min)

@@ -254,3 +254,30 @@ def test_load_table_device_fragments_and_skipping():
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[3] == w[3]
         assert g[2] == pytest.approx(w[2], rel=1e-4, abs=1e-3)
+
+
+@pytest.mark.parametrize("n", [0, 1, 1023, 1024])
+def test_row_mask_at_domain_edges(n):
+    """The row mask of a padded domain holds exactly the table's rows at
+    nrows = 0, 1, padded - 1 and padded (1023 and 1024 rows both pad to
+    1024): projections, filters, keyless and grouped aggregates give the
+    reference's rows."""
+    from heavydb_tpu_torch.exec.batch import bucket
+
+    assert bucket(1023) == bucket(1024) == 1024
+    rng = np.random.default_rng(n)
+    ref = hdt.connect()
+    ref.sql("CREATE TABLE m (k INT, x INT, d DOUBLE)")
+    if n:
+        t = ref.catalog.get_table("m")
+        cols = {"k": rng.integers(0, 5, n).astype(np.int32),
+                "x": rng.integers(-50, 50, n).astype(np.int32),
+                "d": rng.standard_normal(n)}
+        t.insert_columns({cd.col_id: cols[cd.name] for cd in t.columns})
+    port = _copy_state(ref, ["m"])
+    for sql in ("SELECT k, x, d FROM m",
+                "SELECT x FROM m WHERE k > 2",
+                "SELECT COUNT(*), SUM(x), SUM(d) FROM m",
+                "SELECT COUNT(*) FROM m WHERE x < 0",
+                "SELECT k, COUNT(*), SUM(x), AVG(d) FROM m GROUP BY k"):
+        _same_rows(port.sql(sql).rows(), ref.sql(sql).rows())

@@ -216,3 +216,47 @@ def test_hash_groupby_is_not_ported():
     port.sql("INSERT INTO q VALUES (1), (1099511627776), (NULL)")
     with pytest.raises(NotSupported, match="hash group-by"):
         port.sql("SELECT b, COUNT(*) FROM q GROUP BY b").rows()
+
+
+def _two_values():
+    # 100 rows of two BIGINT keys: rows / NDV = 50 > 32, so the reference
+    # leaves the hash tier to the sort tier
+    return {"b": np.tile(np.array([1, 2**40], np.int64), 50),
+            "v": np.arange(100, dtype=np.int64) - 30}
+
+
+def _three_rows():
+    return {"b": np.array([1, 2**40, I64_NULL], np.int64),
+            "v": np.array([4, 5, 6], np.int64)}
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT b, COUNT(*), SUM(v) FROM h2 GROUP BY b",
+    # an expression key: no NDV estimate, so no hash tier
+    "SELECT b + 1, COUNT(*), SUM(v) FROM h3 GROUP BY b + 1",
+], ids=["rows_per_ndv_50", "expression_key"])
+def test_hash_setting_answers_on_the_sort_tier(monkeypatch, sql):
+    """enable_hash_groupby=True: where the reference takes the sort tier,
+    the port answers there with the same rows instead of raising."""
+    tables = [("h2", [("b", "BIGINT"), ("v", "BIGINT")], _two_values),
+              ("h3", [("b", "BIGINT"), ("v", "BIGINT")], _three_rows)]
+    ref, port = _load(JConfig(enable_hash_groupby=True),
+                      Config(enable_hash_groupby=True), tables)
+    runs = _record_runs(monkeypatch)
+    want = ref.sql(sql).rows()
+    _same_rows(port.sql(sql).rows(), want)
+    assert [r[0] for r in runs["ref"]] == [r[0] for r in runs["port"]] == ["sort"]
+    assert runs["port"] == runs["ref"]
+
+
+def test_hash_tier_choice_matches_reference(monkeypatch):
+    """The three-row key is where the reference takes the hash tier: the
+    port raises there, and only there."""
+    tables = [("h3", [("b", "BIGINT"), ("v", "BIGINT")], _three_rows)]
+    ref, port = _load(JConfig(enable_hash_groupby=True),
+                      Config(enable_hash_groupby=True), tables)
+    runs = _record_runs(monkeypatch)
+    ref.sql("SELECT b, COUNT(*) FROM h3 GROUP BY b").rows()
+    assert [r[0] for r in runs["ref"]] == ["hash"]
+    with pytest.raises(NotSupported, match="hash group-by"):
+        port.sql("SELECT b, COUNT(*) FROM h3 GROUP BY b").rows()
