@@ -9,17 +9,22 @@ printing JSON lines:
   build    builds kernels B1-B6 and B3a-c from heavydb_tpu_torch/kernels/csrc
            into build/kernels and runs the kernel gate
   kernel_info  registers, shared memory and resident blocks per SM of B1,
-           B2 (each tier, with its cluster size) and B4-B6 as they are
+           B2 (each tier, with its cluster size), B3 and B4-B6 as they are
            launched
-  sass     the shared-memory atomics B1, B2 and B3a-c compile to
-           (cuobjdump), once
+  sass     the shared-memory atomics B1, B2, B3 and B3a-c compile to
+           (cuobjdump), once; B3's int32 MIN / MAX must be native
   kernels  each kernel against its plain PyTorch version at 100M rows and
            the shapes the main path gives it; times with CUDA events.  B1 at
            10 / 100 / 256 slots with a copy of the cells a warp and a
            block, B2 on each of its tiers with 4 and with 16 streams and
            its cluster tier against its global one at 2-16 blocks; both at
            100M + 3 rows, offset by one element, with int64 sums past 2^32,
-           a NaN and an inf, and 17 streams (two launches).  B3a-c
+           a NaN and an inf, and 17 streams (two launches).  B3 at 1000
+           and 4096 slots, MIN and MAX over int32 and float32, timed one
+           call at a time and 20 back to back, beside a counts-only launch
+           of the same body; at 100M + 3 rows, offset by one element, and
+           with its values offset from gid, over NaN, +-inf, -0.0 and the
+           int32 extremes.  B3a-c
            (kernels/groupby_slots.py), which no SQL route runs, are driven
            through their own entry points here and count launches there;
            also at 100M + 3 rows and on inputs offset by one element.  B4
@@ -29,7 +34,13 @@ printing JSON lines:
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
            schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
-           must rise on this path, each query on its own route
+           must rise on this path, each query on its own route, and no
+           query may run in fragment waves
+  stream   Q1K_MINMAX, Q10M_AGGS and an AVG query on the same table in
+           fragment waves: forced by a 1 MB stream threshold, then by the
+           device-memory term with the free-memory read stubbed; each
+           equal to numpy, with its waves, warm ms and peak device bytes;
+           a stub below one fragment's need raises before any launch
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
@@ -110,6 +121,21 @@ def timed(fn, reps: int) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def device_ms(fn, launches: int = 20) -> float:
+    """ms a call of fn takes with `launches` calls back to back (CUDA events
+    around all of them, after one warm-up run), so the wrapper's host work
+    overlaps the kernels instead of adding to them."""
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
 
 
 def agree(got, want, tol=None) -> float:
@@ -197,11 +223,13 @@ def check_streams(got, want, streams) -> float:
 
 
 def plan_of(name, num_slots, ops):
-    """The plan the wrapper launches B1 / B2 (`name`) with."""
-    from heavydb_tpu_torch.kernels import lane_agg, radix_hist
+    """The plan the wrapper launches B1 / B2 / B3 (`name`) with."""
+    from heavydb_tpu_torch.kernels import groupby_minmax, lane_agg, radix_hist
 
     if name == "lane_agg":
         return lane_agg.plan(num_slots, ops)
+    if name == "groupby_minmax":
+        return groupby_minmax.plan(num_slots)
     return radix_hist.plan(num_slots, ops)
 
 
@@ -237,7 +265,7 @@ def wide_streams(n, gen, cm):
 
 
 def run_kernels(n: int, rate: float):
-    from heavydb_tpu_torch.kernels import _plain, groupby_minmax, lane_agg, radix_hist
+    from heavydb_tpu_torch.kernels import _plain, lane_agg, radix_hist
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -291,32 +319,127 @@ def run_kernels(n: int, rate: float):
         raise AssertionError(f"16-stream shapes cover tiers {sorted(wide_tiers)}, "
                              f"not {sorted(want_tiers)}")
     shapes += agg_edges(n, rate)
-    for num_slots in (1000, 4096):
+    shapes += run_minmax(n, rate, gen)
+    torch.cuda.empty_cache()
+    return shapes
+
+
+B3_SHAPES = (1000, 4096)
+
+
+def run_minmax(n: int, rate: float, gen):
+    """B3 at 1000 and 4096 slots: MIN and MAX over int32 and float32 against
+    the plain version; `timed` (one call at a time), device time (20 calls
+    back to back) and `scatter_reduce` for each; a counts-only launch of the
+    same body (B2 with no stream, the same mask) for the count cells B3
+    computes and drops.  The line without a tag (MAX float32) is the
+    summary's."""
+    from heavydb_tpu_torch.kernels import _plain, groupby_minmax, radix_hist
+
+    lines = []
+    for num_slots in B3_SHAPES:
         gid, _, vals = kernel_inputs(n, num_slots, gen)
         cm, i32, f32 = vals["count"], vals["min"], vals["max"]
         del vals
-        for v in (i32, f32):
-            for is_min in (True, False):
-                got = groupby_minmax.minmax_per_slot(gid, v, cm, num_slots, is_min)
-                want = groupby_minmax.minmax_per_slot_plain(gid, v, cm,
-                                                            num_slots, is_min)
-                agree(got, want)
-        ms = timed(lambda: groupby_minmax.minmax_per_slot(
-            gid, f32, cm, num_slots, False), 10)
-        plain_ms = timed(lambda: groupby_minmax.minmax_per_slot_plain(
-            gid, f32, cm, num_slots, False), 3)
         idx = _plain.slot_index(gid, cm, num_slots)
-        buf = torch.full((num_slots + 1,), float("-inf"), device="cuda")
-        library_ms = timed(lambda: buf.scatter_reduce(0, idx, f32, "amax"), 10)
-        read = n * (4 + 1 + 4)
-        shapes.append(dict(
-            kernel="groupby_minmax", rows=n, slots=num_slots,
-            streams=["max float32"], max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-            bound_ms=(read + num_slots * 4) / rate * 1e3, library_ms=library_ms,
-        ))
+        counts_only = lambda: radix_hist.fused_hist(gid, cm, [], num_slots)  # noqa: E731
+        for v in (f32, i32):
+            for is_min in (False, True):
+                op = "min" if is_min else "max"
+                kind = str(v.dtype)[6:]
+                run = lambda: groupby_minmax.minmax_per_slot(  # noqa: E731
+                    gid, v, cm, num_slots, is_min)
+                plain = lambda: groupby_minmax.minmax_per_slot_plain(  # noqa: E731
+                    gid, v, cm, num_slots, is_min)
+                agree(run(), plain())
+                buf = torch.full((num_slots + 1,), _plain.minmax_ident(v.dtype, is_min),
+                                 dtype=v.dtype, device="cuda")
+                line = dict(
+                    kernel="groupby_minmax", rows=n, slots=num_slots,
+                    streams=[f"{op} {kind}"], max_abs_err=0.0,
+                    **plan_fields(groupby_minmax.plan(num_slots)),
+                    ms=timed(run, 10), device_ms=device_ms(run),
+                    plain_ms=timed(plain, 3),
+                    bound_ms=(n * 9 + num_slots * 4) / rate * 1e3,
+                    library_ms=timed(lambda: buf.scatter_reduce(
+                        0, idx, v, "amin" if is_min else "amax"), 10))
+                if (op, kind) != ("max", "float32"):
+                    line["tag"] = f"{op} {kind}"
+                else:
+                    line.update(counts_only_ms=timed(counts_only, 10),
+                                counts_only_device_ms=device_ms(counts_only),
+                                counts_only_bound_ms=(n * 5 + num_slots * 8) / rate * 1e3)
+                lines.append(line)
         del gid, cm, i32, f32, idx
     torch.cuda.empty_cache()
-    return shapes
+    return lines + minmax_edges(n, rate)
+
+
+def same_minmax(got, want):
+    """B3's result against the plain version: NaN where it has NaN, equal
+    values elsewhere (-0.0 == +0.0; its sign is checked on its own)."""
+    g, w = got.cpu(), want.cpu()
+    if g.is_floating_point():
+        if not torch.equal(g.isnan(), w.isnan()):
+            raise AssertionError("groupby_minmax: NaN slots differ")
+        g, w = g[~g.isnan()], w[~w.isnan()]
+    agree(g, w)
+
+
+def minmax_edges(n: int, rate: float, S: int = 1000):
+    """B3 at n + 3 rows (a ragged tail), on views one element into their
+    storage (a scalar head) and with only the values one element off gid
+    (loaded one at a time), over float32 values with a NaN, +inf, -inf and
+    slots of -0.0 and +0.0, and int32 values with both extremes; MIN and
+    MAX each against the plain version, and the -0.0 / +0.0 slots by their
+    sign."""
+    from heavydb_tpu_torch.kernels import groupby_minmax as GM
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    m = n + 4
+    gid = torch.randint(-3, S + 3, (m,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    mask = torch.rand(m, device="cuda", generator=gen) < 0.9
+    f32 = torch.randn(m, device="cuda", generator=gen)
+    i32 = torch.randint(-2**31, 2**31 - 1, (m,), dtype=torch.int32, device="cuda",
+                        generator=gen)
+    # slots 1-3 get a NaN, +inf and -inf; slots 4 and 5 hold only zeros (-0.0
+    # and +0.0, then -0.0 alone); i32 gets both extremes
+    gid[gid == 4] = 6
+    gid[gid == 5] = 6
+    plant = {10: (1, float("nan")), 20: (2, float("inf")), 30: (3, float("-inf")),
+             40: (4, -0.0), 41: (4, 0.0), 50: (5, -0.0)}
+    for r, (g, x) in plant.items():  # rows every view holds
+        gid[r], mask[r], f32[r] = g, True, x
+    i32[60], i32[61] = -2**31, 2**31 - 1
+    views = (("n + 3 rows", slice(0, n + 3), slice(0, n + 3)),
+             ("offset by one element", slice(1, n + 4), slice(1, n + 4)),
+             ("values offset from gid", slice(0, n + 3), slice(1, n + 4)))
+    lines = []
+    for tag, rows, vrows in views:
+        g, mk = gid[rows], mask[rows]
+        for v in (f32, i32):
+            for is_min in (True, False):
+                got = GM.minmax_per_slot(g, v[vrows], mk, S, is_min)
+                same_minmax(got, GM.minmax_per_slot_plain(g, v[vrows], mk, S, is_min))
+                if v is f32 and vrows == rows:
+                    if not (bool(got[1].isnan()) and float(got[2 + is_min]) ==
+                            (float("-inf") if is_min else float("inf"))):
+                        raise AssertionError(f"groupby_minmax {tag}: NaN / inf slots")
+                    # -0.0 sorts below +0.0: MIN of slot 4 is -0.0, MAX +0.0
+                    sign = torch.signbit(got[4:6]).tolist()
+                    if sign != ([True, True] if is_min else [False, True]):
+                        raise AssertionError(f"groupby_minmax {tag}: signed zeros {sign}")
+        lines.append(dict(
+            kernel="groupby_minmax", tag=tag, rows=g.shape[0], slots=S,
+            storage_offset=[g.storage_offset(), f32[vrows].storage_offset()],
+            streams=["min / max float32 / int32"], max_abs_err=0.0,
+            ms=timed(lambda: GM.minmax_per_slot(g, f32[vrows], mk, S, False), 10),
+            bound_ms=(g.shape[0] * 9 + S * 4) / rate * 1e3))
+    del gid, mask, f32, i32
+    torch.cuda.empty_cache()
+    return lines
 
 
 def agg_edges(n: int, rate: float):
@@ -386,7 +509,7 @@ def agg_edges(n: int, rate: float):
 
 def agg_info():
     """Registers, local and shared bytes, blocks per SM and cluster size of
-    B1 and B2 as each shape of the kernels phase launches them."""
+    B1, B2 and B3 as each shape of the kernels phase launches them."""
     from heavydb_tpu_torch.kernels import _build
 
     kinds = {"count": "bool", "sumi": "int32", "sumf": "float32", "sumd": "float32",
@@ -395,6 +518,7 @@ def agg_info():
     cases += [("radix_hist", S, [(op, kinds[op]) for op in B2_OPS]) for S in B2_SHAPES]
     cases += [("radix_hist", S, [(op, str(dt)[6:]) for op, dt in B2_WIDE])
               for S in B2_WIDE_SHAPES]
+    cases += [("groupby_minmax", S, [("max", "float32")]) for S in (257,) + B3_SHAPES]
     lines = []
     for name, S, specs in cases:
         plan = plan_of(name, S, [op for op, _ in specs])
@@ -514,11 +638,12 @@ def slot_edges(n: int, rate: float, S: int = 1000):
 
 
 def sass_atomics():
-    """The atomic instructions of each B1, B2 and B3a-c kernel as built
+    """The atomic instructions of each B1, B2, B3 and B3a-c kernel as built
     (cuobjdump -sass of its library): whether a shared-memory add is a
     native ATOMS instruction or a compare-and-swap loop (ATOMS.CAST.SPIN).
     B1 / B2 add integer sums as 32-bit halves, so their SUMI cells need no
-    64-bit compare-and-swap."""
+    64-bit compare-and-swap.  Raises unless B3's shared-memory kernel keeps
+    its int32 keys with native ATOMS.MIN and ATOMS.MAX."""
     import os
     import re
     import shutil
@@ -529,7 +654,7 @@ def sass_atomics():
     if not os.path.exists(tool):
         raise FileNotFoundError("cuobjdump not found: the SASS phase cannot run")
     res = {}
-    for lib in ("lane_agg", "radix_hist", "groupby_slots"):
+    for lib in ("lane_agg", "radix_hist", "groupby_minmax", "groupby_slots"):
         text = subprocess.run([tool, "-sass", _build._lib_path(lib)],
                               capture_output=True, text=True, check=True,
                               timeout=120).stdout
@@ -550,7 +675,13 @@ def sass_atomics():
     native = {lib: sorted(k for k, ops in res[lib].items()
                           if any(o.startswith("ATOMS.ADD") for o in ops))
               for lib in ("lane_agg", "radix_hist")}
+    b3 = sorted(o for ops in res["groupby_minmax"].values() for o in ops)
+    if not (any(o.startswith("ATOMS.MIN") for o in b3)
+            and any(o.startswith("ATOMS.MAX") for o in b3)):
+        raise AssertionError(f"groupby_minmax: no native shared MIN / MAX in {b3}")
     return {"kernels": res,
+            "b3_native_shared_minmax": [o for o in b3 if o.startswith(("ATOMS.MIN",
+                                                                       "ATOMS.MAX"))],
             "b1_b2_native_shared_add": native,
             "sum_f32_private_shared_add": f32[0] if f32 else None,
             "sum_f32_shared_add_is_cas_loop":
@@ -827,6 +958,13 @@ def expected(name, h):
         sv = np.bincount(k, weights=h["v"].astype(np.float64), minlength=1001)
         return {(i,): (int(mn[i]), float(mx[i]), sv[i] / cnt[i])
                 for i in range(1001) if cnt[i]}
+    if name == "Q100_AVG":
+        ok = h["x10"] > 3
+        k = h["x100"][ok].astype(np.int64)
+        cnt = np.bincount(k, minlength=101)
+        sv = np.bincount(k, weights=h["v"][ok].astype(np.float64), minlength=101)
+        sk = np.bincount(k, weights=h["x10k"][ok].astype(np.float64), minlength=101)
+        return {(i,): (sv[i] / cnt[i], sk[i] / cnt[i]) for i in range(101) if cnt[i]}
     if name == "Q10K":
         k = h["x10k"].astype(np.int64)
         cnt = np.bincount(k, minlength=10_001)
@@ -888,7 +1026,8 @@ ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
 F32_RESULT_COLS = {"Q100_MINMAX": {2}, "Q10K": {2}, "Q10M_AGGS": {3}}
 
 
-def check_arrays(name, rs, h) -> int:
+def check_arrays(name, rs, h, f32_cols=None) -> int:
+    f32_cols = F32_RESULT_COLS.get(name, ()) if f32_cols is None else f32_cols
     keys, want = expected_arrays(name, h)
     got_keys = rs.column_raw(0)
     order = np.argsort(got_keys, kind="stable")
@@ -898,16 +1037,19 @@ def check_arrays(name, rs, h) -> int:
     for j, w in enumerate(want):
         col = j + 1
         g = rs.column_raw(col)[order]
-        tol = F32_TOL if col in F32_RESULT_COLS.get(name, ()) else (
+        tol = F32_TOL if col in f32_cols else (
             F64_TOL if w.dtype.kind == "f" and g.dtype == np.float64 else None)
         agree(torch.from_numpy(np.ascontiguousarray(g)),
               torch.from_numpy(np.ascontiguousarray(w.astype(g.dtype))), tol)
     return keys.shape[0]
 
 
-def check_result(name, rs, h) -> int:
+def check_result(name, rs, h, f32_cols=None) -> int:
+    """Raise unless the result equals numpy's; f32_cols: the result columns
+    held to float32 tolerance (default F32_RESULT_COLS)."""
+    f32_cols = F32_RESULT_COLS.get(name, ()) if f32_cols is None else f32_cols
     if name in ARRAY_CHECKED:
-        return check_arrays(name, rs, h)
+        return check_arrays(name, rs, h, f32_cols)
     want = expected(name, h)
     n_keys = {"NGA03": 0, "PHM001": 2}.get(name, 1)
     cols = [rs.column(i) for i in range(rs.col_count)]
@@ -919,7 +1061,7 @@ def check_result(name, rs, h) -> int:
         for j, (g, e) in enumerate(zip(r[n_keys:], w)):
             col = n_keys + j
             if isinstance(e, float):
-                tol = F32_TOL if col in F32_RESULT_COLS.get(name, ()) else F64_TOL
+                tol = F32_TOL if col in f32_cols else F64_TOL
                 if not np.isclose(g, e, **tol):
                     raise AssertionError(f"{name}: {r} vs {w} (column {col})")
             elif g != e:
@@ -955,6 +1097,7 @@ def run_e2e(n: int, card: str, counters):
     out = []
     for name, q in QUERIES.items():
         before = launches()
+        waves0 = db.executor.waves_run
         t0 = time.perf_counter()
         rs = db.sql(q)
         decode(rs)
@@ -981,13 +1124,17 @@ def run_e2e(n: int, card: str, counters):
                 raise AssertionError(
                     f"{name}: {kname} launched {d} times; expected the "
                     f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+        waves = db.executor.waves_run - waves0
+        if waves:
+            raise AssertionError(f"{name}: ran in {waves} fragment waves at the "
+                                 "default stream threshold")
         out.append(dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
                         warm_ms=warm, rows_per_s=n / (warm / 1e3),
-                        warm_with_decode_ms=e2e_ms,
+                        warm_with_decode_ms=e2e_ms, waves=waves,
                         launches=dict(zip(KERNEL_NAMES, delta))))
     total = launches()
     return dict(rows=n, fragments=n_frags, make_and_load_s=make_and_load_s,
-                card=card, queries=out), total, db
+                card=card, queries=out), total, db, host
 
 
 HOT_ROWS = 4_000_000
@@ -1051,6 +1198,105 @@ def run_hot_key(db, counters):
 
 
 # ---------------------------------------------------------------------------
+# stream phase
+# ---------------------------------------------------------------------------
+
+# Q1K_MINMAX (perfect tier, B3 and B2), Q10M_AGGS (radix tier) and an AVG
+# query (B1; AVG splits into SUM and COUNT partials)
+STREAM_QUERIES = {
+    "Q1K_MINMAX": QUERIES["Q1K_MINMAX"],
+    "Q10M_AGGS": QUERIES["Q10M_AGGS"],
+    "Q100_AVG": "SELECT x100, AVG(v), AVG(x10k) FROM bench WHERE x10 > 3 "
+                "GROUP BY x100",
+}
+FORCED_THRESHOLD = 1 << 20
+# streamed, AVG over a FLOAT column merges FLOAT SUM partials (as in the
+# reference), so those results are held to float32 tolerance too
+STREAM_F32_COLS = {"Q1K_MINMAX": {3}, "Q10M_AGGS": {3}, "Q100_AVG": {1}}
+
+
+def run_stream(db, host, counters):
+    """Each STREAM_QUERIES query three ways: whole (the default config),
+    in waves forced by a 1 MB stream threshold, and in waves forced by
+    the device-memory term, with the free-memory read stubbed to 2.5
+    fragments' working bytes (the executor's own estimate of the query:
+    one fragment a wave).  Each run equals numpy; it reports waves, warm
+    ms (median of 3) and peak device bytes above what the table holds.  A
+    stub of 1.5 fragments' need must raise DeviceMemoryExceeded with no
+    kernel launched."""
+    from heavydb_tpu_torch.errors import DeviceMemoryExceeded
+    from heavydb_tpu_torch.exec import executor as EX
+    from heavydb_tpu_torch.tools.synthetic import FRAGMENT_ROWS
+
+    ex = db.executor
+    base_cfg = ex.config
+    real_free = EX.free_device_bytes
+    out = []
+
+    def run(name, q):
+        waves0 = ex.waves_run
+        rs = db.sql(q)
+        nrows = check_result(name, rs, host, STREAM_F32_COLS[name])
+        waves = ex.waves_run - waves0
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            db.sql_device(q)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        db.sql_device(q)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        return dict(rows_out=nrows, waves=waves, warm_ms=statistics.median(reps),
+                    peak_bytes=peak)
+
+    try:
+        for name, q in STREAM_QUERIES.items():
+            whole = run(name, q)
+            ex.config = base_cfg.clone(stream_threshold_bytes=FORCED_THRESHOLD)
+            forced = run(name, q)
+            sp = ex.last_stream
+            ex.config = base_cfg
+            work = FRAGMENT_ROWS * sp.work_row_bytes
+            EX.free_device_bytes = lambda dev, need=0: int(2.5 * work)  # noqa: E731
+            by_memory = run(name, q)
+            if not ex.last_stream.by_memory:
+                raise AssertionError(f"{name}: the memory term did not plan the waves")
+            if by_memory["peak_bytes"] > 2.5 * work:
+                raise AssertionError(f"{name}: streamed peak {by_memory['peak_bytes']} B "
+                                     f"past the {int(2.5 * work)} B the plan was given")
+            EX.free_device_bytes = lambda dev, need=0: int(1.5 * work)  # noqa: E731
+            before = [c.launches for c in counters]
+            try:
+                db.sql(q)
+                raise AssertionError(f"{name}: a fragment over half the free "
+                                     "memory did not raise")
+            except DeviceMemoryExceeded as e:
+                refused = str(e)
+            if [c.launches for c in counters] != before:
+                raise AssertionError(f"{name}: kernels launched before the refusal")
+            EX.free_device_bytes = real_free
+            if whole["waves"] or forced["waves"] != 3 or by_memory["waves"] != 3:
+                raise AssertionError(f"{name}: waves {whole['waves']} / "
+                                     f"{forced['waves']} / {by_memory['waves']}, "
+                                     "not 0 / 3 / 3")
+            out.append(dict(query=name, work_row_bytes=sp.work_row_bytes,
+                            col_row_bytes=sp.row_bytes, whole=whole,
+                            forced_threshold=dict(threshold=FORCED_THRESHOLD, **forced),
+                            memory_term=dict(stub_free_bytes=int(2.5 * work),
+                                             **by_memory),
+                            refused=refused))
+    finally:
+        ex.config = base_cfg
+        EX.free_device_bytes = real_free
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1093,12 +1339,15 @@ def main() -> None:
                 radix_groupby.radix_partition, radix_groupby.radix_group,
                 groupby_slots.count_per_slot, groupby_slots.sum_f32_per_slot,
                 groupby_slots.sum_int_per_slot]
-    e2e, total, db = run_e2e(ROWS, card, counters)
+    e2e, total, db, host = run_e2e(ROWS, card, counters)
     emit({"phase": "e2e", **e2e})
     launched = dict(zip(KERNEL_NAMES, total))
     # every kernel of an SQL route ran; B4's network runs inside radix_group
     if min(launched[k] for k in set().union(*ROUTES.values())) < 1:
         raise AssertionError(f"a kernel never launched on the main path: {launched}")
+    for line in run_stream(db, host, counters):
+        emit({"phase": "stream", **line})
+    del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db
     rows = []
@@ -1111,6 +1360,8 @@ def main() -> None:
             launches=n_launched, max_abs_err=s["max_abs_err"], ms=s["ms"],
             plain_ms=s["plain_ms"], bound_ms=s["bound_ms"], bound_by="bytes",
             library_ms=s.get("library_ms"), rows=s["rows"], shape=str(tag))
+        if "device_ms" in s:
+            row["device_ms"] = s["device_ms"]
         if name in slot_launches:
             row.update(launches=slot_launches[name], path="kernel entry point")
         if name == "tile_sort":

@@ -61,6 +61,11 @@ class CardinalityEstimationRequired(ExecutionError):
     (reference QueryEngine/CardinalityEstimator.h)."""
 
 
+class DeviceMemoryExceeded(ExecutionError):
+    """A Compound's working set does not fit the device's free memory, not
+    even one fragment at a time; raised at plan time, before any launch."""
+
+
 class WatchdogException(ExecutionError):
     """Static watchdog rejected the query (reference ERR_WATCHDOG)."""
 

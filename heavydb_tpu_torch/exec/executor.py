@@ -4,10 +4,11 @@ work unit through one compound kernel (exec/compound_kernel.py).
 Port of heavydb_tpu/exec/executor.py for this slice: `execute`, `_exec`,
 the scan over the table's fragments (with chunk-stat fragment skipping),
 `_exec_compound`, `_run_compound` with the capacity-retry ladder, the
-group-by strategy choice (keyless, perfect hash, radix, sort), the kernel
-cache and `_postprocess`.  Torch runs eagerly, so there is no jit and no
-artifact cache; the control scalars of each Compound run still reach the
-host in one read.
+group-by strategy choice (keyless, perfect hash, radix, sort), fragment-wave
+streaming of decomposable aggregates (`_stream_plan`,
+`_exec_compound_streamed`), the kernel cache and `_postprocess`.  Torch
+runs eagerly, so there is no jit and no artifact cache; the control
+scalars of each Compound run still reach the host in one read.
 
 Every tensor lives on the executor's one explicit device.  Sort, Window,
 Union, Unnest, joins, subqueries and the hash group-by tier raise
@@ -23,11 +24,13 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch import types as T
-from heavydb_tpu_torch.errors import DivisionByZero, ExecutionError, NotSupported
+from heavydb_tpu_torch.errors import (DeviceMemoryExceeded, DivisionByZero,
+                                      ExecutionError, NotSupported)
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec import ranges as RNG
 from heavydb_tpu_torch.exec.compound_kernel import build_compound_kernel, ctrl_keys
+from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
@@ -36,6 +39,64 @@ from heavydb_tpu_torch.utils.timer import NullTimer
 # capacity retries of one Compound: a sort-tier or radix cap miss converges
 # in one retry (num_groups is exact), a radix hard overflow takes one more
 MAX_RETRIES = 4
+
+
+# CUDA device index -> the bytes PyTorch's caching allocator can hold there:
+# the free memory CUDA reports plus the allocator's reserve, at the last
+# `mem_get_info` read.  The card's memory is one per process, as is the
+# allocator.
+_HOLDABLE: Dict[int, int] = {}
+
+
+def _allocator_bytes(idx: int):
+    """(allocated, reserved) bytes of PyTorch's caching allocator on CUDA
+    device idx, from its nested statistics (the flat `memory_allocated`
+    builds and sorts every key, which costs a query's plan more host time)."""
+    st = torch.cuda.memory_stats_as_nested_dict(idx)
+
+    def cur(key):
+        return st.get(key, {}).get("all", {}).get("current", 0)
+
+    return cur("allocated_bytes"), cur("reserved_bytes")
+
+
+def free_device_bytes(device, need: int = 0) -> Optional[int]:
+    """Bytes a new allocation can still take on `device`: what the caching
+    allocator can hold there less what it has allocated.  The holdable
+    bytes come from `torch.cuda.mem_get_info` on first use and again only
+    when they fall short of `need`: that read in every query cost more
+    wall time than the rest of its plan (PERF.md §7).  Memory another
+    process takes meanwhile is not seen until then.  None off CUDA, where
+    nothing is checked."""
+    if device.type != "cuda":
+        return None
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    allocated, _ = _allocator_bytes(idx)
+    held = _HOLDABLE.get(idx)
+    if held is None or held - allocated < need:
+        free, _total = torch.cuda.mem_get_info(idx)
+        allocated, reserved = _allocator_bytes(idx)
+        held = _HOLDABLE[idx] = free + reserved
+    return int(held - allocated)
+
+
+def _scan_field_type(table, f: int) -> T.TypeInfo:
+    """Type of scan field f; fields past the physical columns are the
+    virtual rowid pseudo-column (BIGINT NOT NULL)."""
+    if f < len(table.columns):
+        return table.columns[f].type
+    return T.bigint(nullable=False)
+
+
+def _scan_fields(node: R.Compound) -> set:
+    """Input fields an aggregate Compound reads: its keys, aggregate
+    arguments and filter."""
+    needed = set()
+    for e in list(node.group_exprs) + list(node.aggs) + (
+            [node.filter_cond] if node.filter_cond is not None else []):
+        needed |= {r.field_idx for r in E.collect_input_refs(e)}
+    return needed
+
 
 def _iter_node_exprs(node: R.RelNode):
     if isinstance(node, R.Compound):
@@ -64,6 +125,9 @@ class Executor:
             budget = 0  # unbounded
         self.scan_cache = DeviceLRUCache(budget)
         self.timer = NullTimer()
+        # fragment waves run by streamed Compounds, and the last stream plan
+        self.waves_run = 0
+        self.last_stream: Optional[StreamPlan] = None
 
     # ------------------------------------------------------------------
     # entry
@@ -176,8 +240,9 @@ class Executor:
         ident = self._try_identity_projection(node, memo)
         if ident is not None:
             return ident
-        if self._stream_plan(node) is not None:
-            raise NotSupported("fragment-wave streaming")
+        sp = self._stream_plan(node)
+        if sp is not None:
+            return self._exec_compound_streamed(node, sp)
         batches, plan = self._prepare_compound(node, memo)
         return self._run_compound(node, batches, plan)
 
@@ -220,23 +285,184 @@ class Executor:
                 return result
         raise ExecutionError("capacity retry ladder did not converge")
 
-    def _stream_plan(self, node: R.Compound):
-        """Fragment-wave streaming is not ported yet: every Compound runs
-        over its whole input."""
-        return None
+    # ---- fragment-wave streaming (out-of-core aggregates) ----
+    def _stream_plan(self, node: R.Compound) -> Optional["StreamPlan"]:
+        """How an aggregate over one Scan runs in fragment waves with
+        partial-aggregate merge; None = over its whole input.
+
+        The reference's rule: no joins, one Scan input of two or more
+        fragments, decomposable aggregates, no array column, and the needed
+        column bytes above the threshold (0: half the scan cache's budget).
+        Beside it, the device's memory: when the columns and the group-by
+        tier's working bytes (`_tier_row_bytes`) of the rows the filter's
+        fragment skipping leaves would not fit the free memory, the waves
+        shrink until each fits half of it.  A Compound that does not fit
+        and cannot stream, or whose largest fragment alone would not fit
+        half the free memory, raises DeviceMemoryExceeded here, before any
+        scan or launch; so does the merge of the waves' partial rows (a
+        TableData input) that would not fit."""
+        if node.join_levels or len(node.inputs) != 1 or not node.is_aggregate:
+            return None
+        inp = node.inputs[0]
+        if isinstance(inp, R.TableData):
+            # the merge of a streamed Compound's partial rows: held to the
+            # free memory, never streamed
+            work_row = (sum(ti.np_dtype().itemsize for ti in inp.types)
+                        + self._tier_row_bytes(node))
+            free = free_device_bytes(self.device, inp.num_rows * work_row)
+            if free is not None and inp.num_rows * work_row > free:
+                raise DeviceMemoryExceeded(
+                    f"merging {inp.num_rows} partial rows x {work_row} B needs "
+                    f"more than the {free} B free on {self.device}")
+            return None
+        if not isinstance(inp, R.Scan):
+            return None
+        t = inp.table
+        types = [_scan_field_type(t, f) for f in _scan_fields(node)]
+        if any(ti.is_array for ti in types):
+            return None  # array aux payloads aren't fragment-local
+        col_bytes = sum(ti.np_dtype().itemsize for ti in types)
+        row_bytes = max(col_bytes, 1)
+        # the fragments the filter's chunk stats leave
+        frag_ids = None
+        if node.filter_cond is not None:
+            frag_ids = self._surviving_fragments(inp, node.filter_cond)
+        if frag_ids is None:
+            frag_ids = [f.fragment_id for f in t.fragments]
+        rows = [t.fragments[f].num_rows for f in frag_ids]
+        work_row = row_bytes + self._tier_row_bytes(node)
+        free = free_device_bytes(self.device, sum(rows) * work_row)
+        by_memory = free is not None and sum(rows) * work_row > free
+        thr = self.config.stream_threshold_bytes
+        if thr < 0 or len(t.fragments) < 2 or not decomposable(node):
+            if by_memory:
+                raise DeviceMemoryExceeded(
+                    f"{sum(rows)} rows x {work_row} B need more than the "
+                    f"{free} B free on {self.device}, and this query cannot "
+                    "run in fragment waves")
+            return None
+        if thr == 0:
+            thr = (self.scan_cache.budget_bytes or (11 << 30)) // 2
+        if by_memory:
+            if max(rows) * work_row > free // 2:
+                raise DeviceMemoryExceeded(
+                    f"a fragment of {max(rows)} rows x {work_row} B needs more "
+                    f"than half the {free} B free on {self.device}")
+            # a wave of thr / 2 column bytes holds free / 2 working bytes
+            thr = min(thr, free * row_bytes // work_row)
+        elif t.num_rows * col_bytes <= thr:
+            return None
+        return StreamPlan(thr, row_bytes, work_row, by_memory, frag_ids)
+
+    def _exec_compound_streamed(self, node: R.Compound, sp: "StreamPlan") -> B.Batch:
+        """Execute in fragment waves: per-wave Compound with decomposed
+        aggregates (AVG -> SUM + COUNT), the small per-wave group results
+        taken to the host, then one merge Compound over them re-aggregating
+        the partials (SUM of counts / sums, MIN of mins, ...) and applying
+        the original targets and HAVING over the finalize expressions."""
+        scan = node.inputs[0]
+        t = scan.table
+        wave_node, wave_aggs, fin = make_leaf_node(node)
+        needed = _scan_fields(node)
+        # fragment waves of at most half the threshold's column bytes
+        wave_budget = max(sp.threshold // 2, 1)
+        waves, cur, cur_bytes = [], [], 0
+        for fid in sp.fragments:
+            fb = t.fragments[fid].num_rows * sp.row_bytes
+            if cur and cur_bytes + fb > wave_budget:
+                waves.append(cur)
+                cur, cur_bytes = [], 0
+            cur.append(fid)
+            cur_bytes += fb
+        if cur:
+            waves.append(cur)
+        sp.waves = len(waves)
+        self.last_stream = sp
+        parts: List[List[np.ndarray]] = []
+        for wave in waves:
+            batch = self._exec_scan(scan, needed, frag_ids=wave)
+            plan = self._plan_compound(wave_node, [batch])
+            out = self._run_compound(wave_node, [batch], plan)
+            parts.append(out.to_numpy())
+            self.waves_run += 1
+            del batch, out
+        wave_targets = wave_node.target_exprs
+        arrays = [np.concatenate([p[i] for p in parts]) if parts
+                  else np.empty(0, wt.type.np_dtype())
+                  for i, wt in enumerate(wave_targets)]
+        td = R.TableData(wave_node.fields, [wt.type for wt in wave_targets],
+                         arrays, [getattr(wt, "dict_ref", None) for wt in wave_targets])
+        merge_node = make_merge_node(node, wave_aggs, fin, td)
+        return self._exec(merge_node, {}, set(range(merge_node.arity)))
+
+    def _tier_row_bytes(self, node: R.Compound) -> int:
+        """Device bytes a row of the Compound's group-by holds beside its
+        scanned columns, on the tier `_plan_compound` would pick, from the
+        SQL types (s: the aggregates' streams, a bool contribution mask and
+        the value each, as exec/radix_tier.py `row_bytes` counts them):
+          keyless  1 + s        the row mask
+          perfect  5 + s        the row mask and the int32 slot id
+          radix    20 + 2s + r  gid, B5's hb, B6's stage hb and length (4 +
+                                4 + 4 + 8), the streams and B5's partitioned
+                                copy of them (2s), B6's stage records (r)
+          sort     58 + k + 2p + 16a
+                                `sort_group_rows`: the permutation (8), one
+                                stable pass (its gathered operand, sorted
+                                values, indices and composed permutation,
+                                32), the domain and group-start flags and
+                                the int64 group ids with their prefix sum
+                                (18), the sorted key operands (k: a domain
+                                flag, each key's null flag and value), the
+                                aggregate arguments in row order and gathered
+                                (2p, p taken as s); `SortedSegments`: an
+                                8-byte masked copy and prefix sum of each
+                                partial (16a)"""
+        s, r = RT.row_bytes(node.aggs)
+        tier = self._group_tier(node)[0]
+        if tier == "keyless":
+            return 1 + s
+        if tier == "perfect":
+            return 5 + s
+        if tier == "radix":
+            return 20 + 2 * s + r
+        k = 1 + sum(np.dtype(g.type.np_dtype()).itemsize + g.type.nullable
+                    for g in node.group_exprs)
+        A = E.AggKind
+        a = sum(1 if ag.kind in (A.COUNT, A.COUNT_IF)
+                else 3 if ag.kind in (A.STDDEV, A.VARIANCE) else 2 for ag in node.aggs)
+        return 58 + k + 2 * s + 16 * a
+
+    def _group_tier(self, node: R.Compound):
+        """(tier, ranges, slots) of an aggregate Compound's group-by, known
+        before its scan: keyless; perfect or radix or sort when every key
+        has a dense range within baseline_groupby_threshold slots (slots
+        their product); else the sort tier, slots None (a query the
+        reference would run on its hash tier raises in `_plan_compound`)."""
+        cfg = self.config
+        if not node.group_exprs:
+            return "keyless", [], 1
+        ranges = [RNG.expr_range(g, node.inputs) for g in node.group_exprs]
+        slots = 1
+        for r in ranges:
+            if r is None or r.extent <= 0 or r.extent > cfg.baseline_groupby_threshold:
+                return "sort", ranges, None
+            slots *= r.extent + (1 if r.has_nulls else 0)
+            if slots > cfg.baseline_groupby_threshold:
+                return "sort", ranges, None
+        if slots <= cfg.sortagg_min_slots:
+            return "perfect", ranges, slots
+        return ("radix" if RT.eligible(node, ranges, slots, cfg) else "sort"), ranges, slots
 
     def _prepare_compound(self, node: R.Compound, memo):
         if len(node.inputs) != 1 or any(
                 c is not None or k != "INNER" for k, c in node.join_levels):
             raise NotSupported("joins")
-        needed = set()
         if node.is_aggregate:
-            exprs = list(node.group_exprs) + list(node.aggs) + (
-                [node.filter_cond] if node.filter_cond is not None else [])
+            needed = _scan_fields(node)
         else:
-            exprs = list(_iter_node_exprs(node))
-        for e in exprs:
-            needed |= {r.field_idx for r in E.collect_input_refs(e)}
+            needed = set()
+            for e in _iter_node_exprs(node):
+                needed |= {r.field_idx for r in E.collect_input_refs(e)}
         inp = node.inputs[0]
         frag_ids = None
         if isinstance(inp, R.Scan) and node.filter_cond is not None \
@@ -305,33 +531,19 @@ class Executor:
         cfg = self.config
         plan = _CompoundPlan()
         if node.is_aggregate and node.group_exprs:
-            ranges = [RNG.expr_range(g, node.inputs) for g in node.group_exprs]
-            slots = 1
-            ok = True
-            for r in ranges:
-                if r is None or r.extent <= 0 \
-                        or r.extent > cfg.baseline_groupby_threshold:
-                    ok = False
-                    break
-                slots *= r.extent + (1 if r.has_nulls else 0)
-                if slots > cfg.baseline_groupby_threshold:
-                    ok = False
-                    break
+            tier, ranges, slots = self._group_tier(node)
             padded = max(batches[0].padded, 8)
-            if ok and slots > cfg.sortagg_min_slots:
+            spec = tuple((r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges) \
+                if slots is not None else None
+            if tier == "perfect":
+                plan.group_strategy = ("perfect", spec)
+                plan.group_cap = slots
+            elif slots is not None:
                 # huge dense key spaces: the radix tier when the aggregates
                 # fit its stream budget, else the sort tier; neither
                 # allocates [slots]-sized buffers
-                if RT.eligible(node, ranges, slots, cfg):
-                    plan.group_strategy = ("radix", tuple(
-                        (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
-                else:
-                    plan.group_strategy = ("sort", None)
+                plan.group_strategy = ("radix", spec) if tier == "radix" else ("sort", None)
                 plan.group_cap = B.bucket(min(slots, padded))
-            elif ok:
-                plan.group_strategy = ("perfect", tuple(
-                    (r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges))
-                plan.group_cap = slots
             else:
                 # the reference's hash tier, where it would take it: keys
                 # that pack, a known NDV, and both a low collision depth
@@ -470,6 +682,22 @@ class Executor:
 # ---------------------------------------------------------------------------
 # compound plan containers
 # ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StreamPlan:
+    """A Compound's fragment waves (Executor._stream_plan): waves of at
+    most threshold / 2 column bytes over `fragments`; row_bytes = the
+    needed column bytes a row, work_row_bytes = those and the group-by
+    tier's; by_memory = shrunk to the device's free memory; waves = how
+    many ran."""
+
+    threshold: int
+    row_bytes: int
+    work_row_bytes: int
+    by_memory: bool
+    fragments: List[int]
+    waves: int = 0
 
 
 @dataclasses.dataclass

@@ -99,6 +99,36 @@ def plan_aggs(aggs) -> Optional[List[dict]]:
     return specs
 
 
+def row_bytes(aggs):
+    """(s, r): bytes a row of the streams `build_streams` makes for `aggs`,
+    and of B6's stage records of them (kernels/radix_groupby.py
+    `record_dtype`), from the arguments' SQL types.  An aggregate the
+    streams cannot take counts its argument, a bool mask and an 8-byte
+    record."""
+    s = r = 0
+    for agg in aggs:
+        spec = _agg_spec(agg)
+        if spec is None:
+            w = 0 if agg.arg is None else np.dtype(agg.arg.type.np_dtype()).itemsize
+            s, r = s + w + 1, r + 8
+            continue
+        if spec["needs_cm"]:
+            s, r = s + 1, r + 8  # a bool count stream, int64 records
+        cls = spec["cls"]
+        if cls == "count":
+            continue
+        vdt = np.dtype(agg.arg.type.np_dtype())
+        if cls == "sumint":
+            s, r = s + (8 if vdt.kind == "b" else vdt.itemsize), r + 8
+        elif cls == "sumd":
+            s, r = s + (4 if vdt == np.float32 else 8), r + 8
+        elif cls == "std":
+            s, r = s + 16, r + 16
+        else:  # sumf, minmax: 4-byte values and records
+            s, r = s + 4, r + 4
+    return s, r
+
+
 def eligible(node, ranges, slots: int, cfg) -> bool:
     """Static plan-time check: can this Compound's group-by run on the
     radix tier?"""

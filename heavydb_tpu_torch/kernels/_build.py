@@ -132,16 +132,13 @@ def build_all() -> Dict[str, object]:
 
 def _bind(lib: ctypes.CDLL, name: str):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name in ("lane_agg", "radix_hist"):
+    if name in ("lane_agg", "radix_hist", "groupby_minmax"):
         run = getattr(lib, f"hdb_{name}")
         run.argtypes = [p, p, ll, i, ctypes.POINTER(StreamSet), p, i, i, i, ll, p]
         info = getattr(lib, f"hdb_{name}_info")
         info.argtypes = [i, ctypes.POINTER(StreamSet), i, i, i, ll, p]
         run.restype = info.restype = ctypes.c_int
         return types.SimpleNamespace(run=run, info=info)
-    elif name == "groupby_minmax":
-        fn = lib.hdb_minmax
-        fn.argtypes = [p, p, p, i, ll, i, i, p, i, i, p]
     elif name == "tile_sort":
         fn = lib.hdb_sort_tiles
         fn.argtypes = [p, p, p, ll, i, p, p]
@@ -261,7 +258,7 @@ _ALLOWED = {
 }
 
 
-# ---- B1 / B2 (csrc/stream_agg.cuh) ----
+# ---- B1, B2 and B3 (csrc/stream_agg.cuh) ----
 
 # shared memory a block may opt in to on sm_90 (227 KB), and the most that
 # lets four (two) blocks share an SM's 228 KB, 1 KB reserved a block
@@ -274,12 +271,12 @@ TIER_MODES = {"shared": 0, "shared_sm": 0, "cluster": 0, "global": 1}
 
 @dataclasses.dataclass(frozen=True)
 class AggPlan:
-    """How a B1 / B2 launch holds its cells: tier (shared: a private copy a
-    block, two or more blocks an SM; shared_sm: one block an SM; cluster:
-    the cells split over the blocks of a thread-block cluster, each block
-    scanning the cluster's rows for its own slots; global: atomics into the
-    outputs), blocks a cluster, threads a block, dynamic shared bytes a
-    block, and slots a block holds."""
+    """How a B1 / B2 / B3 launch holds its cells: tier (shared: a private
+    copy a block, two or more blocks an SM; shared_sm: one block an SM;
+    cluster: the cells split over the blocks of a thread-block cluster,
+    each block scanning the cluster's rows for its own slots; global:
+    atomics into the outputs), blocks a cluster, threads a block, dynamic
+    shared bytes a block, and slots a block holds."""
 
     tier: str
     cluster: int
@@ -311,7 +308,7 @@ def _stream_set(specs) -> StreamSet:
 
 
 def stream_info(name: str, num_slots: int, specs, plan: AggPlan) -> dict:
-    """What a launch of B1 / B2 (`name`) with `plan` over streams
+    """What a launch of B1 / B2 / B3 (`name`) with `plan` over streams
     [(op, dtype name)] gets: registers, local and shared bytes, resident
     blocks per SM, threads, cluster size, resident clusters."""
     ss = _stream_set([(None, op, dt) for op, dt in specs])
@@ -326,7 +323,8 @@ def stream_info(name: str, num_slots: int, specs, plan: AggPlan) -> dict:
 
 def launch_streams(name: str, gid, mask, streams, num_slots: int, plan,
                    counter=None):
-    """Launch B1 / B2 (`name`: lane_agg or radix_hist) on CUDA tensors.
+    """Launch B1 / B2 / B3 (`name`: lane_agg, radix_hist or groupby_minmax)
+    on CUDA tensors.
     `plan(ops)` gives the AggPlan of a launch over streams of those ops;
     `counter.launches` (the wrapper's launch count, if given) rises by one
     per kernel launch.  Returns [counts int64[S]] + one output per stream

@@ -1,5 +1,5 @@
 // Shared pieces of the group-by aggregation kernels (stream_agg.cuh for
-// lane_agg.cu and radix_hist.cu, groupby_minmax.cu, groupby_slots.cu,
+// lane_agg.cu, radix_hist.cu and groupby_minmax.cu; groupby_slots.cu;
 // radix_groupby.cu).
 //
 // Row contract, common to all: a row contributes when its slot id

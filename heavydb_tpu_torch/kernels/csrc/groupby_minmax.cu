@@ -2,47 +2,44 @@
 // type, one pass over the rows.
 //
 // Replaces the TPU kernel heavydb_tpu/kernels/groupby_pallas.py:
-// minmax_per_slot (a [block, slots] masked tile reduce in VMEM).  Here each
-// block keeps one int32 key per slot in shared memory (4096 slots: 16 KB),
-// reduces with shared atomicMin/atomicMax, and merges the slots it touched
-// into the global keys with global atomics.  int32 values are their own
-// keys; float32 values use the order-preserving key of agg_common.cuh, and
-// the wrapper decodes the keys back to floats.
+// minmax_per_slot (a [block, slots] masked tile reduce in VMEM).  The body
+// is stream_agg.cuh's, instantiated with MIN/MAX classes as B1's is, over
+// one MIN or MAX stream: each thread loads two 4-row vectors a tile (an
+// int4 of gid, one 32-bit mask word, an int4 / float4 of values), a block
+// keeps one copy of every slot's cells in shared memory (a u32 count and an
+// int32 key: 4096 slots take 32 KB, so four 256-thread blocks share an SM)
+// and reduces with native shared atomicMin / atomicMax, a resident grid
+// sweeps the rows, and each block merges the slots it reached into the
+// global keys once.  int32 values are their own keys; float32 values use
+// agg_common.cuh's order-preserving key, which the wrapper decodes.  The
+// per-slot counts the body keeps come back too, and the wrapper drops them.
 //
-// Bound: bytes read (gid 4 B/row, the mask 1 B/row, values 4 B/row).
-#include "agg_common.cuh"
+// Bound: bytes read (gid 4 B/row, the mask 1 B/row, values 4 B/row).  The
+// kernel it replaces here loaded one row a thread a step (9 bytes in
+// flight), too few to cover device memory's latency.
+#include "stream_agg.cuh"
 
-__global__ void minmax_kernel(const int* __restrict__ gid, const unsigned char* __restrict__ mask,
-                              const void* __restrict__ vals, int dt, long long n, int S,
-                              int is_min, int* __restrict__ out) {
-  extern __shared__ int s_key[];
-  const int ident = key_ident(dt, is_min != 0);
-  for (int i = threadIdx.x; i < S; i += blockDim.x) s_key[i] = ident;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n; r += stride) {
-    int g;
-    if (!row_slot(gid, mask, r, S, &g)) continue;
-    int k = load_key(vals, dt, r, is_min != 0);
-    if (is_min) atomicMin(s_key + g, k);
-    else atomicMax(s_key + g, k);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < S; i += blockDim.x) {
-    int k = s_key[i];
-    if (k == ident) continue;
-    if (is_min) atomicMin(out + i, k);
-    else atomicMax(out + i, k);
-  }
+static int minmax_run(const int* gid, const unsigned char* mask, long long n, int S,
+                      const StreamSet* ss, unsigned long long* counts, int mode, int cluster,
+                      int threads, long long smem, void* stream, int* info) {
+  if (mode != SA_SHARED || cluster != 1 || threads != 256 || ss->n != 1 ||
+      (ss->op[0] != OP_MIN && ss->op[0] != OP_MAX))
+    return (int)cudaErrorInvalidValue;
+  return sa_run<SA_SHARED, true, 256>(gid, mask, n, S, ss, counts, 1, smem, stream, info);
 }
 
-extern "C" int hdb_minmax(const int* gid, const unsigned char* mask, const void* vals, int dt,
-                          long long n, int S, int is_min, int* out, int grid, int block,
-                          void* stream) {
-  if (dt != DT_I32 && dt != DT_F32) return (int)cudaErrorInvalidValue;
-  size_t smem = (size_t)S * sizeof(int);
-  int rc = set_smem((const void*)minmax_kernel, smem);
-  if (rc) return rc;
-  minmax_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(gid, mask, vals, dt, n, S, is_min, out);
-  return (int)cudaGetLastError();
+// counts u64[S] zeroed and the key output int32[S] at its identity by the
+// caller; smem as sa_run's.
+extern "C" int hdb_groupby_minmax(const int* gid, const unsigned char* mask, long long n, int S,
+                                  const StreamSet* ss, unsigned long long* counts, int mode,
+                                  int cluster, int threads, long long smem, void* stream) {
+  return minmax_run(gid, mask, n, S, ss, counts, mode, cluster, threads, smem, stream,
+                    nullptr);
+}
+
+// What a launch of that plan gets: out[0..6] as sa_run's info.
+extern "C" int hdb_groupby_minmax_info(int S, const StreamSet* ss, int mode, int cluster,
+                                       int threads, long long smem, int* out) {
+  return minmax_run(nullptr, nullptr, 0, S, ss, nullptr, mode, cluster, threads, smem, nullptr,
+                    out);
 }

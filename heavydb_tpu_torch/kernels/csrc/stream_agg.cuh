@@ -1,6 +1,6 @@
-// The shared body of B1 (lane_agg.cu) and B2 (radix_hist.cu): per-slot
-// counts and up to HDB_MAX_STREAMS value streams (agg_common.cuh's classes)
-// in one pass over the rows.
+// The shared body of B1 (lane_agg.cu), B2 (radix_hist.cu) and B3
+// (groupby_minmax.cu): per-slot counts and up to HDB_MAX_STREAMS value
+// streams (agg_common.cuh's classes) in one pass over the rows.
 //
 // Bound: bytes read (gid 4 B/row, the mask 1 B/row, each stream at its own
 // width, nothing widened before the launch) and the per-slot outputs written
@@ -38,7 +38,7 @@
 //    slower than this (PERF.md section 6).  SA_GLOBAL, straight global
 //    atomics into the outputs.  The wrapper picks the mode
 //    and the cluster size on the host (kernels/lane_agg.py,
-//    kernels/radix_hist.py `plan`).
+//    kernels/radix_hist.py, kernels/groupby_minmax.py `plan`).
 //
 // Precision, as agg_common.cuh's stream classes promise: SUMF adds in f32
 // within a block and in f64 across blocks; SUMD in f64; a NaN or +-inf

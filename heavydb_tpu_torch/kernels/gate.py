@@ -145,12 +145,14 @@ def kernel_gate(device) -> dict:
                           f"output {j}")
         for c, b in zip(counters, before):
             c.launches = b
+        # B3 at 3000 slots: aligned rows, and views one element in
         for vals in (i32, f):
             for is_min in (True, False):
-                got = groupby_minmax.launch(gid, vals, mask, 3000, is_min)
-                want = groupby_minmax.minmax_per_slot_plain(
-                    gid, vals, mask, 3000, is_min)
-                _same(got, want, f"groupby_minmax {vals.dtype} is_min={is_min}")
+                for sl in (slice(None), slice(1, None)):
+                    args = (gid[sl], vals[sl], mask[sl], 3000, is_min)
+                    _same(groupby_minmax.launch(*args),
+                          groupby_minmax.minmax_per_slot_plain(*args),
+                          f"groupby_minmax {vals.dtype} is_min={is_min}")
         # B3a-c on the shared-memory path (1000 slots) and the global one
         for num_slots in (1000, 40000):
             gid, mask, _, f, i32, i64 = _inputs(device, n, num_slots, num_slots + 1)

@@ -2,12 +2,14 @@
 (kernel B3).
 
 Port of heavydb_tpu/kernels/groupby_pallas.py `minmax_per_slot` (a
-[block, slots] masked tile reduce in VMEM).  csrc/groupby_minmax.cu keeps
-one int32 key per slot in shared memory and reduces with atomicMin /
-atomicMax; float32 values travel as order-preserving int32 keys (NaN wins
-both MIN and MAX, -0.0 sorts below +0.0) and are decoded here.  It is
-bound by the bytes it reads: gid (4 B/row), the mask (1 B/row) and the
-values (4 B/row).
+[block, slots] masked tile reduce in VMEM).  The CUDA kernel is
+csrc/groupby_minmax.cu on the body of csrc/stream_agg.cuh with one MIN or
+MAX stream: 4-row vector loads, one copy of every slot's cells a block in
+shared memory, native shared atomicMin / atomicMax on int32 keys, a
+resident grid.  float32 values travel as order-preserving int32 keys (NaN
+wins both MIN and MAX, -0.0 sorts below +0.0) and are decoded here.  The
+body's per-slot counts are computed and dropped.  It is bound by the bytes
+it reads: gid (4 B/row), the mask (1 B/row) and the values (4 B/row).
 
 Values must be at most 4 bytes; int8/int16/bool values are widened to
 int32 and the result cast back.  Slots no row reached keep the identity
@@ -23,6 +25,14 @@ import torch
 from heavydb_tpu_torch.kernels import _build, _plain
 
 MAX_SLOTS = 4096
+
+
+def plan(num_slots: int) -> _build.AggPlan:
+    """B3's launch: 256-thread blocks, each with a copy of every slot's u32
+    count and int32 key in shared memory (4096 slots: 32 KB, within the 56
+    KB that lets four blocks share an SM)."""
+    return _build.AggPlan("shared", 1, 256, _build.smem_bytes(num_slots, ["min"]),
+                          num_slots)
 
 
 def _widen(values):
@@ -51,22 +61,10 @@ minmax_per_slot.launches = 0
 def launch(gid, values, mask, num_slots: int, is_min: bool, counter=None):
     """The CUDA launch itself; `counter.launches` (the wrapper's launch
     count, if given) rises by one when the kernel launches."""
-    v = _widen(values)
-    _build.check_rows(gid, mask, [v])
-    out = torch.full((num_slots,), _build.key_ident(v.dtype, is_min),
-                     dtype=torch.int32, device=gid.device)
-    n = gid.shape[0]
-    if n:
-        fn = _build.entry("groupby_minmax")
-        _build.check(fn(gid.data_ptr(),
-                        mask.data_ptr() if mask is not None else None,
-                        v.data_ptr(), _build.DT_CODES[str(v.dtype)[6:]], n,
-                        num_slots, int(is_min), out.data_ptr(),
-                        _build.grid_for(n, gid.device, 4), 256,
-                        _build.stream_ptr(gid.device)), "groupby_minmax")
-        if counter is not None:
-            counter.launches += 1
-    return _build.decode_keys(out, v.dtype).to(values.dtype)
+    _, out = _build.launch_streams(
+        "groupby_minmax", gid, mask, [(_widen(values), "min" if is_min else "max")],
+        num_slots, lambda ops: plan(num_slots), counter=counter)
+    return out.to(values.dtype)
 
 
 def minmax_per_slot_plain(gid, values, mask, num_slots: int, is_min: bool):

@@ -1,6 +1,7 @@
 """Where the time of a SELECT goes on the card.
 
     python -m heavydb_tpu_torch.tools.profile_queries [--rows 100000000]
+        [--stream-threshold BYTES] [--queries NAME ...]
 
 Loads the synthetic benchmark's schema (tools/synthetic.py: uniform INT
 columns x10 .. x10m, sparse BIGINT columns x10k_s10k and x1m_s10k, a FLOAT
@@ -9,7 +10,9 @@ query warm under torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
 profiled run, the device's idle share (1 - busy / median wall), and the
-kernels that took the most time.  Needs a CUDA card.
+kernels that took the most time, and the fragment waves a run took
+(`--stream-threshold` sets the config's stream_threshold_bytes, so a
+small one runs every query in waves).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import time
 
 import torch
 
+from heavydb_tpu_torch.config import Config
 from heavydb_tpu_torch.tools.synthetic import FRAGMENT_ROWS, QUERIES, load_bench
 
 def _device_us(evt) -> float:
@@ -39,6 +43,9 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
         torch.cuda.synchronize()
 
     run()  # warm
+    waves0 = db.executor.waves_run
+    run()
+    waves = db.executor.waves_run - waves0
     walls = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -64,7 +71,7 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
     return dict(
         wall_ms=wall, profiled_wall_ms=wall_ms,
-        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall,
+        device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall, waves=waves,
         top=[dict(name=e.key[:80], ms=_device_us(e) / 1e3, calls=e.count)
              for e in top])
 
@@ -76,13 +83,18 @@ def main(argv=None) -> None:
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=20261016)
     ap.add_argument("--fragment-rows", type=int, default=FRAGMENT_ROWS)
+    ap.add_argument("--stream-threshold", type=int, default=0,
+                    help="the config's stream_threshold_bytes (0: its default)")
+    ap.add_argument("--queries", nargs="*", default=list(QUERIES),
+                    choices=list(QUERIES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: needs a CUDA device")
-    db = hdt.connect()
+    db = hdt.connect(config=Config(stream_threshold_bytes=args.stream_threshold))
     load_bench(db, args.rows, args.seed, args.fragment_rows)
     card = torch.cuda.get_device_name(0)
-    for name, sql in QUERIES.items():
+    for name in args.queries:
+        sql = QUERIES[name]
         print(json.dumps({"query": name, "rows": args.rows, "card": card,
                           **profile_query(db, sql)}), flush=True)
 
