@@ -41,6 +41,16 @@ printing JSON lines:
            device-memory term with the free-memory read stubbed; each
            equal to numpy, with its waves, warm ms and peak device bytes;
            a stub below one fragment's need raises before any launch
+  sort     the ORDER BY queries of tools/synthetic.py SORT_QUERIES on the
+           same table (LIMIT alone, single-key top-k on a FLOAT and on a
+           tied INT key, a packed two-key top-k, GROUP BY ... ORDER BY ...
+           LIMIT, a full three-column sort of ~10M rows) and the FLOAT
+           top-k again in fragment waves (a 1 MB stream threshold, >= 3
+           waves); each equal to numpy, rows and order, with its warm ms,
+           waves and kernel launches (counted from 0 for this phase);
+           beside them torch.topk and one stable torch.sort of the top-k
+           keys, and the full sort's time split into sort passes and
+           payload gathers
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
@@ -59,7 +69,7 @@ import time
 import numpy as np
 import torch
 
-from heavydb_tpu_torch.tools.synthetic import QUERIES, load_bench
+from heavydb_tpu_torch.tools.synthetic import QUERIES, SORT_QUERIES, load_bench
 
 ROWS = 100_000_000
 SEED = 20261016
@@ -1018,6 +1028,10 @@ ROUTES = {
     "Q10K": {"radix_hist"}, "PHS003": set(), "BH002": set(), "BH003": set(),
     "BH004": {"radix_partition", "radix_group"},
     "Q10M_AGGS": {"radix_partition", "radix_group"},
+    # the sort phase: only GROUP_TOPN's group-by launches a kernel (B2);
+    # ORDER BY itself is plain torch, as the reference's is plain XLA
+    "LIMIT_ONLY": set(), "TOPK_V": set(), "TOPK_TIES": set(), "TOPK_MULTI": set(),
+    "GROUP_TOPN": {"radix_hist"}, "FULL_SORT": set(), "TOPK_V_STREAMED": set(),
 }
 # queries checked column by column as arrays (large results)
 ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
@@ -1297,6 +1311,161 @@ def run_stream(db, host, counters):
 
 
 # ---------------------------------------------------------------------------
+# sort phase
+# ---------------------------------------------------------------------------
+
+
+def _first(cand, keys, start, stop):
+    """Rows of `cand` (ascending row indices) in the order of `keys`
+    (arrays over cand, most significant first, each ascending), ties in row
+    order, positions start..stop."""
+    order = np.lexsort([cand] + list(reversed(keys)))
+    return cand[order[start:stop]]
+
+
+def expected_sort(name, h):
+    """numpy answer of each SORT_QUERIES query: its columns, rows in order."""
+    if name == "LIMIT_ONLY":
+        idx = np.flatnonzero(h["x1k"] == 5)[:20]
+        return [h["x10"][idx], h["v"][idx]]
+    if name == "TOPK_V":
+        ok = h["x10"] > 3
+        thr = np.partition(h["v"][ok], -100)[-100]
+        cand = np.flatnonzero(ok & (h["v"] >= thr))
+        idx = _first(cand, [-h["v"][cand]], 0, 100)
+        return [h["x10m"][idx], h["v"][idx]]
+    if name == "TOPK_TIES":
+        x = h["x10m"]
+        top = int(np.searchsorted(np.cumsum(np.bincount(x)), 1010))
+        cand = np.flatnonzero(x <= top)
+        idx = _first(cand, [x[cand]], 10, 1010)
+        return [x[idx], h["x100"][idx]]
+    if name == "TOPK_MULTI":
+        x = h["x1k"]
+        above = np.cumsum(np.bincount(x)[::-1])[::-1]  # rows with x1k >= i
+        cand = np.flatnonzero(x >= int(np.flatnonzero(above >= 50)[-1]))
+        idx = _first(cand, [-x[cand], h["v"][cand]], 0, 50)
+        return [x[idx], h["v"][idx], h["x10k"][idx]]
+    if name == "GROUP_TOPN":
+        cnt = np.bincount(h["x1k"])
+        sv = np.bincount(h["x1k"], weights=h["v"].astype(np.float64))
+        keys = np.flatnonzero(cnt)
+        top = _first(keys, [-cnt[keys]], 0, 10)
+        return [top, cnt[top], sv[top]]
+    if name == "FULL_SORT":
+        cand = np.flatnonzero(h["x10"] == 1)
+        idx = _first(cand, [-h["x100"][cand], h["x10m"][cand]], 0, cand.shape[0])
+        return [h["x10m"][idx], h["x100"][idx], h["v"][idx]]
+    raise KeyError(name)
+
+
+def check_sort(name, rs, h) -> int:
+    """Raise unless each column equals numpy's, row for row: exact, the
+    FLOAT sum of GROUP_TOPN to float32 tolerance."""
+    want = expected_sort(name.replace("_STREAMED", ""), h)
+    if rs.row_count != want[0].shape[0]:
+        raise AssertionError(f"{name}: {rs.row_count} rows, numpy has "
+                             f"{want[0].shape[0]}")
+    for j, w in enumerate(want):
+        g = rs.column_raw(j)
+        tol = F32_TOL if (name == "GROUP_TOPN" and j == 2) else None
+        agree(torch.from_numpy(np.ascontiguousarray(g)),
+              torch.from_numpy(np.ascontiguousarray(w.astype(g.dtype))), tol)
+    return rs.row_count
+
+
+def run_sort(db, host, counters):
+    """Each SORT_QUERIES query, then TOPK_V in fragment waves, with the
+    launch counters set to 0 before the first: rows out, first and warm ms
+    (median of 5), waves and launches, each checked against numpy and
+    ROUTES.  Returns the lines and each kernel's launches in the phase."""
+    ex = db.executor
+    base_cfg = ex.config
+    runs = list(SORT_QUERIES.items()) + [("TOPK_V_STREAMED", SORT_QUERIES["TOPK_V"])]
+    out = []
+    for c in counters:
+        c.launches = 0  # the sort path starts here
+    try:
+        for name, q in runs:
+            if name == "TOPK_V_STREAMED":
+                ex.config = base_cfg.clone(stream_threshold_bytes=FORCED_THRESHOLD)
+            before = [c.launches for c in counters]
+            waves0 = ex.waves_run
+            t0 = time.perf_counter()
+            rs = db.sql(q)
+            rs.column_raw(0)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            waves = ex.waves_run - waves0
+            nrows = check_sort(name, rs, host)
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                db.sql_device(q)
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            for kname, d in zip(KERNEL_NAMES, delta):
+                if (d > 0) != (kname in ROUTES[name]):
+                    raise AssertionError(
+                        f"{name}: {kname} launched {d} times; expected the "
+                        f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+            if (waves < 3) if name == "TOPK_V_STREAMED" else waves:
+                raise AssertionError(f"{name}: {waves} fragment waves")
+            out.append(dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
+                            warm_ms=statistics.median(reps), waves=waves,
+                            launches=dict(zip(KERNEL_NAMES, delta))))
+    finally:
+        ex.config = base_cfg
+    return out, [c.launches for c in counters]
+
+
+def sort_yardsticks(db, host, rate):
+    """The top-k select of TOPK_V and TOPK_TIES on their keys beside
+    torch.topk and one stable torch.sort of the same key (CUDA events,
+    median of 5); FULL_SORT's filtered input, its sort permutation and its
+    payload gathers timed apart."""
+    from heavydb_tpu_torch.exec import batch as B
+    from heavydb_tpu_torch.exec.compound_kernel import derive_valid
+    from heavydb_tpu_torch.ops import sort as S
+    from heavydb_tpu_torch.plan.optimizer import optimize
+    from heavydb_tpu_torch.sql.parser import parse_many
+
+    lines = []
+    # the descending-priority keys _exec_topk selects on (no NULL or NaN in
+    # the data): v of the rows with x10 > 3; -x10m for ORDER BY x10m ASC
+    v = torch.from_numpy(host["v"][host["x10"] > 3]).cuda()
+    x = torch.from_numpy(host["x10m"]).cuda()
+    for name, key, k, lib in (
+            ("TOPK_V", v, 100, lambda: torch.topk(v, 100)),
+            ("TOPK_TIES", -x, 1010, lambda: torch.topk(x, 1010, largest=False))):
+        got = S.topk_indices(key, k)
+        agree(key[got], lib()[0] if name == "TOPK_V" else -lib()[0])
+        lines.append(dict(
+            query=name, rows=key.shape[0], k=k,
+            select_ms=timed(lambda: S.topk_indices(key, k), 5),
+            torch_topk_ms=timed(lib, 5),
+            torch_sort_stable_ms=timed(lambda: torch.sort(key, descending=True,
+                                                          stable=True), 5),
+            bound_ms=key.shape[0] * key.element_size() / rate * 1e3))
+    del v, x
+    ex = db.executor
+    plan = optimize(db._plan_select(parse_many(SORT_QUERIES["FULL_SORT"])[0]))
+    child = plan.inputs[0]
+    inp = ex._exec(child, {}, set(range(child.arity)))
+    tvs = [(inp.cols[i], derive_valid(inp.cols[i], inp.types[i])) for i, _, _ in plan.keys]
+    specs = [(asc, nf) for _, asc, nf in plan.keys]
+    dom = ex._in_domain(inp.padded, inp.nrows)
+    take = S.sort_permutation(tvs, specs, dom)[0][:B.bucket(inp.nrows)]
+    lines.append(dict(
+        query="FULL_SORT", rows=inp.nrows, padded=inp.padded,
+        filter_ms=timed(lambda: ex._exec(child, {}, set(range(child.arity))), 5),
+        sort_permutation_ms=timed(lambda: S.sort_permutation(tvs, specs, dom), 5),
+        gathers_ms=timed(lambda: [c[take] for c in inp.cols], 5),
+        payloads=len(inp.cols)))
+    return lines
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1347,6 +1516,13 @@ def main() -> None:
         raise AssertionError(f"a kernel never launched on the main path: {launched}")
     for line in run_stream(db, host, counters):
         emit({"phase": "stream", **line})
+    sort_lines, sort_total = run_sort(db, host, counters)
+    for line in sort_lines:
+        emit({"phase": "sort", **line})
+    for line in sort_yardsticks(db, host, rate):
+        emit({"phase": "sort_split", **line})
+    # the kernels line counts the launches of both main-path phases
+    total = [a + b for a, b in zip(total, sort_total)]
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db

@@ -109,3 +109,23 @@ def from_host_columns(
         padded = pad_to(np.ascontiguousarray(arr), size, ti)
         cols.append(torch.from_numpy(padded).to(device))
     return Batch(list(cols), nrows, list(types))
+
+
+def concat_batches(batches: Sequence[Batch]) -> Batch:
+    """Union-all of same-schema batches: their live rows concatenated on
+    their device, re-bucketed and null-padded."""
+    total = sum(b.nrows for b in batches)
+    size = bucket(total)
+    types = batches[0].types
+    out_cols = []
+    for i, ti in enumerate(types):
+        if any(b.cols[i] is None for b in batches):
+            out_cols.append(None)
+            continue
+        cat = torch.cat([b.cols[i][: b.nrows] for b in batches])
+        if cat.shape[0] < size:
+            pad = torch.full((size - cat.shape[0],), ti.null_sentinel(),
+                             dtype=cat.dtype, device=cat.device)
+            cat = torch.cat([cat, pad])
+        out_cols.append(cat)
+    return Batch(out_cols, total, list(types))

@@ -6,13 +6,15 @@ the scan over the table's fragments (with chunk-stat fragment skipping),
 `_exec_compound`, `_run_compound` with the capacity-retry ladder, the
 group-by strategy choice (keyless, perfect hash, radix, sort), fragment-wave
 streaming of decomposable aggregates (`_stream_plan`,
-`_exec_compound_streamed`), the kernel cache and `_postprocess`.  Torch
-runs eagerly, so there is no jit and no artifact cache; the control
-scalars of each Compound run still reach the host in one read.
+`_exec_compound_streamed`), the kernel cache and `_postprocess`; ORDER BY,
+LIMIT and OFFSET (`_exec_sort`: the keyless slice, the full sort, the
+single-key and packed composite-key top-k of `_exec_topk`, and the top-k
+over fragment waves of `_try_stream_topk`).  Torch runs eagerly, so there
+is no jit and no artifact cache; the control scalars of each Compound run
+still reach the host in one read, and a Sort node reads nothing back.
 
-Every tensor lives on the executor's one explicit device.  Sort, Window,
-Union, Unnest, joins, subqueries and the hash group-by tier raise
-NotSupported.
+Every tensor lives on the executor's one explicit device.  Window, Union,
+Unnest, joins, subqueries and the hash group-by tier raise NotSupported.
 """
 
 from __future__ import annotations
@@ -29,10 +31,13 @@ from heavydb_tpu_torch.errors import (DeviceMemoryExceeded, DivisionByZero,
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec import ranges as RNG
-from heavydb_tpu_torch.exec.compound_kernel import build_compound_kernel, ctrl_keys
+from heavydb_tpu_torch.exec.compound_kernel import (build_compound_kernel, ctrl_keys,
+                                                    derive_valid)
 from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
+from heavydb_tpu_torch.ops import sort as S
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
+from heavydb_tpu_torch.plan.select_planner import _node_dict_ref
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
 from heavydb_tpu_torch.utils.timer import NullTimer
 
@@ -118,6 +123,8 @@ class Executor:
         self.config = db.config
         self.device = db.device
         self.kernel_cache: Dict[tuple, object] = {}
+        # dictionary rank tables of string ORDER BY keys
+        self.aux_cache: Dict[tuple, torch.Tensor] = {}
         budget = self.config.device_cache_bytes
         if budget == 0:
             budget = default_device_budget(self.device)
@@ -125,7 +132,8 @@ class Executor:
             budget = 0  # unbounded
         self.scan_cache = DeviceLRUCache(budget)
         self.timer = NullTimer()
-        # fragment waves run by streamed Compounds, and the last stream plan
+        # fragment waves run by streamed Compounds and top-k Sorts, and the
+        # last Compound stream plan
         self.waves_run = 0
         self.last_stream: Optional[StreamPlan] = None
 
@@ -150,6 +158,8 @@ class Executor:
             elif isinstance(node, R.TableData):
                 out = B.from_host_columns(node.arrays, node.num_rows,
                                           node.types, self.device)
+            elif isinstance(node, R.Sort):
+                out = self._exec_sort(node, memo)
             elif isinstance(node, R.Compound):
                 out = self._exec_compound(node, memo)
             else:
@@ -234,6 +244,245 @@ class Executor:
                 ti.np_dtype()))
         return B.from_host_columns(arrays, len(node.rows), node.types,
                                    self.device)
+
+    # ---- Sort ----
+    def _in_domain(self, padded: int, nrows: int) -> torch.Tensor:
+        """bool[padded]: True for the live rows, which come first."""
+        m = torch.ones(padded, dtype=torch.bool, device=self.device)
+        m[nrows:] = False
+        return m
+
+    def _dict_rank_table(self, ref) -> torch.Tensor:
+        """id -> lexicographic rank, for string ORDER BY; built on the host
+        once per dictionary size."""
+        d = self.db.dict_by_ref(ref)
+        key = ("rank", ref, d.size)
+        hit = self.aux_cache.get(key)
+        if hit is not None:
+            return hit
+        host = np.zeros(B.bucket(max(d.size, 1)), np.int32)
+        order = np.argsort(np.array(d.entries(), dtype=object))
+        host[order.astype(np.int32)] = np.arange(len(order), dtype=np.int32)
+        arr = torch.from_numpy(host).to(self.device)
+        self.aux_cache[key] = arr
+        return arr
+
+    def _exec_sort(self, node: R.Sort, memo) -> B.Batch:
+        child = node.inputs[0]
+        if not node.keys:
+            # LIMIT / OFFSET without ORDER BY: a slice in input order
+            inp = self._exec(child, memo, set(range(child.arity)))
+            off = node.offset or 0
+            n_out = max(inp.nrows - off, 0)
+            if node.limit is not None:
+                n_out = min(n_out, node.limit)
+            cols = inp.cols if not off else [
+                None if c is None else c[off:] for c in inp.cols]
+            return B.Batch(list(cols), n_out, list(node.types))
+        key_specs = [(asc, nf) for _, asc, nf in node.keys]
+        key_idxs = [i for i, _, _ in node.keys]
+        limit_total = (node.limit or 0) + (node.offset or 0)
+        composite_specs = None
+        if len(node.keys) > 1 and node.limit is not None:
+            composite_specs = self._composite_sort_plan(node, child)
+        topk_eligible = (
+            node.limit is not None
+            and 0 < limit_total <= 16384
+            and ((len(node.keys) == 1
+                  and not node.types[key_idxs[0]].is_dict_string)
+                 or composite_specs is not None))
+        # ORDER BY ... LIMIT over fragment waves, without the whole input
+        if topk_eligible and child.id not in memo:
+            st = self._try_stream_topk(node, child, limit_total, composite_specs)
+            if st is not None:
+                return st
+        inp = self._exec(child, memo, set(range(child.arity)))
+        n = inp.nrows
+        if n == 0:
+            return B.Batch(inp.cols, 0, list(node.types))
+        if topk_eligible:
+            return self._exec_topk(node, inp, limit_total, specs=composite_specs)
+
+        # the full sort; dictionary strings sort by their lexicographic rank
+        key_tvs = []
+        for idx in key_idxs:
+            ti = inp.types[idx]
+            val = inp.cols[idx]
+            valid = derive_valid(val, ti) if ti.nullable else None
+            ref = _node_dict_ref(child, idx) if ti.is_dict_string else None
+            if ref is not None:
+                tbl = self._dict_rank_table(ref)
+                safe = val.clamp(0, tbl.shape[0] - 1).to(torch.int64)
+                val = torch.where(val >= 0, tbl[safe], -1)
+            key_tvs.append((val, valid))
+        perm, _, _ = S.sort_permutation(key_tvs, key_specs,
+                                        self._in_domain(inp.padded, n))
+        off = node.offset or 0
+        n_out = max(n - off, 0)
+        if node.limit is not None:
+            n_out = min(n_out, node.limit)
+        # gather only the rows the result keeps (the reference slices
+        # c[off : off + bucket(n_out)] when there is an offset)
+        take = perm[off: off + B.bucket(n_out)]
+        cols = [None if c is None else c[take] for c in inp.cols]
+        return B.Batch(cols, n_out, list(node.types))
+
+    def _composite_sort_plan(self, node: R.Sort, child):
+        """Multi-key ORDER BY ... LIMIT packing: per-key orderable bit
+        widths (chunk-stat-narrowed ints, full-width f32) packed into one
+        <= 63-bit top-k key.  Returns (specs, total bits) for
+        ops.sort.composite_topk_key, or None when the keys don't pack."""
+        specs = []
+        total = 0
+        for idx, asc, nulls_first in node.keys:
+            ti = node.types[idx]
+            if ti.is_dict_string or ti.is_array or ti.is_geo or ti.is_string:
+                return None
+            if ti.is_fp:
+                if np.dtype(ti.np_dtype()) != np.float32:
+                    return None  # f64 never fits beside another key
+                wv, lo = 32, None
+            else:
+                r = RNG.column_range(child, idx)
+                if r is not None and r.hi >= r.lo:
+                    wv = max((int(r.hi) - int(r.lo)).bit_length(), 1)
+                    lo = int(r.lo)
+                elif np.dtype(ti.np_dtype()).itemsize <= 4:
+                    wv, lo = 32, None
+                else:
+                    return None  # unbounded 64-bit int beside another key
+            specs.append((wv, lo, asc, nulls_first, ti.nullable))
+            total += wv + (1 if ti.nullable else 0)
+        if total > 63:
+            return None
+        return tuple(specs), total
+
+    def _try_stream_topk(self, node: R.Sort, child, k_total: int,
+                         composite_specs=None):
+        """ORDER BY ... LIMIT k over fragment waves: each wave keeps its k
+        best rows, the waves' winners are concatenated (waves x k rows) and
+        one last select takes the global k; exact, since the union of the
+        waves' top k holds the global top k.  None when the input is small
+        enough for one pass or the child does not stream (the reference's
+        rule: a Scan, or a non-aggregate Compound over one, of 2+
+        fragments, past the stream threshold)."""
+        cfg = self.config
+        thr = cfg.stream_threshold_bytes
+        if thr < 0:
+            return None
+        if thr == 0:
+            thr = (self.scan_cache.budget_bytes or (11 << 30)) // 2
+        if isinstance(child, R.Scan):
+            scan, compound = child, None
+        elif (isinstance(child, R.Compound) and not child.is_aggregate
+              and not child.join_levels and len(child.inputs) == 1
+              and isinstance(child.inputs[0], R.Scan)):
+            scan, compound = child.inputs[0], child
+        else:
+            return None
+        t = scan.table
+        if len(t.fragments) < 2:
+            return None
+        if compound is None:
+            scan_needed = set(range(scan.arity))
+        else:
+            scan_needed = set()
+            for e in _iter_node_exprs(compound):
+                scan_needed |= {r.field_idx for r in E.collect_input_refs(e)}
+        if any(_scan_field_type(t, f).is_array for f in scan_needed):
+            return None
+        row_bytes = max(sum(_scan_field_type(t, f).np_dtype().itemsize
+                            for f in scan_needed), 1)
+        if t.num_rows * row_bytes <= thr:
+            return None
+        frag_ids = None
+        fc = compound.filter_cond if compound is not None else None
+        if fc is not None:
+            frag_ids = self._surviving_fragments(scan, fc)
+        if frag_ids is None:
+            frag_ids = [f.fragment_id for f in t.fragments]
+        # waves of at most half the threshold's bytes and topk_stream_row_cap
+        # rows (the select's temporaries are several bytes a row)
+        wave_budget = max(thr // 2, 1)
+        waves, cur, cur_bytes, cur_rows = [], [], 0, 0
+        for fid in frag_ids:
+            fr = t.fragments[fid].num_rows
+            if cur and (cur_bytes + fr * row_bytes > wave_budget
+                        or cur_rows + fr > cfg.topk_stream_row_cap):
+                waves.append(cur)
+                cur, cur_bytes, cur_rows = [], 0, 0
+            cur.append(fid)
+            cur_bytes += fr * row_bytes
+            cur_rows += fr
+        if cur:
+            waves.append(cur)
+        if len(waves) < 2:
+            return None
+        winners: List[B.Batch] = []
+        for wave in waves:
+            batch = self._exec_scan(scan, scan_needed, frag_ids=wave)
+            if compound is not None:
+                plan = self._plan_compound(compound, [batch])
+                batch = self._run_compound(compound, [batch], plan)
+            self.waves_run += 1
+            if batch.nrows == 0:
+                continue
+            winners.append(self._exec_topk(node, batch, k_total, apply_offset=False,
+                                           specs=composite_specs))
+        if not winners:
+            return B.from_host_columns([np.empty(0, ti.np_dtype()) for ti in node.types],
+                                       0, node.types, self.device)
+        cat = B.concat_batches(winners)
+        cat.types = list(node.types)
+        return self._exec_topk(node, cat, k_total, specs=composite_specs)
+
+    def _exec_topk(self, node: R.Sort, inp: B.Batch, k_total: int,
+                   apply_offset: bool = True, specs=None) -> B.Batch:
+        """ORDER BY ... LIMIT k by a top-k select: one key directly, several
+        through a packed composite key (specs from _composite_sort_plan)."""
+        padded = inp.padded
+        k = min(k_total, padded)
+        in_domain = self._in_domain(padded, inp.nrows)
+        if specs is not None:
+            key_tvs = []
+            for i, _, _ in node.keys:
+                ti = inp.types[i]
+                val = inp.cols[i]
+                key_tvs.append((val, derive_valid(val, ti) if ti.nullable else None))
+            u, bits = S.composite_topk_key(key_tvs, specs[0], specs[1],
+                                           in_domain=in_domain)
+            top_idx = S.topk_indices_u(u, bits, k)
+        else:
+            idx, asc, nulls_first = node.keys[0]
+            ti = inp.types[idx]
+            val = inp.cols[idx]
+            valid = derive_valid(val, ti) if ti.nullable else None
+            # a DESCENDING-priority key in an order-exact dtype
+            if val.is_floating_point():
+                key = torch.where(torch.isnan(val), 0.0, val)
+                lo_sent, hi_sent = -np.inf, np.inf
+            else:
+                kdt = torch.int64 if val.element_size() > 4 else torch.int32
+                key = val.to(kdt)
+                lo_sent, hi_sent = torch.iinfo(kdt).min + 1, torch.iinfo(kdt).max
+            if asc:
+                key = -key
+            if valid is not None:
+                key = torch.where(valid, key, hi_sent if nulls_first else lo_sent)
+            key = torch.where(in_domain, key, lo_sent)
+            top_idx = S.topk_indices(key, k)
+        out_cols = [None if c is None else c[top_idx] for c in inp.cols]
+        if not apply_offset:
+            # a wave of the streamed path keeps all k_total candidates; the
+            # final select applies OFFSET and LIMIT
+            return B.Batch(out_cols, min(inp.nrows, k), list(node.types))
+        off = node.offset or 0
+        n_out = max(min(inp.nrows, k) - off, 0)
+        if node.limit is not None:
+            n_out = min(n_out, node.limit)
+        if off:
+            out_cols = [None if c is None else c[off:] for c in out_cols]
+        return B.Batch(out_cols, n_out, list(node.types))
 
     # ---- Compound ----
     def _exec_compound(self, node: R.Compound, memo) -> B.Batch:

@@ -6,7 +6,8 @@
 Loads the synthetic benchmark's schema (tools/synthetic.py: uniform INT
 columns x10 .. x10m, sparse BIGINT columns x10k_s10k and x1m_s10k, a FLOAT
 column v, random from a seed) on the CUDA device, runs each
-query warm under torch.profiler, and prints one JSON line per query: the
+query (the group-by QUERIES and the ORDER BY SORT_QUERIES of
+tools/synthetic.py) warm under torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
 profiled run, the device's idle share (1 - busy / median wall), and the
@@ -25,7 +26,10 @@ import time
 import torch
 
 from heavydb_tpu_torch.config import Config
-from heavydb_tpu_torch.tools.synthetic import FRAGMENT_ROWS, QUERIES, load_bench
+from heavydb_tpu_torch.tools.synthetic import (FRAGMENT_ROWS, QUERIES, SORT_QUERIES,
+                                               load_bench)
+
+ALL_QUERIES = {**QUERIES, **SORT_QUERIES}
 
 def _device_us(evt) -> float:
     v = getattr(evt, "self_device_time_total", None)
@@ -85,8 +89,8 @@ def main(argv=None) -> None:
     ap.add_argument("--fragment-rows", type=int, default=FRAGMENT_ROWS)
     ap.add_argument("--stream-threshold", type=int, default=0,
                     help="the config's stream_threshold_bytes (0: its default)")
-    ap.add_argument("--queries", nargs="*", default=list(QUERIES),
-                    choices=list(QUERIES))
+    ap.add_argument("--queries", nargs="*", default=list(ALL_QUERIES),
+                    choices=list(ALL_QUERIES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: needs a CUDA device")
@@ -94,7 +98,7 @@ def main(argv=None) -> None:
     load_bench(db, args.rows, args.seed, args.fragment_rows)
     card = torch.cuda.get_device_name(0)
     for name in args.queries:
-        sql = QUERIES[name]
+        sql = ALL_QUERIES[name]
         print(json.dumps({"query": name, "rows": args.rows, "card": card,
                           **profile_query(db, sql)}), flush=True)
 

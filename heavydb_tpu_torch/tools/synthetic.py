@@ -1,6 +1,7 @@
 """The on-card workload shared by `chip_smoke.py` and `profile_queries`:
-the synthetic benchmark's schema, the SELECTs of the port's slices and the
-loader that builds the table on the device.
+the synthetic benchmark's schema, the SELECTs of the port's slices (the
+group-by QUERIES and the ORDER BY SORT_QUERIES) and the loader that builds
+the table on the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
@@ -38,6 +39,24 @@ QUERIES = {
     "BH004": "SELECT x10m, COUNT(*) FROM bench GROUP BY x10m",
     "Q10M_AGGS": "SELECT x10m, COUNT(*), SUM(x100), SUM(v), MIN(x10k), MAX(v) "
                  "FROM bench WHERE x10 > 3 GROUP BY x10m",
+}
+
+# ORDER BY, LIMIT / OFFSET and top-k, one query a path of Executor._exec_sort
+SORT_QUERIES = {
+    # LIMIT without keys: a slice of the filtered rows in input order
+    "LIMIT_ONLY": "SELECT x10, v FROM bench WHERE x1k = 5 LIMIT 20",
+    # one FLOAT key over ~70M rows: the top-k select
+    "TOPK_V": "SELECT x10m, v FROM bench WHERE x10 > 3 ORDER BY v DESC LIMIT 100",
+    # one INT key with ~10 rows a value: ties taken in row order
+    "TOPK_TIES": "SELECT x10m, x100 FROM bench ORDER BY x10m LIMIT 1000 OFFSET 10",
+    # two keys packed into one (x1k in 10 + 1 bits from chunk stats, v 32 + 1)
+    "TOPK_MULTI": "SELECT x1k, v, x10k FROM bench ORDER BY x1k DESC, v LIMIT 50",
+    # B2 over 1000 groups, then ORDER BY over them
+    "GROUP_TOPN": "SELECT x1k, COUNT(*), SUM(v) FROM bench GROUP BY x1k "
+                  "ORDER BY 2 DESC, 1 LIMIT 10",
+    # the full lexicographic sort of ~10M rows with three payloads
+    "FULL_SORT": "SELECT x10m, x100, v FROM bench WHERE x10 = 1 "
+                 "ORDER BY x100 DESC, x10m",
 }
 
 

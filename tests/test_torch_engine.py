@@ -156,6 +156,8 @@ QUERIES_T = [
     ("SELECT k10, x + 1, v * 2, d FROM t WHERE k100 < 5", ()),
     # TEXT dictionary copied by load_state
     ("SELECT s, COUNT(*), SUM(x) FROM t GROUP BY s", ()),
+    # GROUP BY ... ORDER BY (a Sort over the aggregate)
+    ("SELECT k10, COUNT(*) FROM t GROUP BY k10 ORDER BY k10", ()),
     # rowid-hashed sampling
     ("SELECT COUNT(*), SUM(x) FROM t WHERE SAMPLE_RATIO(0.3)", ()),
     # dates, timestamps, decimals; DATE_TRUNC keys are bucketed ranges
@@ -200,9 +202,9 @@ def test_division_by_zero_raises_in_both(engines):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT k10, COUNT(*) FROM t GROUP BY k10 ORDER BY k10",
+    "SELECT k10, ROW_NUMBER() OVER (PARTITION BY k100 ORDER BY x) FROM t",
     "SELECT a.k10, COUNT(*) FROM t a JOIN t b ON a.k100 = b.k100 GROUP BY a.k10",
-    "SELECT x FROM t ORDER BY x LIMIT 3",
+    "SELECT k10 FROM t UNION ALL SELECT k100 FROM t",
     "SELECT k10, COUNT(DISTINCT k100) FROM t GROUP BY k10",
 ])
 def test_out_of_slice_queries_raise(engines, sql):

@@ -13,7 +13,7 @@ sides:
   any scan or launch; the tier's working bytes a row, by hand;
 - the decomposition of each streamable aggregate, as the reference's.
 
-The port has no ORDER BY yet, so rows are compared sorted by their keys.
+Rows are compared sorted by their keys: the queries have no ORDER BY.
 Tolerances: integers, counts, MIN and MAX exact; results from FLOAT sums
 (SUM and AVG of a FLOAT column, whose partials are FLOAT sums) rtol 1e-4,
 atol 1e-3; DOUBLE rtol 1e-9.
