@@ -51,6 +51,22 @@ printing JSON lines:
            beside them torch.topk and one stable torch.sort of the top-k
            keys, and the full sort's time split into sort passes and
            payload gathers
+  join     the join + GROUP BY queries of tools/synthetic.py JOIN_QUERIES
+           on the same table and four dimension tables made on the device
+           (tools/synthetic.py load_dims): a perfect-unique build of 10^3
+           and of 10^7 keys, a hash build over sparse BIGINT keys with its
+           expansion, a LEFT join with a 1:3 fan-out that retries its
+           capacity once, and SEMI + ANTI; each equal to numpy, with its
+           warm ms, each join level's build form, caps and retries, its
+           peak device bytes and its kernel launches (counted from 0 for
+           this phase)
+  join_split  JOIN_SPARSE's hash probe beside a binary-search probe of the
+           same keys, its sorted and hash builds and its expansion, and
+           JOIN_DIM10M's perfect build and unique probe, timed apart
+  join_shapes  FULL, CROSS, range- and hash-packed key pairs, LEFT and SEMI
+           with a residual, TEXT keys of two dictionaries and a projection
+           in ORDER BY order on small tables: the same rows on CUDA as on
+           the CPU
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
@@ -69,7 +85,8 @@ import time
 import numpy as np
 import torch
 
-from heavydb_tpu_torch.tools.synthetic import QUERIES, SORT_QUERIES, load_bench
+from heavydb_tpu_torch.tools.synthetic import (JOIN_QUERIES, QUERIES, SORT_QUERIES,
+                                               load_bench, load_dims)
 
 ROWS = 100_000_000
 SEED = 20261016
@@ -1032,6 +1049,10 @@ ROUTES = {
     # ORDER BY itself is plain torch, as the reference's is plain XLA
     "LIMIT_ONLY": set(), "TOPK_V": set(), "TOPK_TIES": set(), "TOPK_MULTI": set(),
     "GROUP_TOPN": {"radix_hist"}, "FULL_SORT": set(), "TOPK_V_STREAMED": set(),
+    # the join phase: the joins are plain torch, the group-by after them
+    # launches B1 (<= 256 slots), B2 + B3 (1000 slots); JOIN_SPARSE is keyless
+    "JOIN_DIM1K": {"lane_agg"}, "JOIN_DIM10M": {"radix_hist", "groupby_minmax"},
+    "JOIN_SPARSE": set(), "JOIN_LEFT_FANOUT": {"lane_agg"}, "EXISTS_ANTI": {"lane_agg"},
 }
 # queries checked column by column as arrays (large results)
 ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
@@ -1466,6 +1487,260 @@ def sort_yardsticks(db, host, rate):
 
 
 # ---------------------------------------------------------------------------
+# join phase
+# ---------------------------------------------------------------------------
+
+# each join cell's build forms (one list a join Compound, one entry a
+# level) and capacity retries; EXISTS_ANTI's builds are as the plan picks
+# them
+JOIN_PLANS = {
+    "JOIN_DIM1K": ([["perfect-unique"]], 0),
+    "JOIN_DIM10M": ([["perfect-unique"]], 0),
+    "JOIN_SPARSE": ([["hash"]], 0),
+    "JOIN_LEFT_FANOUT": ([["perfect"]], 1),
+    "EXISTS_ANTI": (None, 0),
+}
+# (group keys, FLOAT-sum result columns) of each join cell
+JOIN_SHAPES = {"JOIN_DIM1K": (1, {2}), "JOIN_DIM10M": (1, {2}), "JOIN_SPARSE": (0, {1}),
+               "JOIN_LEFT_FANOUT": (1, {3}), "EXISTS_ANTI": (1, set())}
+
+
+def _by_key(keys, vals, size, dtype):
+    """vals placed at their keys: a lookup table key -> value."""
+    out = np.zeros(size, dtype)
+    out[keys] = vals
+    return out
+
+
+def expected_join(name, h, dims):
+    """numpy answer of each JOIN_QUERIES query: {key tuple: row tuple}."""
+    sw = _by_key(dims["sdim"]["k"] // 10_000, dims["sdim"]["w"], 1_000_001, np.float32)
+    if name == "JOIN_DIM1K":
+        nm = dims["dim1k"]["nm"][h["x1k"] - 1].astype(np.int64)
+        cnt = np.bincount(nm, minlength=50)
+        sv = np.bincount(nm, weights=h["v"].astype(np.float64), minlength=50)
+        return {(i,): (int(cnt[i]), sv[i]) for i in range(50) if cnt[i]}
+    if name == "JOIN_DIM10M":
+        gk = _by_key(dims["dim10m"]["k"], dims["dim10m"]["g"], 10_000_001, np.int64)
+        ok = h["x10"] > 3
+        g = gk[h["x10m"][ok]]
+        cnt = np.bincount(g, minlength=1001)
+        sv = np.bincount(g, weights=h["v"][ok].astype(np.float64), minlength=1001)
+        # MAX(x100) of a group: the largest x100 with a row in it
+        seen = np.bincount(g * 101 + h["x100"][ok], minlength=1001 * 101) > 0
+        mx = 100 - np.argmax(seen.reshape(1001, 101)[:, ::-1], axis=1)
+        return {(i,): (int(cnt[i]), sv[i], int(mx[i])) for i in range(1001) if cnt[i]}
+    if name == "JOIN_SPARSE":
+        w = sw[h["x1m_s10k"] // 10_000]
+        ok = w < 0.5
+        return {(): (int(ok.sum()), float(w[ok].astype(np.float64).sum()),
+                     int(h["y100"][ok].astype(np.int64).sum()))}
+    if name == "JOIN_LEFT_FANOUT":
+        wsum = np.bincount(dims["multi"]["k"], minlength=1001,
+                           weights=dims["multi"]["w"].astype(np.float64))
+        hit = h["x1k"] <= 500
+        x10 = h["x10"].astype(np.int64)
+        cnt = np.bincount(x10, weights=np.where(hit, 3, 1), minlength=11)
+        cw = np.bincount(x10, weights=np.where(hit, 3, 0), minlength=11)
+        sw_ = np.bincount(x10, weights=wsum[h["x1k"]], minlength=11)
+        return {(i,): (int(cnt[i]), int(cw[i]), sw_[i]) for i in range(11) if cnt[i]}
+    if name == "EXISTS_ANTI":
+        keep = (sw[h["x1m_s10k"] // 10_000] < 0.25) & ~(dims["dim1k"]["nm"][h["x1k"] - 1] < 5)
+        cnt = np.bincount(h["x10"][keep], minlength=11)
+        return {(i,): (int(cnt[i]),) for i in range(11) if cnt[i]}
+    raise KeyError(name)
+
+
+def check_join(name, rs, h, dims) -> int:
+    """Raise unless the rows equal numpy's: integers exact, FLOAT sums to
+    float32 tolerance."""
+    want = expected_join(name, h, dims)
+    n_keys, f32_cols = JOIN_SHAPES[name]
+    rows = rs.rows()
+    if len(rows) != len(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, numpy has {len(want)}")
+    for r in rows:
+        w = want[tuple(r[:n_keys])]
+        for j, (g, e) in enumerate(zip(r[n_keys:], w)):
+            col = n_keys + j
+            ok = np.isclose(g, e, **(F32_TOL if col in f32_cols else F64_TOL)) \
+                if isinstance(e, float) else g == e
+            if not ok:
+                raise AssertionError(f"{name}: {r} vs {w} (column {col})")
+    return len(rows)
+
+
+def run_join(db, host, counters):
+    """The dimension tables, then each JOIN_QUERIES query with the launch
+    counters set to 0 before the first: rows out, first and warm ms (median
+    of 5), each join Compound's build forms, caps and retries, the peak
+    device bytes above what was allocated before it, and launches, each
+    checked against numpy, JOIN_PLANS and ROUTES.  Returns the lines, each
+    kernel's launches in the phase and the dimension tables on the host."""
+    t0 = time.perf_counter()
+    data = load_dims(db, SEED + 2)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dims = {t: {c: v.cpu().numpy() for c, v in cols.items()} for t, cols in data.items()}
+    del data
+    ex = db.executor
+    out = [dict(query="load_dims", seconds=load_s,
+                rows={t: int(next(iter(c.values())).shape[0]) for t, c in dims.items()})]
+    for c in counters:
+        c.launches = 0  # the join path starts here
+    for name, q in JOIN_QUERIES.items():
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        rs = db.sql(q)
+        rs.rows()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        runs = list(ex.join_runs)
+        nrows = check_join(name, rs, host, dims)
+        builds, retries = JOIN_PLANS[name]
+        if builds is not None and [r.builds for r in runs] != builds:
+            raise AssertionError(f"{name}: builds {[r.builds for r in runs]}, "
+                                 f"expected {builds}")
+        if sum(r.retries for r in runs) != retries:
+            raise AssertionError(f"{name}: {[r.retries for r in runs]} retries, "
+                                 f"expected {retries}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            db.sql_device(q)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() - base
+        delta = [c.launches - b for c, b in zip(counters, before)]
+        for kname, d in zip(KERNEL_NAMES, delta):
+            if (d > 0) != (kname in ROUTES[name]):
+                raise AssertionError(
+                    f"{name}: {kname} launched {d} times; expected the "
+                    f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+        out.append(dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
+                        warm_ms=statistics.median(reps), warm_runs_ms=reps,
+                        builds=[r.builds for r in runs], caps=[r.caps for r in runs],
+                        retries=[r.retries for r in runs], peak_device_bytes=peak,
+                        launches=dict(zip(KERNEL_NAMES, delta))))
+    return out, [c.launches for c in counters], dims
+
+
+# the join shapes the 100M-row cells leave out, on small tables: FULL,
+# CROSS, a range-packed and a hash-packed key pair, LEFT and SEMI with a
+# residual, TEXT keys of two dictionaries, a projection in ORDER BY order
+JOIN_SHAPE_QUERIES = [
+    "SELECT COUNT(*), COUNT(f.k), COUNT(m.k), SUM(m.g) FROM jf f FULL JOIN jm m "
+    "ON f.k = m.k",
+    "SELECT m.g, COUNT(*), COUNT(f.g) FROM jf f FULL JOIN jm m ON f.k = m.k GROUP BY m.g",
+    "SELECT t.t, COUNT(*), SUM(m.g) FROM jt t, jm m GROUP BY t.t",
+    "SELECT COUNT(*), SUM(m.w) FROM jf f JOIN jm m ON f.k = m.k AND f.g = m.g",
+    "SELECT f.g, COUNT(*) FROM jf f JOIN jw w ON f.kb = w.kb AND f.kb2 = w.kb2 GROUP BY f.g",
+    "SELECT f.g, COUNT(*), COUNT(m.g) FROM jf f LEFT JOIN jm m ON f.k = m.k AND m.g > f.g "
+    "GROUP BY f.g",
+    "SELECT g, COUNT(*) FROM jf f WHERE EXISTS (SELECT 1 FROM jm m WHERE m.k = f.k "
+    "AND m.g > f.g) GROUP BY g",
+    "SELECT f.s, COUNT(*), SUM(d.k) FROM jf f JOIN jd d ON f.s = d.s GROUP BY f.s",
+    "SELECT f.k, m.g, f.d FROM jf f JOIN jm m ON f.k = m.k WHERE f.g = 2 "
+    "ORDER BY f.d, m.g LIMIT 50",
+]
+
+
+def run_join_shapes():
+    """JOIN_SHAPE_QUERIES on CUDA against the same port on the CPU (whose
+    rows tests/test_torch_join.py holds to the JAX package's): the same
+    rows, as multisets without ORDER BY; FLOAT sums to float32 tolerance."""
+    import heavydb_tpu_torch as hdt
+
+    rng = np.random.default_rng(SEED)
+    n = 20_000
+    k = rng.integers(0, 200, n).astype(np.int32)
+    k[rng.random(n) < 0.05] = np.iinfo(np.int32).min
+    wide = rng.integers(-2**40, 2**40, 400)
+    colors = np.array(["red", "green", "blue", "cyan", "plum", "teal"], dtype=object)
+    mk = np.repeat(np.arange(100, dtype=np.int32), rng.integers(0, 7, 100))
+    wk = np.concatenate([wide[:300], wide[:50]])
+    tables = [
+        ("jf", "k INT, g INT, kb BIGINT, kb2 BIGINT, d DOUBLE, s TEXT",
+         {"k": k, "g": rng.integers(0, 6, n).astype(np.int32),
+          "kb": wide[rng.integers(0, 400, n)], "kb2": wide[rng.integers(0, 400, n)] // 3,
+          "d": rng.standard_normal(n), "s": colors[rng.integers(0, 6, n)]}),
+        ("jm", "k INT, g INT, w FLOAT",
+         {"k": mk, "g": rng.integers(0, 6, mk.shape[0]).astype(np.int32),
+          "w": rng.random(mk.shape[0]).astype(np.float32)}),
+        ("jw", "kb BIGINT, kb2 BIGINT", {"kb": wk, "kb2": wk // 3}),
+        ("jt", "t INT", {"t": np.arange(1, 5, dtype=np.int32)}),
+        ("jd", "k INT, s TEXT", {"k": np.arange(4, dtype=np.int32),
+                                 "s": np.array(["teal", "red", "mauve", "green"], object)}),
+    ]
+    dbs = [hdt.connect(), hdt.connect(device="cpu")]
+    for db in dbs:
+        for name, decl, cols in tables:
+            db.sql(f"CREATE TABLE {name} ({decl})")
+            db.load_table(name, cols)
+    rows_out, builds = [], []
+    for q in JOIN_SHAPE_QUERIES:
+        got, want = (db.sql(q).rows() for db in dbs)
+        builds.append([r.builds for r in dbs[0].executor.join_runs])
+        if "ORDER BY" not in q:
+            got, want = sorted(got, key=repr), sorted(want, key=repr)
+        if len(got) != len(want):
+            raise AssertionError(f"{q}: {len(got)} rows on CUDA, {len(want)} on the CPU")
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                ok = np.isclose(a, b, **(F32_TOL if "SUM(m.w)" in q else F64_TOL)) \
+                    if isinstance(b, float) else a == b
+                if not ok:
+                    raise AssertionError(f"{q}: {g} on CUDA, {w} on the CPU")
+        rows_out.append(len(got))
+    return dict(queries=len(JOIN_SHAPE_QUERIES), rows_out=rows_out, builds=builds)
+
+
+def join_yardsticks(host, dims):
+    """The steps of JOIN_SPARSE's and JOIN_DIM10M's joins timed apart on
+    their keys (CUDA events, median of 5): the sorted build, the hash table
+    over it, the hash probe beside the binary-search probe of the same keys
+    (their (lo, cnt) must agree) and the expansion at the query's first
+    cap; the 10^7-key perfect build and its unique probe."""
+    from heavydb_tpu_torch.exec import batch as B
+    from heavydb_tpu_torch.exec.compound_kernel import _join_hash_slots
+    from heavydb_tpu_torch.ops import join as J
+
+    pk = torch.from_numpy(host["x1m_s10k"]).cuda()
+    bk = torch.from_numpy(dims["sdim"]["k"]).cuda()
+    nb = bk.shape[0]
+    slots = _join_hash_slots(B.bucket(nb))
+    build = J.build_sorted(bk, None, nb)
+    table = J.build_hash_table(build, slots)
+    lo_h, cnt_h = J.probe_counts_hash(table, pk, None)
+    lo_s, cnt_s = J.probe_counts(build, pk, None)
+    agree(cnt_h, cnt_s)
+    agree(torch.where(cnt_h > 0, lo_h, 0), torch.where(cnt_s > 0, lo_s, 0))
+    cap = B.bucket(pk.shape[0])
+    lines = [dict(
+        query="JOIN_SPARSE", probe_rows=pk.shape[0], build_rows=nb, slots=slots,
+        unresolved=int(table.unresolved), cap=cap,
+        build_sorted_ms=timed(lambda: J.build_sorted(bk, None, nb), 5),
+        build_hash_ms=timed(lambda: J.build_hash_table(build, slots), 5),
+        probe_hash_ms=timed(lambda: J.probe_counts_hash(table, pk, None), 5),
+        probe_sorted_ms=timed(lambda: J.probe_counts(build, pk, None), 5),
+        expand_ms=timed(lambda: J.expand_matches(lo_h, cnt_h, build.rows_sorted, None,
+                                                 cap, False), 5))]
+    del pk, bk, build, table, lo_h, cnt_h, lo_s, cnt_s
+    px = torch.from_numpy(host["x10m"]).cuda()
+    dk = torch.from_numpy(dims["dim10m"]["k"]).cuda()
+    n10 = dk.shape[0]
+    pbuild = J.build_perfect(dk, None, n10, 1, n10)
+    lines.append(dict(
+        query="JOIN_DIM10M", probe_rows=px.shape[0], build_rows=n10,
+        build_perfect_ms=timed(lambda: J.build_perfect(dk, None, n10, 1, n10), 5),
+        probe_perfect_unique_ms=timed(
+            lambda: J.probe_perfect_unique(pbuild, px, None, n10, None), 5)))
+    return lines
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1521,8 +1796,15 @@ def main() -> None:
         emit({"phase": "sort", **line})
     for line in sort_yardsticks(db, host, rate):
         emit({"phase": "sort_split", **line})
-    # the kernels line counts the launches of both main-path phases
-    total = [a + b for a, b in zip(total, sort_total)]
+    join_lines, join_total, dims = run_join(db, host, counters)
+    for line in join_lines:
+        emit({"phase": "join", **line})
+    for line in join_yardsticks(host, dims):
+        emit({"phase": "join_split", **line})
+    del dims
+    emit({"phase": "join_shapes", **run_join_shapes()})
+    # the kernels line counts the launches of the three main-path phases
+    total = [a + b + c for a, b, c in zip(total, sort_total, join_total)]
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db

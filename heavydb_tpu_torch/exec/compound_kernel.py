@@ -1,33 +1,71 @@
 """Compound work-unit kernel builder.
 
-Port of heavydb_tpu/exec/compound_kernel.py for the paths of this slice:
-filter mask -> projection, or filter mask -> keyless / perfect-hash /
-radix / sort group-by with aggregates -> HAVING -> compaction.  The
-reference traces one closure per Compound into a single XLA program; torch
-runs the same closure eagerly, op by op, with the group-by aggregates in
-the hand-written kernels (ops/groupby.py, kernels/radix_groupby.py).
+Port of heavydb_tpu/exec/compound_kernel.py: join builds and probes ->
+filter mask -> projection, or -> keyless / perfect-hash / radix / sort
+group-by with aggregates -> HAVING -> compaction.  The reference traces one
+closure per Compound into a single XLA program; torch runs the same
+closure eagerly, op by op, with the group-by aggregates in the
+hand-written kernels (ops/groupby.py, kernels/radix_groupby.py) and the
+joins in plain torch (ops/join.py), as the reference's are plain XLA.
 
-The closure returns a dict with the output columns, the exact row count,
-the group count, the radix tier's overflow bits and the error flags,
-packed as control scalars into one int32 tensor ('ctrl_vec') that the
-executor reads with a single host copy.  Joins and the hash group-by
-strategy raise NotSupported.
+The join levels keep a domain: per input, the row index of each domain
+slot (`idx`, None = the identity over input 0) and a matched flag (False
+= a LEFT / FULL null-extended row); a level expands the domain to its
+capacity, or keeps it when the build's keys are unique.  The closure
+returns a dict with the output columns, the exact row count, the group
+count, each join level's exact needed capacity, duplicate-build and
+hash-miss flags, the radix tier's overflow bits and the error flags; the
+control scalars also ride packed in one int64 tensor ('ctrl_vec') that the
+executor reads with a single host copy.  The geo join and the hash
+group-by strategy raise NotSupported.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, Optional
 
 import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import NotSupported
 from heavydb_tpu_torch.exec import radix_tier as RT
-from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
+from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler, and_valid
 from heavydb_tpu_torch.kernels import radix_groupby as RG
 from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
+from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.plan import exprs as E
+
+# the reference's uint64 constants as int64 bit patterns
+_SM_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
+_SM_MUL1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_SM_MUL2 = 0x94D049BB133111EB - (1 << 64)
+_HASH_SEED = 0x243F6A8885A308D3
+
+# claim scatters that collide cost ~4.6 us a slot past VMEM on the TPU, so
+# the reference keeps builds past 2^21 slots on the sorted form; kept as
+# is, so that the plan, its caps and its retries match the reference's
+_JOIN_HASH_MAX_SLOTS = 1 << 21
+
+
+def _srl(x, s: int):
+    """Logical shift right of an int64 tensor, as uint64 would shift."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _splitmix64_combine(h, k):
+    """The reference's uint64 splitmix64 combine, in int64: wrapping int64
+    adds and products have the uint64 ones' bits."""
+    x = k + _SM_GOLDEN + h * 64 + _srl(h, 2)
+    z = (x ^ _srl(x, 30)) * _SM_MUL1
+    z = (z ^ _srl(z, 27)) * _SM_MUL2
+    return h ^ (z ^ _srl(z, 31))
+
+
+def _join_hash_slots(build_padded: int) -> int:
+    # >= 2x the build row count (unique keys <= rows), pow2 for masking
+    return 1 << max(int(build_padded * 2 - 1).bit_length(), 12)
 
 
 def _sentinelize(val, valid, ti: T.TypeInfo):
@@ -42,10 +80,11 @@ def _sentinelize(val, valid, ti: T.TypeInfo):
 
 def ctrl_keys(d) -> list:
     """Control scalars the executor reads after every kernel run, in
-    deterministic order; they also ride packed in one int32 tensor
+    deterministic order; they also ride packed in one int64 tensor
     ('ctrl_vec') so the host reads them with one copy."""
     return sorted(k for k in d if k in ("n_out", "num_groups", "radix_overflow")
-                  or k.startswith("err_"))
+                  or k.startswith(("join_needed_", "join_hash_miss_", "join_dup_",
+                                   "err_")))
 
 
 def derive_valid(arr, ti: T.TypeInfo):
@@ -59,6 +98,116 @@ def _broadcast(x, n: int):
     return x.expand(n) if x.shape != (n,) else x
 
 
+def _iota(n: int, device):
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def input_of_field(offsets, f: int):
+    """(input, local field) of combined-schema field f, given each input's
+    first field."""
+    for i in reversed(range(len(offsets))):
+        if f >= offsets[i]:
+            return i, f - offsets[i]
+    raise AssertionError(f"field {f} is in no input")
+
+
+class _Domain:
+    """The rows a Compound's kernel works over and how to read a field of
+    any input there.  idx[i]: input i's row of each domain slot (None = the
+    identity over input 0, before any expanding join); matched[i]: False
+    where the slot is a null-extended row of an outer join (None = all
+    matched)."""
+
+    def __init__(self, cols, col_types, offsets, aux, nrows, padded0, device):
+        self.cols = cols
+        self.col_types = col_types
+        self.offsets = offsets
+        self.aux = aux
+        self.nrows = nrows
+        self.device = device
+        self.error_flags: Dict[str, torch.Tensor] = {}
+        self.idx: Dict[int, Optional[torch.Tensor]] = {0: None}
+        self.matched: Dict[int, Optional[torch.Tensor]] = {0: None}
+        self.size = padded0
+        # the rows [0, nrows) of the padded domain: a bool fill and a
+        # cleared tail, not an int64 iota compared with nrows
+        self.mask = torch.ones(padded0, dtype=torch.bool, device=device)
+        self.mask[nrows[0]:] = False
+        self.trivial = True  # mask == iota < nrows[0]: no compaction needed
+        self.tv_cache: Dict[int, tuple] = {}
+
+    def field_tv(self, f: int):
+        """TV of combined-schema field f over the current domain."""
+        hit = self.tv_cache.get(f)
+        if hit is not None:
+            return hit
+        i, local = input_of_field(self.offsets, f)
+        val = self.cols[i][local]
+        ti = self.col_types[i][local]
+        if self.idx.get(i) is not None or i != 0:
+            val = val[self.idx[i]]
+        valid = derive_valid(val, ti) if ti.nullable else None
+        if self.matched.get(i) is not None:
+            valid = and_valid(valid, self.matched[i])
+        hit = self.tv_cache[f] = (val, valid)
+        return hit
+
+    def compiler(self, exprs):
+        needed = set()
+        for e in exprs:
+            if e is not None:
+                needed |= {r.field_idx for r in E.collect_input_refs(e)}
+        return ExprCompiler({f: self.field_tv(f) for f in needed},
+                            self.error_flags, self.device, self.size)
+
+    def restrict(self, preds):
+        """mask &= each predicate over the current domain."""
+        if preds:
+            c = self.compiler(preds)
+            for p in preds:
+                self.mask = self.mask & c.compile_predicate(p)
+
+    def remap(self, pidx):
+        """Carry every input's row index and matched flag through pidx."""
+        for i in list(self.idx):
+            self.idx[i] = pidx if self.idx[i] is None else self.idx[i][pidx]
+            if self.matched.get(i) is not None:
+                self.matched[i] = self.matched[i][pidx]
+        self.tv_cache.clear()
+
+    def build_side_tv(self, expr, bi: int, pb: int):
+        """Evaluate an expression directly over input bi's pb padded rows."""
+        cdict = {}
+        for r in E.collect_input_refs(expr):
+            local = r.field_idx - self.offsets[bi]
+            base = self.cols[bi][local]
+            ti = self.col_types[bi][local]
+            cdict[r.field_idx] = (base, derive_valid(base, ti) if ti.nullable else None)
+        val, valid = ExprCompiler(cdict, self.error_flags, self.device, pb).compile(expr)
+        return _broadcast(val, pb), valid
+
+
+def _pack_keys(tvs, jp, n: int):
+    """One or more key TVs -> a single int64 key and its validity."""
+    valid = None
+    for _, v in tvs:
+        valid = and_valid(valid, v)
+    vals = [_broadcast(v, n).to(torch.int64) for v, _ in tvs]
+    if jp.pack == "single":
+        return vals[0], valid
+    if jp.pack == "range":
+        k = None
+        for val, (lo, ext) in zip(vals, jp.pack_spans):
+            part = (val - lo).clamp(0, ext - 1)
+            k = part if k is None else k * ext + part
+        return k, valid
+    # hash pack (the planner appended an equality recheck to the residual)
+    h = torch.full((n,), _HASH_SEED, dtype=torch.int64, device=vals[0].device)
+    for val in vals:
+        h = _splitmix64_combine(h, val)
+    return _srl(h, 1), valid
+
+
 def build_compound_kernel(node, batches, plan, device):
     """Returns (kernel_fn, layout).  kernel_fn(*args) -> dict."""
     from heavydb_tpu_torch.exec.executor import _KernelLayout
@@ -68,46 +217,50 @@ def build_compound_kernel(node, batches, plan, device):
     if node.is_aggregate and strategy[0] not in ("perfect", "keyless",
                                                  "radix", "sort"):
         raise NotSupported(f"the {strategy[0]} group-by strategy")
-
-    b0 = batches[0]
-    present_cols = [ci for ci, c in enumerate(b0.cols) if c is not None]
-    layout = _KernelLayout([(0, present_cols)], [0])
-    domain_size = b0.padded
-    col_types = list(b0.types)
+    n_inputs = len(batches)
+    offsets = list(plan.offsets)
+    batch_cols = [(bi, [ci for ci, c in enumerate(b.cols) if c is not None])
+                  for bi, b in enumerate(batches)]
+    aux_order = sorted(plan.aux_specs, key=repr)
+    layout = _KernelLayout(batch_cols, list(range(n_inputs)), aux_order)
+    paddeds = [b.padded for b in batches]
+    col_types = [list(b.types) for b in batches]
+    # a snapshot: the retry ladder changes the plan's join levels after
+    # this kernel is cached under their old values
+    joins = [dataclasses.replace(jp) for jp in plan.joins]
+    caps = list(plan.caps)
+    # the filter push-down split (executor._plan_compound): probe-side
+    # conjuncts tighten the mask before any expansion, build-side ones keep
+    # rows out of the join tables
+    pre_mask = list(plan.pre_mask)
+    build_filters = dict(plan.build_filters)
+    filter_rest = plan.filter_rest
 
     def kernel(*args):
-        cols = dict(zip(present_cols, args[:len(present_cols)]))
-        nrows = args[len(present_cols)]
-        error_flags: Dict[str, torch.Tensor] = {}
-        # the rows [0, nrows) of the padded domain: a bool fill and a
-        # cleared tail, not an int64 iota compared with nrows
-        mask = torch.ones(domain_size, dtype=torch.bool, device=device)
-        mask[nrows:] = False
-        trivial = True  # mask == iota<nrows, no compaction needed
-        tv_cache: Dict[int, tuple] = {}
-
-        def field_tv(f: int):
-            hit = tv_cache.get(f)
-            if hit is None:
-                val = cols[f]
-                ti = col_types[f]
-                hit = (val, derive_valid(val, ti) if ti.nullable else None)
-                tv_cache[f] = hit
-            return hit
-
-        def domain_compiler(exprs):
-            needed = set()
-            for e in exprs:
-                if e is not None:
-                    needed |= {r.field_idx for r in E.collect_input_refs(e)}
-            return ExprCompiler({f: field_tv(f) for f in needed},
-                                error_flags, device, domain_size)
+        it = iter(args)
+        cols = {bi: {ci: next(it) for ci in present} for bi, present in batch_cols}
+        nrows = [next(it) for _ in range(n_inputs)]
+        aux = {k: next(it) for k in aux_order}
+        dom = _Domain(cols, col_types, offsets, aux, nrows, paddeds[0], device)
+        out: Dict[str, object] = {}
+        if pre_mask:
+            dom.restrict(pre_mask)
+            dom.trivial = False
+        for li, jp in enumerate(joins):
+            _join_level(dom, li, jp, caps[li], paddeds[li + 1],
+                        build_filters.get(li + 1, ()), out)
 
         # ---- filter ----
-        if node.filter_cond is not None:
-            fc = domain_compiler([node.filter_cond])
-            mask = mask & fc.compile_predicate(node.filter_cond)
-            trivial = False
+        if filter_rest is not None:
+            # split performed: only the conjuncts left after it run here
+            if filter_rest:
+                dom.restrict(filter_rest)
+                dom.trivial = False
+        elif node.filter_cond is not None:
+            dom.restrict([node.filter_cond])
+            dom.trivial = False
+
+        error_flags = dom.error_flags
 
         def merge_masked_flags(tmp, m):
             # error flags raised by expressions only count for rows/groups
@@ -118,29 +271,29 @@ def build_compound_kernel(node, batches, plan, device):
                 error_flags[name] = error_flags[name] | v \
                     if name in error_flags else v
 
-        out: Dict[str, object] = {}
+        mask = dom.mask
         if not node.is_aggregate:
             # ---- projection ----
-            tc = domain_compiler(node.target_exprs)
+            tc = dom.compiler(node.target_exprs)
             tflags: Dict[str, torch.Tensor] = {}
             tc.error_flags = tflags
             outs = []
             for e, ti in zip(node.target_exprs, node.types):
                 val, valid = tc.compile(e)
-                val = _broadcast(val.to(G.torch_dtype(ti.np_dtype())), domain_size)
+                val = _broadcast(val.to(G.torch_dtype(ti.np_dtype())), dom.size)
                 if valid is not None:
-                    valid = _broadcast(valid, domain_size)
+                    valid = _broadcast(valid, dom.size)
                 outs.append(_sentinelize(val, valid, ti))
             merge_masked_flags(tflags, mask)
-            if trivial:
+            if dom.trivial:
                 out["cols"] = tuple(outs)
-                out["n_out"] = torch.tensor(nrows, dtype=torch.int32)
+                out["n_out"] = torch.tensor(nrows[0], dtype=torch.int32)
             else:
                 perm = G.compact_perm(mask)
                 out["cols"] = tuple(o[perm] for o in outs)
                 out["n_out"] = mask.sum().to(torch.int32)
         else:
-            out.update(_aggregate(node, strategy, cap, mask, domain_compiler,
+            out.update(_aggregate(node, strategy, cap, mask, dom.compiler,
                                   merge_masked_flags, device))
 
         for name, flag in error_flags.items():
@@ -148,12 +301,225 @@ def build_compound_kernel(node, batches, plan, device):
         ck = ctrl_keys(out)
         if ck:
             out["ctrl_vec"] = torch.stack([
-                torch.as_tensor(out[k]).to(device=device, dtype=torch.int32)
+                torch.as_tensor(out[k]).to(device=device, dtype=torch.int64)
                 for k in ck
             ])
         return out
 
     return kernel, layout
+
+
+def _build_keys(dom: _Domain, jp, bi: int, pb: int, filters):
+    """The build input's packed key and validity: dictionary ids translated
+    into the probe's dictionary, the pushed build-side filters ANDed in."""
+    tvs = [dom.build_side_tv(e, bi, pb) for e in jp.build_keys]
+    if jp.translate is not None:
+        tbl = dom.aux[jp.translate]
+        bval, bvalid = tvs[0]
+        safe = bval.clamp(0, tbl.shape[0] - 1).to(torch.int64)
+        tvs = [(torch.where((bval >= 0) & (bval < tbl.shape[0]), tbl[safe], -1),
+                bvalid)]
+    bkey, bvalid = _pack_keys(tvs, jp, pb)
+    for c in filters:
+        val, valid = dom.build_side_tv(c, bi, pb)
+        keep = val.to(torch.bool)
+        if valid is not None:
+            keep = keep & valid
+        bvalid = keep if bvalid is None else bvalid & keep
+    return bkey, bvalid
+
+
+def _probe_keys(dom: _Domain, jp):
+    pc = dom.compiler(jp.probe_keys)
+    pkey, pvalid = _pack_keys([pc.compile(e) for e in jp.probe_keys], jp, dom.size)
+    return pkey, dom.mask if pvalid is None else dom.mask & pvalid
+
+
+def _sorted_or_hash(jp, li, bkey, bvalid, nrows_b, pb, pkey, pvalid_m, out):
+    """Probe through a sorted build, or the hash table over it (a key that
+    claims no slot sets join_hash_miss_<li>; the executor reruns the level
+    sorted).  Returns (lo, cnt, build rows in match order)."""
+    build = J.build_sorted(bkey, bvalid, nrows_b)
+    if jp.hash_fallback or _join_hash_slots(pb) > _JOIN_HASH_MAX_SLOTS:
+        lo, cnt = J.probe_counts(build, pkey, pvalid_m)
+    else:
+        table = J.build_hash_table(build, _join_hash_slots(build.keys_sorted.shape[0]))
+        out[f"join_hash_miss_{li}"] = table.unresolved
+        lo, cnt = J.probe_counts_hash(table, pkey, pvalid_m)
+    return lo, cnt, build.rows_sorted
+
+
+def _surviving_per_row(eff, ok, cap: int):
+    """Per probe row, how many of its expanded slots (probe-major, at the
+    exclusive prefix sums of `eff`) pass `ok`, from two prefix sums."""
+    ends = torch.cumsum(eff, 0, dtype=torch.int64)
+    starts = ends - eff
+    pref = torch.cat([torch.zeros(1, dtype=torch.int64, device=ok.device),
+                      torch.cumsum(ok, 0, dtype=torch.int64)])
+    return pref[ends.clamp(max=cap)] - pref[starts.clamp(max=cap)]
+
+
+def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
+    """Join level li: input li + 1 is the build side over the current
+    domain.  SEMI / ANTI refine the mask; the others expand the domain
+    (or keep it, for a unique build) and carry every input through."""
+    bi = li + 1
+    dev = dom.device
+    needed_key = f"join_needed_{li}"
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    left_outer = jp.kind in ("LEFT", "FULL")
+    # LEFT with residual conditions: a pair failing the residual is NOT a
+    # match (ON-clause semantics): expand pairs only, apply the residual,
+    # then append a null-extended slot for every probe row that lost all
+    # its matches
+    left_resid = jp.kind == "LEFT" and bool(jp.residual)
+    if jp.kind in ("SEMI", "ANTI"):
+        # existence joins: refine the mask, no domain expansion
+        pkey, pvalid_m = _probe_keys(dom, jp)
+        bkey, bvalid = _build_keys(dom, jp, bi, pb, filters)
+        if jp.key_min is not None:
+            pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
+                                     jp.key_range)
+            lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
+            rows_by_slot = pbuild.payload
+        else:
+            lo, cnt, rows_by_slot = _sorted_or_hash(
+                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out)
+        if jp.residual:
+            # residual conditions (TPC-H Q4 / Q21's correlated comparisons,
+            # hash-pack rechecks) need the candidate pairs: expand, test,
+            # then count each probe row's surviving pairs
+            pidx, bidx, out_mask, _, needed = J.expand_matches(
+                lo, cnt, rows_by_slot, dom.mask, cap, False)
+            out[needed_key] = needed
+            saved = (dict(dom.idx), dict(dom.matched), dom.size)
+            dom.remap(pidx)
+            dom.idx[bi] = bidx
+            dom.matched[bi] = None
+            dom.size = cap
+            rc = dom.compiler(jp.residual)
+            ok = out_mask
+            for r in jp.residual:
+                ok = ok & rc.compile_predicate(r)
+            dom.idx, dom.matched, dom.size = saved
+            dom.tv_cache.clear()
+            eff = torch.where(dom.mask, cnt, 0)
+            exists = _surviving_per_row(eff, ok, cap) > 0
+        else:
+            exists = cnt > 0
+            out[needed_key] = zero
+        # ANTI keeps rows with no match; a NULL key never matches, so its
+        # row is kept (NOT EXISTS semantics)
+        dom.mask = dom.mask & (exists if jp.kind == "SEMI" else ~exists)
+        dom.trivial = False
+        return
+    if jp.kind == "CROSS":
+        lo = torch.zeros(dom.size, dtype=torch.int32, device=dev)
+        cnt = torch.where(dom.mask, dom.nrows[bi], 0).to(torch.int32)
+        rows_by_slot = _iota(pb, dev)
+        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+            lo, cnt, rows_by_slot, dom.mask, cap, False)
+    else:
+        pkey, pvalid_m = _probe_keys(dom, jp)
+        bkey, bvalid = _build_keys(dom, jp, bi, pb, filters)
+        unique = None
+        if jp.key_min is not None:
+            # dense-range positional build: the probe is gathers
+            pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
+                                     jp.key_range)
+            if jp.unique_build:
+                # PK-FK: slot -> build row composed on the build side
+                unique = J.probe_perfect_unique(pbuild, pkey, pvalid_m,
+                                                jp.key_range, dom.mask)
+            else:
+                lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
+                rows_by_slot = pbuild.payload
+        else:
+            lo, cnt, rows_by_slot = _sorted_or_hash(
+                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out)
+            if jp.unique_build:
+                bidx_u, matched_u = J.probe_unique(lo, cnt, rows_by_slot, dom.mask)
+                unique = (bidx_u, cnt, matched_u)
+        if unique is not None:
+            # at most one match a probe row: the identity domain (a
+            # duplicate build key sets join_dup_<li>; the executor reruns
+            # the level with expansion)
+            bidx_u, cnt, matched_u = unique
+            out[f"join_dup_{li}"] = cnt.max() > 1
+            out[needed_key] = zero
+            dom.idx[bi] = bidx_u
+            if left_outer:
+                dom.matched[bi] = matched_u
+            else:
+                dom.mask = dom.mask & matched_u
+                dom.matched[bi] = None
+            dom.trivial = False
+            dom.tv_cache.clear()
+            dom.restrict(jp.residual)
+            return
+        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+            lo, cnt, rows_by_slot, dom.mask, cap, left_outer and not left_resid)
+    out[needed_key] = needed
+    prev_idx, prev_matched = dict(dom.idx), dict(dom.matched)
+    prev_mask, prev_size = dom.mask, dom.size
+    dom.remap(pidx)
+    dom.idx[bi] = bidx
+    dom.matched[bi] = m_new if (left_outer and not left_resid) else None
+    dom.mask = out_mask
+    dom.size = cap
+    if jp.kind == "FULL":
+        # one slot per build row, valid for the unmatched real ones, the
+        # probe-side fields NULL there: inner + left-null + right-null
+        bm = J.build_matched_flags(lo, cnt, rows_by_slot, pvalid_m, pb)
+        extra = _iota(pb, dev)
+        extra_valid = (extra < dom.nrows[bi]) & ~bm
+        for i in list(dom.idx):
+            if i == bi:
+                continue
+            dom.idx[i] = torch.cat([dom.idx[i], torch.zeros_like(extra)])
+            pm = dom.matched.get(i)
+            if pm is None:
+                pm = torch.ones(cap, dtype=torch.bool, device=dev)
+            dom.matched[i] = torch.cat([pm, torch.zeros(pb, dtype=torch.bool,
+                                                        device=dev)])
+        dom.idx[bi] = torch.cat([dom.idx[bi], extra])
+        dom.matched[bi] = torch.cat([dom.matched[bi],
+                                     torch.ones(pb, dtype=torch.bool, device=dev)])
+        dom.mask = torch.cat([dom.mask, extra_valid])
+        dom.size = cap + pb
+    dom.trivial = False
+    dom.tv_cache.clear()
+    # residual conjuncts (INNER semantics)
+    dom.restrict(jp.residual)
+    if left_resid:
+        # a null-extended slot for each previous domain row none of whose
+        # pairs survived
+        eff = torch.where(prev_mask, cnt, 0)
+        extra_valid = prev_mask & (_surviving_per_row(eff, dom.mask, cap) == 0)
+        for i in list(dom.idx):
+            if i == bi:
+                continue
+            pi = prev_idx.get(i)
+            if pi is None:
+                pi = _iota(prev_size, dev)
+            dom.idx[i] = torch.cat([dom.idx[i], pi])
+            pm, ppm = dom.matched.get(i), prev_matched.get(i)
+            if pm is not None or ppm is not None:
+                if pm is None:
+                    pm = torch.ones(cap, dtype=torch.bool, device=dev)
+                if ppm is None:
+                    ppm = torch.ones(prev_size, dtype=torch.bool, device=dev)
+                dom.matched[i] = torch.cat([pm, ppm])
+        dom.idx[bi] = torch.cat([dom.idx[bi], torch.zeros(prev_size, dtype=torch.int32,
+                                                          device=dev)])
+        mb = dom.matched.get(bi)
+        if mb is None:
+            mb = torch.ones(cap, dtype=torch.bool, device=dev)
+        dom.matched[bi] = torch.cat([mb, torch.zeros(prev_size, dtype=torch.bool,
+                                                     device=dev)])
+        dom.mask = torch.cat([dom.mask, extra_valid])
+        dom.size = cap + prev_size
+        dom.tv_cache.clear()
 
 
 def _slot_coords(slot_ids, ranges):

@@ -1,25 +1,34 @@
 """Query executor: walks the optimized RelAlg DAG and runs each Compound
 work unit through one compound kernel (exec/compound_kernel.py).
 
-Port of heavydb_tpu/exec/executor.py for this slice: `execute`, `_exec`,
-the scan over the table's fragments (with chunk-stat fragment skipping),
-`_exec_compound`, `_run_compound` with the capacity-retry ladder, the
-group-by strategy choice (keyless, perfect hash, radix, sort), fragment-wave
-streaming of decomposable aggregates (`_stream_plan`,
-`_exec_compound_streamed`), the kernel cache and `_postprocess`; ORDER BY,
-LIMIT and OFFSET (`_exec_sort`: the keyless slice, the full sort, the
-single-key and packed composite-key top-k of `_exec_topk`, and the top-k
-over fragment waves of `_try_stream_topk`).  Torch runs eagerly, so there
-is no jit and no artifact cache; the control scalars of each Compound run
-still reach the host in one read, and a Sort node reads nothing back.
+Port of heavydb_tpu/exec/executor.py: `execute`, `_exec`, the scan over a
+table's fragments (with chunk-stat fragment skipping, each input with its
+own field offset), `_exec_compound`, `_run_compound` with the retry
+ladder (join hash misses, duplicate builds and expansion capacity; group
+capacity and the radix tier's overflow), the join planning of
+`_plan_compound` (filter push-down, key packing, perfect / hash / sorted
+builds, the CROSS watchdog, outer-join nullability of group keys) with the
+runtime join reorder and its selectivity probe, the group-by strategy
+choice (keyless, perfect hash, radix, sort), fragment-wave streaming of
+decomposable aggregates (`_stream_plan`, `_exec_compound_streamed`), the
+kernel cache and `_postprocess`; ORDER BY, LIMIT and OFFSET (`_exec_sort`:
+the keyless slice, the full sort, the single-key and packed composite-key
+top-k of `_exec_topk`, and the top-k over fragment waves of
+`_try_stream_topk`).  Torch runs eagerly, so there is no jit and no
+artifact cache; the control scalars of each Compound run still reach the
+host in one read, and a Sort node reads nothing back.  Before a join
+Compound launches, its bytes are held to the card's free memory
+(`_check_join_memory`).
 
 Every tensor lives on the executor's one explicit device.  Window, Union,
-Unnest, joins, subqueries and the hash group-by tier raise NotSupported.
+Unnest, the geo join, subqueries that stay subqueries and the hash
+group-by tier raise NotSupported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -27,12 +36,13 @@ import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import (DeviceMemoryExceeded, DivisionByZero,
-                                      ExecutionError, NotSupported)
+                                      ExecutionError, NotSupported, WatchdogException)
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec import ranges as RNG
 from heavydb_tpu_torch.exec.compound_kernel import (build_compound_kernel, ctrl_keys,
-                                                    derive_valid)
+                                                    derive_valid, input_of_field)
+from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
 from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
 from heavydb_tpu_torch.ops import sort as S
 from heavydb_tpu_torch.plan import exprs as E
@@ -136,11 +146,16 @@ class Executor:
         # last Compound stream plan
         self.waves_run = 0
         self.last_stream: Optional[StreamPlan] = None
+        # selectivity probe counts of join inputs (_selectivity_sizes)
+        self._sel_cache: Dict[tuple, int] = {}
+        # each join Compound the last execute() ran: its builds, caps, retries
+        self.join_runs: List[JoinRun] = []
 
     # ------------------------------------------------------------------
     # entry
     # ------------------------------------------------------------------
     def execute(self, root: R.RelNode) -> B.Batch:
+        self.join_runs = []
         for node in R.topo_order(root):
             for e in _iter_node_exprs(node):
                 if any(isinstance(s, E.SubqueryExpr) for s in E.walk(e)):
@@ -518,7 +533,9 @@ class Executor:
     def _run_compound(self, node: R.Compound, batches, plan) -> B.Batch:
         # retry ladder: _postprocess returns None after updating the plan
         # when the run missed its output capacity or must change tier
-        for _ in range(MAX_RETRIES + 1):
+        for attempt in range(MAX_RETRIES + 1):
+            if plan.joins:
+                self._check_join_memory(node, batches, plan)
             kernel, layout = self._get_kernel(node, batches, plan)
             try:
                 outs = kernel(*self._kernel_args(batches, plan, layout))
@@ -531,8 +548,55 @@ class Executor:
                 continue
             result = self._postprocess(node, plan, outs)
             if result is not None:
+                if plan.joins:
+                    self.join_runs.append(JoinRun(
+                        [_build_form(jp, b.padded) for jp, b in zip(plan.joins, batches[1:])],
+                        list(plan.caps), attempt))
                 return result
         raise ExecutionError("capacity retry ladder did not converge")
+
+    def _join_bytes(self, node: R.Compound, batches, plan) -> int:
+        """Device bytes a join Compound's kernel holds, from its inputs and
+        plan: the input columns; per level, its domain d (the cap; the
+        previous domain for a unique build; plus the build's padded rows
+        for FULL, or the previous domain for LEFT with a residual; the
+        candidate pairs of SEMI / ANTI with a residual) x (per input in the
+        domain 4 B of row index and 1 B of matched flag, 1 B of mask, the
+        input columns gathered into the domain, and 24 B of expansion
+        temporaries: marks, prefix sum, slot, ordinal, build position and
+        two flags); and the group tier's working bytes a row
+        (`_tier_row_bytes`) over the last domain."""
+        col_bytes = [sum(c.element_size() for c in b.cols if c is not None)
+                     for b in batches]
+        total = sum(b.padded * cb for b, cb in zip(batches, col_bytes))
+        d = batches[0].padded
+        for li, (jp, cap) in enumerate(zip(plan.joins, plan.caps)):
+            k = li + 2  # inputs in the domain after this level
+            per_slot = 5 * k + 1 + sum(col_bytes[:k]) + 24
+            if jp.kind in ("SEMI", "ANTI"):
+                total += (cap if jp.residual else 0) * per_slot
+                continue
+            prev = d
+            d = d if jp.unique_build else cap
+            if jp.kind == "FULL":
+                d += batches[li + 1].padded
+            elif jp.kind == "LEFT" and jp.residual:
+                d += prev
+            total += d * per_slot
+        if node.is_aggregate:
+            total += d * self._tier_row_bytes(node)
+        return total
+
+    def _check_join_memory(self, node: R.Compound, batches, plan) -> None:
+        """DeviceMemoryExceeded before the kernel launches anything when the
+        join's bytes (`_join_bytes`) would not fit the free device memory;
+        nothing is checked off CUDA."""
+        need = self._join_bytes(node, batches, plan)
+        free = free_device_bytes(self.device, need)
+        if free is not None and need > free:
+            raise DeviceMemoryExceeded(
+                f"a join of caps {list(plan.caps)} needs {need} B, more than the "
+                f"{free} B free on {self.device}")
 
     # ---- fragment-wave streaming (out-of-core aggregates) ----
     def _stream_plan(self, node: R.Compound) -> Optional["StreamPlan"]:
@@ -690,7 +754,7 @@ class Executor:
         cfg = self.config
         if not node.group_exprs:
             return "keyless", [], 1
-        ranges = [RNG.expr_range(g, node.inputs) for g in node.group_exprs]
+        ranges = _group_ranges(node)
         slots = 1
         for r in ranges:
             if r is None or r.extent <= 0 or r.extent > cfg.baseline_groupby_threshold:
@@ -703,33 +767,117 @@ class Executor:
         return ("radix" if RT.eligible(node, ranges, slots, cfg) else "sort"), ranges, slots
 
     def _prepare_compound(self, node: R.Compound, memo):
-        if len(node.inputs) != 1 or any(
-                c is not None or k != "INNER" for k, c in node.join_levels):
-            raise NotSupported("joins")
+        """The Compound's input batches (needed columns only; a Scan's
+        fragments skipped by the filter's chunk stats, each input with its
+        own field offset), its inputs reordered by their sizes at run time
+        when it joins, and its plan."""
+        offsets = _input_offsets(node)
+        # group / filter / join refs are over the combined input domain; an
+        # aggregate's targets read its outputs, so they are left out
         if node.is_aggregate:
-            needed = _scan_fields(node)
+            exprs = list(node.group_exprs) + list(node.aggs) + [
+                c for _, c in node.join_levels if c is not None] + (
+                [node.filter_cond] if node.filter_cond is not None else [])
         else:
-            needed = set()
-            for e in _iter_node_exprs(node):
-                needed |= {r.field_idx for r in E.collect_input_refs(e)}
-        inp = node.inputs[0]
-        frag_ids = None
-        if isinstance(inp, R.Scan) and node.filter_cond is not None \
-                and len(inp.table.fragments) > 1:
-            frag_ids = self._surviving_fragments(inp, node.filter_cond)
-        if frag_ids is not None:
-            batch = self._exec_scan(inp, needed, frag_ids)
-        else:
-            batch = self._exec(inp, memo, needed)
-        return [batch], self._plan_compound(node, [batch])
+            exprs = list(_iter_node_exprs(node))
+        per_input = [set() for _ in node.inputs]
+        for e in exprs:
+            for r in E.collect_input_refs(e):
+                i = input_of_field(offsets, r.field_idx)[0]
+                per_input[i].add(r.field_idx - offsets[i])
+        batches = []
+        for i, inp in enumerate(node.inputs):
+            frag_ids = None
+            if isinstance(inp, R.Scan) and node.filter_cond is not None \
+                    and len(inp.table.fragments) > 1:
+                frag_ids = self._surviving_fragments(inp, node.filter_cond, offsets[i])
+            if frag_ids is not None:
+                batches.append(self._exec_scan(inp, per_input[i], frag_ids))
+            else:
+                batches.append(self._exec(inp, memo, per_input[i]))
+        if len(node.inputs) > 1:
+            # the runtime half of the reference's FromTableReordering: the
+            # inputs' real (post-filter, where probed) sizes pick the probe
+            from heavydb_tpu_torch.plan.optimizer import _reorder_joins
 
-    def _surviving_fragments(self, scan: R.Scan, filter_cond):
+            sizes = [b.nrows for b in batches]
+            if self.config.enable_selectivity_probe and node.filter_cond is not None \
+                    and all(k == "INNER" and c is not None for k, c in node.join_levels):
+                sizes = self._selectivity_sizes(node, batches, offsets, sizes)
+            _reorder_joins(node, sizes=sizes)
+            order = node.__dict__.pop("_reordered", None)
+            if order:
+                batches = [batches[i] for i in order]
+                offsets = _input_offsets(node)
+        return batches, self._plan_compound(node, batches, offsets)
+
+    def _selectivity_sizes(self, node, batches, offsets, sizes):
+        """Post-filter row count per join input: the rows of each input that
+        pass its single-input WHERE conjuncts, counted on the device and
+        cached per (input plan, conjuncts, table generations, rows) (the
+        reference's selectivity probe, JoinFilterPushDown.cpp)."""
+        from heavydb_tpu_torch.plan.optimizer import _split_conjuncts
+
+        n_in = len(node.inputs)
+        per_input: Dict[int, list] = {}
+        for c in _split_conjuncts(node.filter_cond):
+            owner = {input_of_field(offsets, r.field_idx)[0] for r in E.collect_input_refs(c)}
+            if len(owner) == 1:
+                per_input.setdefault(owner.pop(), []).append(c)
+        out = list(sizes)
+        if len(self._sel_cache) > 4096:
+            self._sel_cache.clear()
+        for bi, conjs in per_input.items():
+            if n_in == 2 and sizes[bi] <= sizes[1 - bi]:
+                # shrinking the smaller of two inputs cannot flip the
+                # probe / build choice: no device round trip
+                continue
+            gens = tuple(sorted((s.table.table_id, s.table.generation)
+                                for s in R.topo_order(node.inputs[bi])
+                                if isinstance(s, R.Scan)))
+            rkey = ("selprobe", node.inputs[bi].plan_key(),
+                    tuple(sorted(c.key() for c in conjs)), gens, batches[bi].nrows)
+            hit = self._sel_cache.get(rkey)
+            if hit is None:
+                hit = self._probe_count(batches[bi], offsets[bi], conjs)
+                if hit is None:
+                    continue
+                self._sel_cache[rkey] = hit
+            out[bi] = hit
+        return out
+
+    def _probe_count(self, batch, offset: int, conjs) -> Optional[int]:
+        """Rows of `batch` passing every conjunct (each over this input's
+        fields only); None for a conjunct it cannot count here."""
+        for c in conjs:
+            if any(isinstance(s, (E.SubqueryExpr, E.Agg, E.WindowFunc))
+                   for s in E.walk(c)):
+                return None
+        fields = sorted({r.field_idx for c in conjs for r in E.collect_input_refs(c)})
+        cdict = {}
+        for f in fields:
+            local = f - offset
+            if not 0 <= local < len(batch.cols) or batch.cols[local] is None:
+                return None
+            v, ti = batch.cols[local], batch.types[local]
+            cdict[f] = (v, derive_valid(v, ti) if ti.nullable else None)
+        comp = ExprCompiler(cdict, {}, self.device, batch.padded)
+        m = self._in_domain(batch.padded, batch.nrows)
+        try:
+            for c in conjs:
+                m = m & comp.compile_predicate(c)
+        except NotSupported:
+            return None  # the probe is advisory: keep the raw row count
+        return int(m.sum())
+
+    def _surviving_fragments(self, scan: R.Scan, filter_cond, offset: int = 0):
         """Fragments whose chunk min/max can satisfy every simple
-        `col <cmp> const` conjunct; None when all survive."""
+        `col <cmp> const` conjunct over this scan (its fields start at
+        `offset` of the filter's input domain); None when all survive."""
         from heavydb_tpu_torch.plan.optimizer import _split_conjuncts
 
         t = scan.table
-        quals = [q for q in (self._simple_qual(c, scan)
+        quals = [q for q in (self._simple_qual(c, scan, offset)
                              for c in _split_conjuncts(filter_cond))
                  if q is not None]
         if not quals:
@@ -752,7 +900,7 @@ class Executor:
             return None
         return keep
 
-    def _simple_qual(self, c, scan: R.Scan):
+    def _simple_qual(self, c, scan: R.Scan, offset: int = 0):
         """col <cmp> const over this scan's columns -> (col_id, op, value)."""
         flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
         if not isinstance(c, E.BinOp) or c.op not in E.COMPARISON_OPS \
@@ -764,9 +912,10 @@ class Executor:
         if not (isinstance(lhs, E.InputRef) and isinstance(rhs, E.Constant)) \
                 or rhs.value is None:
             return None
-        if not 0 <= lhs.field_idx < len(scan.table.columns):
+        local = lhs.field_idx - offset
+        if not 0 <= local < len(scan.table.columns):
             return None
-        cd = scan.table.columns[lhs.field_idx]
+        cd = scan.table.columns[local]
         if not (cd.type.is_integer or cd.type.is_time or cd.type.is_decimal
                 or cd.type.is_boolean):
             return None
@@ -776,9 +925,43 @@ class Executor:
             return None
 
     # ---- compound planning ----
-    def _plan_compound(self, node: R.Compound, batches):
+    def _plan_compound(self, node: R.Compound, batches, offsets=(0,)):
         cfg = self.config
-        plan = _CompoundPlan()
+        plan = _CompoundPlan(offsets=list(offsets))
+        probe = batches[0]
+        if node.filter_cond is not None and node.join_levels \
+                and not any(k == "FULL" for k, _ in node.join_levels):
+            self._split_filter(node, offsets, plan)
+        for li, (kind, cond) in enumerate(node.join_levels):
+            bi = li + 1
+            lo = offsets[bi]
+            equis, residual = _split_join_condition(cond, lo, lo + node.inputs[bi].arity)
+            build_rows = batches[bi].nrows
+            if kind == "CROSS" and cond is None:
+                if build_rows * max(probe.nrows, 1) > cfg.watchdog_max_projected_rows:
+                    raise WatchdogException("cross join too large")
+                plan.joins.append(_JoinPlan(kind="CROSS", residual=None))
+                plan.caps.append(B.bucket(max(probe.nrows * max(build_rows, 1), 1)))
+                continue
+            if not equis:
+                # the reference takes a level with no equality only as its
+                # grid-bucket spatial join (exec/geo_join.py), not ported yet
+                raise NotSupported("geo join: a join level without an equality")
+            if kind == "FULL" and residual:
+                # build-side matched flags do not see residual kills
+                raise NotSupported("FULL JOIN with non-equi residual conditions")
+            jp = self._plan_join_keys(node, equis, residual, kind, batches, bi)
+            if jp.key_min is not None and kind in ("INNER", "LEFT") \
+                    and not jp.residual and jp.key_range >= build_rows:
+                # PK side, by the reference's rule: a dense range at least
+                # as wide as the row count; a run-time duplicate check
+                # corrects it
+                jp.unique_build = True
+            plan.joins.append(jp)
+            jp.fallback_cap = B.bucket(max(probe.nrows, build_rows, 1))
+            plan.caps.append(0 if jp.unique_build else jp.fallback_cap)
+            if jp.translate is not None:
+                plan.aux_specs.setdefault(jp.translate, ("translate", jp.translate))
         if node.is_aggregate and node.group_exprs:
             tier, ranges, slots = self._group_tier(node)
             padded = max(batches[0].padded, 8)
@@ -810,6 +993,86 @@ class Executor:
             plan.group_strategy = ("keyless", None)
             plan.group_cap = 1
         return plan
+
+    def _split_filter(self, node: R.Compound, offsets, plan) -> None:
+        """Filter push-down into the join pipeline (the reference's
+        FILTER_PROJECT_TRANSPOSE rules and JoinFilterPushDown): a WHERE
+        conjunct over one input moves to the probe mask before any
+        expansion (input 0) or into the build-side validity of an INNER
+        level; the rest stay after the joins.  DIV / MOD conjuncts stay put,
+        so that their error flags never fire for rows a join would drop."""
+        from heavydb_tpu_torch.plan.optimizer import _split_conjuncts
+
+        rest = []
+        for c in _split_conjuncts(node.filter_cond):
+            refs = E.collect_input_refs(c)
+            pushable = bool(refs) and not any(
+                isinstance(s, E.BinOp) and s.op in (E.BinOpKind.DIV, E.BinOpKind.MOD)
+                for s in E.walk(c))
+            owner = {input_of_field(offsets, r.field_idx)[0] for r in refs}
+            if pushable and owner == {0}:
+                plan.pre_mask.append(c)
+            elif pushable and len(owner) == 1 \
+                    and node.join_levels[next(iter(owner)) - 1][0] == "INNER":
+                plan.build_filters.setdefault(next(iter(owner)), []).append(c)
+            else:
+                rest.append(c)
+        plan.filter_rest = rest
+
+    def _plan_join_keys(self, node, equis, residual, kind, batches, build_input):
+        """Key packing of a level's (possibly multi-column) equi keys:
+        `single` (a perfect build when the build key has a dense range of
+        modest width), `range` (an exact packing of ranged keys) or `hash`
+        (splitmix64, with an equality recheck appended to the residual)."""
+        probe_exprs = [p for p, _ in equis]
+        build_exprs = [b for _, b in equis]
+        if len(equis) == 1:
+            pe, be = probe_exprs[0], build_exprs[0]
+            translate = None
+            if pe.type.is_dict_string or be.type.is_dict_string:
+                pref = getattr(pe, "dict_ref", None)
+                bref = getattr(be, "dict_ref", None)
+                if pref is None or bref is None:
+                    raise NotSupported("join on computed string keys")
+                if pref != bref:
+                    translate = (bref, pref)
+            if pe.type.is_fp or be.type.is_fp:
+                raise NotSupported("float join keys")
+            key_min = key_range = None
+            if translate is None:
+                br = RNG.expr_range(be, node.inputs)
+                if br is not None and 0 < br.extent <= min(
+                        self.config.perfect_join_max_range,
+                        max(batches[build_input].padded * 4, 1 << 16)):
+                    key_min, key_range = br.lo, br.extent
+            return _JoinPlan(kind=kind, probe_keys=probe_exprs, build_keys=build_exprs,
+                             residual=residual, translate=translate, pack="single",
+                             key_min=key_min, key_range=key_range)
+        # multi-key: dictionary ids compare only within one dictionary
+        for pe, be in equis:
+            if pe.type.is_dict_string or be.type.is_dict_string:
+                pref = getattr(pe, "dict_ref", None)
+                bref = getattr(be, "dict_ref", None)
+                if pref is None or bref is None or pref != bref:
+                    raise NotSupported(
+                        "multi-column join with cross-dictionary string keys")
+        spans = []
+        for be, pe in zip(build_exprs, probe_exprs):
+            rb = RNG.expr_range(be, node.inputs)
+            rp = RNG.expr_range(pe, node.inputs)
+            if rb is None or rp is None:
+                spans = None
+                break
+            lo, hi = min(rb.lo, rp.lo), max(rb.hi, rp.hi)
+            spans.append((lo, hi - lo + 1))
+        if spans is not None and math.prod(ext for _, ext in spans) <= (1 << 62):
+            return _JoinPlan(kind=kind, probe_keys=probe_exprs, build_keys=build_exprs,
+                             residual=residual, pack="range", pack_spans=tuple(spans))
+        if kind in ("LEFT", "FULL"):
+            raise NotSupported(f"{kind} JOIN with unpackable multi-column keys")
+        recheck = [E.BinOp(E.BinOpKind.EQ, p, b, T.boolean(True)) for p, b in equis]
+        return _JoinPlan(kind=kind, probe_keys=probe_exprs, build_keys=build_exprs,
+                         residual=list(residual) + recheck, pack="hash")
 
     def _estimate_group_ndv(self, node) -> Optional[int]:
         """Chao1 distinct estimate from a host sample of the group key
@@ -874,7 +1137,12 @@ class Executor:
             (b.padded,) + tuple(
                 (i, str(c.dtype)) for i, c in enumerate(b.cols) if c is not None)
             for b in batches)
-        key = (node.plan_key(), shapes, plan.group_strategy, plan.group_cap)
+        key = (node.plan_key(), shapes, tuple(plan.caps), plan.group_strategy,
+               plan.group_cap,
+               tuple((jp.kind, jp.pack, jp.pack_spans, jp.key_min, jp.key_range,
+                      jp.translate, jp.unique_build, jp.hash_fallback)
+                     for jp in plan.joins),
+               tuple(sorted(plan.aux_specs, key=repr)))
         hit = self.kernel_cache.get(key)
         if hit is None:
             hit = build_compound_kernel(node, batches, plan, self.device)
@@ -888,26 +1156,69 @@ class Executor:
                 args.append(batches[bi].cols[ci])
         for bi in layout.nrows_batches:
             args.append(int(batches[bi].nrows))
+        args.extend(self._aux_array(plan.aux_specs[k]) for k in layout.aux_order)
         return args
 
-    def _postprocess(self, node, plan, outs) -> B.Batch:
+    def _aux_array(self, spec) -> torch.Tensor:
+        """Device tables a kernel reads beside its columns: a join key's
+        dictionary translation (build dictionary id -> probe dictionary id,
+        -1 for a string the probe's dictionary lacks)."""
+        kind, (from_ref, to_ref) = spec
+        if kind != "translate":
+            raise NotSupported(f"aux {kind}")
+        fd = self.db.dict_by_ref(from_ref)
+        td = self.db.dict_by_ref(to_ref)
+        key = ("translate", from_ref, to_ref, fd.size, td.size)
+        hit = self.aux_cache.get(key)
+        if hit is None:
+            host = np.full(B.bucket(max(fd.size, 1)), -1, np.int32)
+            host[:fd.size] = fd.translation_to(td)
+            hit = self.aux_cache[key] = torch.from_numpy(host).to(self.device)
+        return hit
+
+    def _postprocess(self, node, plan, outs) -> Optional[B.Batch]:
         d = outs
-        # keyless aggregate with no error flags has a STATIC output (1 row):
-        # no control read at all
-        if plan.group_strategy and plan.group_strategy[0] == "keyless" \
+        # keyless aggregate with no join and no error flags has a STATIC
+        # output (1 row): no control read at all
+        if not plan.joins and plan.group_strategy \
+                and plan.group_strategy[0] == "keyless" \
                 and not any(k.startswith("err_") for k in d):
             return B.Batch(list(d["cols"]), 1, list(node.types))
         # ALL control scalars in ONE device->host copy
         host = dict(zip(ctrl_keys(d), d["ctrl_vec"].tolist()))
         if host.get("err_div_by_zero"):
             raise DivisionByZero("division by zero")
+        # the join rungs: a build key that claimed no hash slot -> the
+        # sorted build; a duplicate key under a unique build -> expansion;
+        # an expansion past its cap -> the exact capacity
+        retry = False
+        for li, jp in enumerate(plan.joins):
+            if host.get(f"join_hash_miss_{li}", 0) > 0:
+                jp.hash_fallback = True
+                retry = True
+        if retry:
+            return None
+        for li, jp in enumerate(plan.joins):
+            if jp.unique_build and host.get(f"join_dup_{li}"):
+                jp.unique_build = False
+                plan.caps[li] = jp.fallback_cap
+                retry = True
+                continue
+            needed = int(host[f"join_needed_{li}"])
+            if needed > plan.caps[li]:
+                if B.bucket(needed) > _MAX_JOIN_DOMAIN:
+                    raise ExecutionError(
+                        f"join level {li} needs {needed} rows, more than the "
+                        f"{_MAX_JOIN_DOMAIN} its int32 row indices address")
+                plan.caps[li] = B.bucket(needed)
+                retry = True
         strategy = plan.group_strategy[0] if plan.group_strategy else None
         if strategy == "sort":
             ng = int(host["num_groups"])
             if ng > plan.group_cap:
                 plan.group_cap = B.bucket(ng)
-                return None
-        if strategy == "radix":
+                retry = True
+        elif strategy == "radix":
             ng = int(host["num_groups"])
             ovf = int(host["radix_overflow"])
             if ovf & 1:
@@ -915,11 +1226,13 @@ class Executor:
                 # the results are invalid; rerun on the sort tier
                 plan.group_strategy = ("sort", None)
                 plan.group_cap = B.bucket(max(ng, 8))
-                return None
-            if ovf & 2 or ng > plan.group_cap:
+                retry = True
+            elif ovf & 2 or ng > plan.group_cap:
                 # output cap exceeded; num_groups is exact: one retry
                 plan.group_cap = B.bucket(ng)
-                return None
+                retry = True
+        if retry:
+            return None
         n_out = int(host["n_out"])
         cols = list(d["cols"])
         size = B.bucket(n_out)
@@ -950,17 +1263,57 @@ class StreamPlan:
 
 
 @dataclasses.dataclass
+class _JoinPlan:
+    kind: str = "INNER"  # INNER | LEFT | FULL | SEMI | ANTI | CROSS
+    probe_keys: list = None
+    build_keys: list = None
+    residual: list = None
+    translate: Optional[tuple] = None  # (from_dict_ref, to_dict_ref)
+    pack: str = "single"  # single | range | hash
+    pack_spans: tuple = ()
+    # dense-range perfect build (reference PerfectJoinHashTable)
+    key_min: Optional[int] = None
+    key_range: Optional[int] = None
+    # build keys believed unique (PK side): an identity-domain probe, no
+    # expansion; checked at run time (a duplicate retries with expansion)
+    unique_build: bool = False
+    fallback_cap: int = 0
+    # a hash-table build left a key without a slot: probe sorted instead
+    hash_fallback: bool = False
+
+
+@dataclasses.dataclass
 class _CompoundPlan:
+    offsets: list = dataclasses.field(default_factory=lambda: [0])
+    joins: List[_JoinPlan] = dataclasses.field(default_factory=list)
+    # expansion capacity per join level (0: identity domain)
+    caps: List[int] = dataclasses.field(default_factory=list)
     # ("perfect" | "radix", ((min, extent, has_nulls, bucket), ...)) |
     # ("sort", None) | ("keyless", None)
     group_strategy: Optional[tuple] = None
     group_cap: int = 0
+    aux_specs: dict = dataclasses.field(default_factory=dict)
+    # the filter push-down split (filter_rest None: no split made)
+    pre_mask: list = dataclasses.field(default_factory=list)
+    build_filters: dict = dataclasses.field(default_factory=dict)
+    filter_rest: Optional[list] = None
+
+
+@dataclasses.dataclass
+class JoinRun:
+    """A join Compound's run: each level's build form (`_build_form`),
+    its final caps and the retries it took."""
+
+    builds: List[str]
+    caps: List[int]
+    retries: int
 
 
 @dataclasses.dataclass
 class _KernelLayout:
     batch_cols: list = None  # [(batch_idx, [col_idx...])...]
     nrows_batches: list = None
+    aux_order: list = None
 
 
 _NO_PACK = object()
@@ -986,3 +1339,88 @@ def _hash_pack_spec(group_exprs, ranges):
         if total >= (1 << 62):
             return _NO_PACK
     return tuple(spec)
+
+
+# a join domain's row indices are int32
+_MAX_JOIN_DOMAIN = (1 << 31) - 1
+
+
+def _build_form(jp: _JoinPlan, build_padded: int) -> str:
+    """How a level builds and probes: cross, perfect-unique, perfect, hash
+    or sorted (as the kernel picks it)."""
+    from heavydb_tpu_torch.exec.compound_kernel import (_JOIN_HASH_MAX_SLOTS,
+                                                        _join_hash_slots)
+
+    if jp.kind == "CROSS":
+        return "cross"
+    if jp.key_min is not None:
+        return "perfect-unique" if jp.unique_build else "perfect"
+    if jp.hash_fallback or _join_hash_slots(build_padded) > _JOIN_HASH_MAX_SLOTS:
+        return "sorted"
+    return "hash"
+
+
+def _input_offsets(node: R.RelNode) -> List[int]:
+    """Each input's first field in the Compound's combined input schema."""
+    offsets, acc = [], 0
+    for i in node.inputs:
+        offsets.append(acc)
+        acc += i.arity
+    return offsets
+
+
+def _group_ranges(node: R.Compound) -> list:
+    """Chunk-stat ranges of the group keys, made nullable where an outer
+    join null-extends their fields (LEFT: the build side's; FULL: both
+    sides'), so that the perfect tier gives the NULL rows their own slot."""
+    ranges = [RNG.expr_range(g, node.inputs) for g in node.group_exprs]
+    offsets = _input_offsets(node)
+    outer = set()
+    for li, (kind, _) in enumerate(node.join_levels):
+        end = offsets[li + 1] + node.inputs[li + 1].arity
+        if kind == "LEFT":
+            outer |= set(range(offsets[li + 1], end))
+        elif kind == "FULL":
+            outer |= set(range(0, end))
+    for gi, g in enumerate(node.group_exprs):
+        r = ranges[gi]
+        if r is not None and not r.has_nulls and any(
+                ref.field_idx in outer for ref in E.collect_input_refs(g)):
+            ranges[gi] = dataclasses.replace(r, has_nulls=True)
+    return ranges
+
+
+def _split_join_condition(cond, lo: int, hi: int):
+    """Split a join condition into equi pairs (probe_expr, build_expr) and
+    residual conjuncts.  Build side = fields in [lo, hi)."""
+    if cond is None:
+        return [], []
+    from heavydb_tpu_torch.plan.optimizer import _split_conjuncts
+
+    def sides(e):
+        refs = E.collect_input_refs(e)
+        return (bool(refs) and all(r.field_idx < lo for r in refs),
+                bool(refs) and all(lo <= r.field_idx < hi for r in refs))
+
+    equis, residual = [], []
+    for c in _split_conjuncts(cond):
+        if isinstance(c, E.DictPairCompare) and c.op == "=" \
+                and not c.left_ops and not c.right_ops:
+            # a chain-free dict = dict across the two sides becomes a raw-id
+            # equi key (the planner translates the dictionaries); on one
+            # side it stays a residual DictPairCompare
+            (l_probe, l_build), (r_probe, r_build) = sides(c.left), sides(c.right)
+            if not ((l_probe and r_build) or (l_build and r_probe)):
+                residual.append(c)
+                continue
+            c = E.BinOp(E.BinOpKind.EQ, c.left, c.right, c.type)
+        if isinstance(c, E.BinOp) and c.op == E.BinOpKind.EQ:
+            (l_probe, l_build), (r_probe, r_build) = sides(c.left), sides(c.right)
+            if l_probe and r_build:
+                equis.append((c.left, c.right))
+                continue
+            if l_build and r_probe:
+                equis.append((c.right, c.left))
+                continue
+        residual.append(c)
+    return equis, residual

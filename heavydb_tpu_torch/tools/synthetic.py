@@ -1,12 +1,19 @@
 """The on-card workload shared by `chip_smoke.py` and `profile_queries`:
 the synthetic benchmark's schema, the SELECTs of the port's slices (the
-group-by QUERIES and the ORDER BY SORT_QUERIES) and the loader that builds
-the table on the device.
+group-by QUERIES, the ORDER BY SORT_QUERIES and the join + GROUP BY
+JOIN_QUERIES) and the loaders that build the tables on the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
 `x10k_s10k` and `x1m_s10k` = randint(1, card) * 10000; plus `v FLOAT`
 uniform in [0, 1) (BASELINE config 1); in HeavyDB's 32M-row fragments.
+
+The join queries' build sides (`load_dims`): `dim1k (k, nm)`, BASELINE
+config 3's dimension (bench.py:321-325: k = 1..1000, nm uniform in 0..49);
+`dim10m (k, g)`, a TPC-H orders-like primary-key side (k a permutation of
+1..10^7, g uniform in 1..1000); `sdim (k, w)`, the sparse keys of
+x1m_s10k (k a permutation of (1..10^6) x 10^4, w uniform in [0, 1));
+`multi (k, w)`, keys 1..500 three times each (a 1:3 fan-out).
 """
 
 from __future__ import annotations
@@ -60,6 +67,31 @@ SORT_QUERIES = {
 }
 
 
+# join + GROUP BY over bench and the dimension tables of `load_dims`, one
+# query a path of the join pipeline
+JOIN_QUERIES = {
+    # a perfect-unique build of 1000 keys: one gather a probe row, B1
+    "JOIN_DIM1K": "SELECT d.nm, COUNT(*), SUM(b.v) FROM bench b JOIN dim1k d "
+                  "ON b.x1k = d.k GROUP BY d.nm",
+    # probe-side push-down, a perfect-unique build over 10^7 keys, B2 + B3
+    "JOIN_DIM10M": "SELECT d.g, COUNT(*), SUM(b.v), MAX(b.x100) FROM bench b "
+                   "JOIN dim10m d ON b.x10m = d.k WHERE b.x10 > 3 GROUP BY d.g",
+    # no dense range: the hash table over a sorted build, the expansion,
+    # build-side push-down, keyless
+    "JOIN_SPARSE": "SELECT COUNT(*), SUM(s.w), SUM(b.y100) FROM bench b "
+                   "JOIN sdim s ON b.x1m_s10k = s.k WHERE s.w < 0.5",
+    # a perfect non-unique build, 1:3 fan-out and LEFT null rows: the
+    # expansion passes its first cap and retries once
+    "JOIN_LEFT_FANOUT": "SELECT b.x10, COUNT(*), COUNT(m.w), SUM(m.w) FROM bench b "
+                        "LEFT JOIN multi m ON b.x1k = m.k GROUP BY b.x10",
+    # SEMI and ANTI joins over filtered build inputs
+    "EXISTS_ANTI": "SELECT b.x10, COUNT(*) FROM bench b WHERE EXISTS (SELECT 1 "
+                   "FROM sdim s WHERE s.k = b.x1m_s10k AND s.w < 0.25) AND NOT "
+                   "EXISTS (SELECT 1 FROM dim1k d WHERE d.k = b.x1k AND d.nm < 5) "
+                   "GROUP BY b.x10",
+}
+
+
 def load_bench(db, n: int, seed: int,
                fragment_rows: int = FRAGMENT_ROWS) -> Dict[str, torch.Tensor]:
     """CREATE TABLE bench and load `n` random rows made on db's device from
@@ -79,3 +111,38 @@ def load_bench(db, n: int, seed: int,
     db.sql(f"CREATE TABLE bench ({cols}) WITH (fragment_size={fragment_rows})")
     db.load_table_device("bench", data)
     return data
+
+
+def load_dims(db, seed: int) -> Dict[str, Dict[str, torch.Tensor]]:
+    """CREATE and load the join queries' dimension tables, made on db's
+    device from `seed`; returns their device columns by table."""
+    gen = torch.Generator(device=db.device)
+    gen.manual_seed(seed)
+    dev = db.device
+
+    def ints(lo, hi, n):
+        return torch.randint(lo, hi + 1, (n,), dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    def perm(n, dtype):
+        return torch.randperm(n, dtype=dtype, device=dev, generator=gen) + 1
+
+    tables = {
+        "dim1k": ("k INT NOT NULL, nm INT",
+                  {"k": torch.arange(1, 1001, dtype=torch.int32, device=dev),
+                   "nm": ints(0, 49, 1000)}),
+        "dim10m": ("k INT NOT NULL, g INT",
+                   {"k": perm(10_000_000, torch.int32), "g": ints(1, 1000, 10_000_000)}),
+        "sdim": ("k BIGINT NOT NULL, w FLOAT",
+                 {"k": perm(1_000_000, torch.int64) * 10_000,
+                  "w": torch.rand(1_000_000, dtype=torch.float32, device=dev,
+                                  generator=gen)}),
+        "multi": ("k INT NOT NULL, w FLOAT",
+                  {"k": torch.arange(1, 501, dtype=torch.int32, device=dev).repeat(3),
+                   "w": torch.rand(1500, dtype=torch.float32, device=dev,
+                                   generator=gen)}),
+    }
+    for name, (decl, data) in tables.items():
+        db.sql(f"CREATE TABLE {name} ({decl})")
+        db.load_table_device(name, data)
+    return {name: data for name, (_, data) in tables.items()}
