@@ -67,6 +67,19 @@ printing JSON lines:
            with a residual, TEXT keys of two dictionaries and a projection
            in ORDER BY order on small tables: the same rows on CUDA as on
            the CPU
+  strings  the dictionary-string queries of tools/synthetic.py
+           STRING_QUERIES on a second 100M-row table made on the device
+           (load_strings: TPC-H lineitem rows with the l_shipmode,
+           l_shipinstruct, p_type and c_name vocabularies, 1 % NULL): CMP,
+           IN, LIKE, a 10^6-entry LIKE (cold and warm), MIN / MAX over TEXT,
+           a transform key and a pair concatenation with a pair comparison;
+           each equal to numpy, with its warm ms, group-by tier, peak device
+           bytes and kernel launches (counted from 0 for this phase)
+  string_shapes  every dictionary predicate kind, chained transforms, a
+           transform in ORDER BY, col || 'c' || col, the six pair
+           comparisons, MIN / MAX over TEXT at 50 and 3000 groups (B1, B3),
+           TEXT ENCODING NONE and the pair-table cap on 20,000-row tables:
+           the same rows on CUDA as on the CPU
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
@@ -1053,6 +1066,13 @@ ROUTES = {
     # launches B1 (<= 256 slots), B2 + B3 (1000 slots); JOIN_SPARSE is keyless
     "JOIN_DIM1K": {"lane_agg"}, "JOIN_DIM10M": {"radix_hist", "groupby_minmax"},
     "JOIN_SPARSE": set(), "JOIN_LEFT_FANOUT": {"lane_agg"}, "EXISTS_ANTI": {"lane_agg"},
+    # the strings phase: the string work is host tables and gathers; the
+    # group-by after it launches B1 (<= 256 slots; a dictionary key of 7 + 1),
+    # B2 (the counts) + B3 (MIN and MAX over int32 ranks at 1000 slots);
+    # STR_TRANSFORM's key has no range (the sort tier), STR_LIKE_1M is keyless
+    "STR_EQ": {"lane_agg"}, "STR_IN": {"lane_agg"}, "STR_LIKE": {"lane_agg"},
+    "STR_MINMAX": {"radix_hist", "groupby_minmax"}, "STR_TRANSFORM": set(),
+    "STR_PAIR": {"lane_agg"}, "STR_LIKE_1M": set(),
 }
 # queries checked column by column as arrays (large results)
 ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
@@ -1741,6 +1761,309 @@ def join_yardsticks(host, dims):
 
 
 # ---------------------------------------------------------------------------
+# strings phase
+# ---------------------------------------------------------------------------
+
+STRING_ROWS = ROWS
+# the result columns of each string cell that are FLOAT sums, and its key
+# columns
+STRING_F32_COLS = {"STR_EQ": {2}, "STR_IN": {2}, "STR_LIKE": {2}, "STR_TRANSFORM": {2},
+                   "STR_LIKE_1M": {1}}
+STRING_KEYS = {"STR_LIKE_1M": 0}
+
+
+def _gather(table, ids):
+    """Row i: table[ids[i]], False where the id is NULL (negative)."""
+    ok = ids >= 0
+    return ok & table[np.where(ok, ids, 0)]
+
+
+def _over(vocab, pred):
+    """A bool table over a vocabulary, the predicate evaluated in Python."""
+    return np.array([bool(pred(s)) for s in vocab], bool)
+
+
+def _grouped(keys, m, v, size):
+    """count (and the float64 sum of v, if given) of the rows m per key in
+    [0, size)."""
+    cnt = np.bincount(keys[m], minlength=size)
+    if v is None:
+        return cnt, None
+    return cnt, np.bincount(keys[m], weights=v[m].astype(np.float64), minlength=size)
+
+
+def expected_strings(name, h, vocab):
+    """numpy's rows of a string cell: {key tuple: value tuple}.  Each
+    predicate is evaluated over its vocabulary in Python, then gathered by
+    the rows' ids."""
+    mode, instr, ptype, cname = (h[c] for c in ("shipmode", "shipinstruct", "ptype", "cname"))
+    v = h["v"]
+    if name in ("STR_EQ", "STR_LIKE", "STR_PAIR"):
+        if name == "STR_EQ":
+            m = _gather(_over(vocab["shipmode"], lambda s: s == "AIR"), mode)
+            key, size = h["x10"], 11
+        elif name == "STR_LIKE":
+            m = _gather(_over(vocab["ptype"], lambda s: s.startswith("PROMO")), ptype)
+            key, size = h["x100"], 101
+        else:
+            ok = np.array([[a + b == "AIRNONE" or a < b for b in vocab["shipinstruct"]]
+                           for a in vocab["shipmode"]], bool)
+            both = (mode >= 0) & (instr >= 0)
+            m = both & ok[np.where(both, mode, 0), np.where(both, instr, 0)]
+            key, size = h["x10"], 11
+        cnt, sums = _grouped(key, m, None if name == "STR_PAIR" else v, size)
+        return {(g,): (int(cnt[g]),) if sums is None else (int(cnt[g]), float(sums[g]))
+                for g in np.nonzero(cnt)[0]}
+    if name == "STR_IN":
+        m = _gather(_over(vocab["shipmode"], lambda s: s in ("MAIL", "SHIP")), mode) \
+            & _gather(_over(vocab["shipinstruct"], lambda s: s != "NONE"), instr)
+        cnt, sums = _grouped(mode, m, v, len(vocab["shipmode"]))
+        return {(vocab["shipmode"][i],): (int(cnt[i]), float(sums[i]))
+                for i in np.nonzero(cnt)[0]}
+    if name == "STR_MINMAX":
+        words = vocab["ptype"]
+        rank = np.empty(len(words), np.int64)
+        rank[sorted(range(len(words)), key=words.__getitem__)] = np.arange(len(words))
+        by_rank = sorted(words)
+        ok = ptype >= 0
+        g = h["x1k"].astype(np.int64)
+        hist = np.bincount(g[ok] * len(words) + rank[ptype[ok]],
+                           minlength=1001 * len(words)).reshape(1001, len(words)) > 0
+        cnt = np.bincount(g, minlength=1001)
+        out = {}
+        for k in np.nonzero(cnt)[0]:
+            present = np.nonzero(hist[k])[0]
+            lo, hi = (by_rank[present[0]], by_rank[present[-1]]) if present.size \
+                else (None, None)
+            out[(k,)] = (lo, hi, int(cnt[k]))
+        return out
+    if name == "STR_TRANSFORM":
+        words = vocab["ptype"]
+        ok = ptype >= 0
+        cnt, sums = _grouped(ptype, ok, v, len(words))
+        out = {}
+        for i, w in enumerate(words):
+            c, s0 = out.get((w[:5],), (0, 0.0))
+            out[(w[:5],)] = (c + int(cnt[i]), s0 + float(sums[i]))
+        if (~ok).any():
+            out[(None,)] = (int((~ok).sum()), float(v[~ok].astype(np.float64).sum()))
+        return {k: c for k, c in out.items() if c[0]}
+    if name == "STR_LIKE_1M":
+        m = _gather(_over(vocab["cname"], lambda s: "7777" in s), cname)
+        return {(): (int(m.sum()), float(v[m].astype(np.float64).sum()) if m.any() else None)}
+    raise KeyError(name)
+
+
+def check_strings(name, rs, h, vocab) -> int:
+    """Raise unless the rows equal numpy's: counts and MIN / MAX strings
+    exact, FLOAT sums to float32 tolerance."""
+    want = expected_strings(name, h, vocab)
+    n_keys = STRING_KEYS.get(name, 1)
+    rows = rs.rows()
+    if len(rows) != len(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, numpy has {len(want)}")
+    f32 = STRING_F32_COLS.get(name, ())
+    for r in rows:
+        key = tuple(int(k) if isinstance(k, (int, np.integer)) else k for k in r[:n_keys])
+        if key not in want:
+            raise AssertionError(f"{name}: row {r} has a key numpy has not")
+        for j, (g, e) in enumerate(zip(r[n_keys:], want[key])):
+            col = n_keys + j
+            ok = (g is None and e is None) if e is None or g is None else (
+                np.isclose(g, e, **F32_TOL) if col in f32 else g == e)
+            if not ok:
+                raise AssertionError(f"{name}: {r} vs {want[key]} (column {col})")
+    return len(rows)
+
+
+def run_strings(db, counters, n: int = STRING_ROWS):
+    """The lstr table (tools/synthetic.py load_strings), then each
+    STRING_QUERIES query with the launch counters set to 0 before the
+    first: rows out, first and warm ms (median of 5), the group-by tier
+    of each Compound run, the peak device bytes above what was allocated
+    before it and the launches, each checked against numpy and ROUTES;
+    STR_LIKE_1M's first run is cold (its 10^6-entry dictionary scanned for
+    the first time), and its table is built again alone (aux_build_ms).
+    Returns the lines and each kernel's launches in the phase."""
+    from heavydb_tpu_torch.exec import executor as X
+    from heavydb_tpu_torch.plan import rel_alg as R
+    from heavydb_tpu_torch.plan.optimizer import optimize
+    from heavydb_tpu_torch.sql.parser import parse_many
+    from heavydb_tpu_torch.tools.synthetic import STRING_QUERIES, load_strings
+
+    t0 = time.perf_counter()
+    data, vocab = load_strings(db, n, SEED + 4)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    h = {c: t.cpu().numpy() for c, t in data.items()}
+    del data
+    ex = db.executor
+    out = [dict(query="load_strings", seconds=load_s, rows=n,
+                vocabulary={c: len(w) for c, w in vocab.items()})]
+    tiers = []
+    orig = X.Executor._postprocess
+
+    def spy(self, node, plan, outs):
+        if plan.group_strategy is not None:
+            tiers.append(plan.group_strategy[0])
+        return orig(self, node, plan, outs)
+
+    for c in counters:
+        c.launches = 0  # the strings path starts here
+    X.Executor._postprocess = spy
+    try:
+        for name, q in STRING_QUERIES.items():
+            before = [c.launches for c in counters]
+            del tiers[:]
+            t0 = time.perf_counter()
+            rs = db.sql(q)
+            rs.rows()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            run_tiers = list(tiers)
+            nrows = check_strings(name, rs, h, vocab)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reps = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                db.sql_device(q)
+                torch.cuda.synchronize()
+                reps.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() - base
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            for kname, d in zip(KERNEL_NAMES, delta):
+                if (d > 0) != (kname in ROUTES[name]):
+                    raise AssertionError(
+                        f"{name}: {kname} launched {d} times; expected the "
+                        f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+            line = dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
+                        warm_ms=statistics.median(reps), warm_runs_ms=reps,
+                        tiers=run_tiers, peak_device_bytes=peak,
+                        launches=dict(zip(KERNEL_NAMES, delta)))
+            if name == "STR_LIKE_1M":
+                plan = optimize(db._plan_select(parse_many(q)[0]))
+                specs = X._string_aux_specs(
+                    e for node in R.topo_order(plan) for e in X._iter_node_exprs(node))
+                cached = [k for k in ex.aux_cache if k[0] == "strpred"
+                          and any(k[3] == sk for sk in specs)]
+                for k in cached:
+                    del ex.aux_cache[k]
+                t0 = time.perf_counter()
+                ex._aux_tables(specs, list(specs))
+                torch.cuda.synchronize()
+                line.update(cold_ms=first_ms, aux_build_ms=(time.perf_counter() - t0) * 1e3,
+                            dictionary_entries=len(vocab["cname"]))
+            out.append(line)
+    finally:
+        X.Executor._postprocess = orig
+    return out, [c.launches for c in counters]
+
+
+# small tables, the same rows on CUDA as on the CPU: every dictionary
+# predicate kind SQL spells (LIKE, ILIKE, CMP with six operators, IN,
+# LENGTH, INTFN, TRYCAST), a chained transform, a transform in ORDER BY,
+# col || 'const' || col, the six pair comparisons, MIN / MAX over TEXT at 50
+# (B1) and 3000 (B3) groups, and TEXT ENCODING NONE under LIKE, a transform
+# and as a GROUP BY key
+STRING_SHAPE_QUERIES = [
+    "SELECT k50, COUNT(*) FROM ss WHERE a LIKE '%an%' GROUP BY k50",
+    "SELECT COUNT(*), SUM(v) FROM ss WHERE a ILIKE 'B%' OR b ILIKE '%É%'",
+    *[f"SELECT COUNT(*) FROM ss WHERE a {op} 'c'" for op in ("=", "<>", "<", "<=", ">", ">=")],
+    "SELECT k50, COUNT(*) FROM ss WHERE a IN ('banana', 'x', '') GROUP BY k50",
+    "SELECT COUNT(*) FROM ss WHERE b NOT IN ('42', 'nope')",
+    "SELECT LENGTH(a) AS la, COUNT(*) FROM ss GROUP BY la",
+    "SELECT k50, SUM(POSITION('a' IN a)), MAX(HASH(b)) FROM ss GROUP BY k50",
+    "SELECT SUM(TRY_CAST(b AS INT)), COUNT(TRY_CAST(b AS DOUBLE)), "
+    "MIN(TRY_CAST(b AS DATE)), MAX(TRY_CAST(b AS DATE)) FROM ss",
+    "SELECT UPPER(REPLACE(SUBSTRING(a, 1, 4), 'a', 'o')) AS t, COUNT(*) FROM ss GROUP BY t",
+    "SELECT a, k3000, v FROM ss WHERE k50 = 7 ORDER BY REVERSE(a) NULLS FIRST, k3000, v "
+    "LIMIT 100",
+    "SELECT a || '-' || b AS ab, COUNT(*) FROM ss GROUP BY ab",
+    *[f"SELECT COUNT(*) FROM ss WHERE a {op} b" for op in ("=", "<>", "<", "<=", ">", ">=")],
+    "SELECT k50, MIN(a), MAX(b), COUNT(*) FROM ss GROUP BY k50",
+    "SELECT k3000, MIN(a), MAX(a) FROM ss GROUP BY k3000",
+    "SELECT COUNT(*) FROM ss WHERE n LIKE 'Cust%7%'",
+    "SELECT UPPER(n) AS u, COUNT(*) FROM ss WHERE k50 < 10 GROUP BY u",
+    "SELECT n, COUNT(*), SUM(v) FROM ss GROUP BY n",
+]
+# the queries whose MIN / MAX must launch B1 (50 groups) and B3 (3000)
+STRING_SHAPE_KERNELS = {"SELECT k50, MIN(a), MAX(b), COUNT(*) FROM ss GROUP BY k50":
+                        "lane_agg",
+                        "SELECT k3000, MIN(a), MAX(a) FROM ss GROUP BY k3000":
+                        "groupby_minmax"}
+SHAPE_WORDS_A = ["banana", "Banana", "apple", "", "cab", "x", "naïve", "Grüße", "ban an",
+                 "c", "abc", "zz"]
+SHAPE_WORDS_B = ["42", "-7", "3.5", "nope", "2024-02-29", "1999-12-31", "", "BÉTA", "c",
+                 "apple", "x"]
+
+
+def run_string_shapes(counters, n: int = 20_000):
+    """STRING_SHAPE_QUERIES on CUDA against the same port on the CPU: the
+    same rows (multisets without ORDER BY; FLOAT sums to float32
+    tolerance), B1 and B3 launched by the MIN / MAX queries at 50 and 3000
+    groups, and the pair_concat_max_entries refusal on both."""
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.errors import NotSupported
+
+    rng = np.random.default_rng(SEED + 5)
+
+    def words(vocab):
+        w = np.array(vocab, object)[rng.integers(0, len(vocab), n)]
+        w[rng.random(n) < 0.03] = None
+        return w
+
+    names = np.array([f"Customer#{i:09d}" for i in rng.integers(1, 500, n)], object)
+    names[rng.random(n) < 0.03] = None
+    cols = {"a": words(SHAPE_WORDS_A), "b": words(SHAPE_WORDS_B), "n": names,
+            "k50": rng.integers(0, 50, n).astype(np.int32),
+            "k3000": rng.integers(0, 3000, n).astype(np.int32),
+            "v": rng.random(n).astype(np.float32)}
+    dbs = [hdt.connect(), hdt.connect(device="cpu")]
+    for db in dbs:
+        db.sql("CREATE TABLE ss (a TEXT, b TEXT, n TEXT ENCODING NONE, k50 INT, k3000 INT, "
+               "v FLOAT)")
+        db.load_table("ss", cols)
+        db.sql("CREATE TABLE cap (a TEXT, b TEXT)")
+        db.sql("INSERT INTO cap VALUES ('p', 'q'), ('r', 's')")
+    rows_out, launched = [], {}
+    for q in STRING_SHAPE_QUERIES:
+        before = [c.launches for c in counters]
+        got, want = (db.sql(q).rows() for db in dbs)
+        delta = dict(zip(KERNEL_NAMES, [c.launches - b for c, b in zip(counters, before)]))
+        if q in STRING_SHAPE_KERNELS:
+            kname = STRING_SHAPE_KERNELS[q]
+            if not delta[kname]:
+                raise AssertionError(f"{q}: {kname} did not launch: {delta}")
+            launched[kname] = delta[kname]
+        if "ORDER BY" not in q:
+            got, want = sorted(got, key=repr), sorted(want, key=repr)
+        if len(got) != len(want):
+            raise AssertionError(f"{q}: {len(got)} rows on CUDA, {len(want)} on the CPU")
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                ok = np.isclose(a, b, **(F32_TOL if "SUM(v)" in q else F64_TOL)) \
+                    if isinstance(b, float) and a is not None else a == b
+                if not ok:
+                    raise AssertionError(f"{q}: {g} on CUDA, {w} on the CPU")
+        rows_out.append(len(got))
+    refused = 0
+    for db in dbs:
+        db.config.pair_concat_max_entries = 3
+        try:
+            db.sql("SELECT a || b FROM cap").rows()
+        except NotSupported:
+            refused += 1
+        finally:
+            db.config.pair_concat_max_entries = 1 << 22
+    if refused != len(dbs):
+        raise AssertionError(f"|| past pair_concat_max_entries: {refused} of "
+                             f"{len(dbs)} engines refused it")
+    return dict(queries=len(STRING_SHAPE_QUERIES), rows=n, rows_out=rows_out,
+                minmax_launches=launched, pair_cap_refused=refused)
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1803,8 +2126,13 @@ def main() -> None:
         emit({"phase": "join_split", **line})
     del dims
     emit({"phase": "join_shapes", **run_join_shapes()})
-    # the kernels line counts the launches of the three main-path phases
-    total = [a + b + c for a, b, c in zip(total, sort_total, join_total)]
+    string_lines, string_total = run_strings(db, counters)
+    for line in string_lines:
+        emit({"phase": "strings", **line})
+    emit({"phase": "string_shapes", **run_string_shapes(counters)})
+    # the kernels line counts the launches of the four main-path phases
+    total = [a + b + c + d for a, b, c, d in zip(total, sort_total, join_total,
+                                                  string_total)]
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db

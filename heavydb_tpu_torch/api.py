@@ -2,8 +2,9 @@
 
 Port of heavydb_tpu/api.py for this slice: `connect`, `Database.sql`
 (SELECT, CREATE TABLE, INSERT VALUES, DROP TABLE), `sql_device`,
-`load_table` and `load_table_device`, plus `load_state`, which rebuilds a
-set of tables from their definitions and physical host columns.
+`load_table` and `load_table_device`, `register_llm_transform`, plus
+`load_state`, which rebuilds a set of tables from their definitions and
+physical host columns.
 
 Every Database carries one explicit torch device.  `connect()` takes CUDA
 unless the caller passes `device="cpu"`; without CUDA and without a device
@@ -72,6 +73,7 @@ class Database:
         self.executor = Executor(self)
         self._views: Dict[str, A.Select] = {}
         self._transient_dicts: Dict[int, object] = {}
+        self._transient_by_key: Dict[tuple, tuple] = {}
         self._next_transient = 0
         # the planner looks table functions up here; none are ported yet
         self._table_functions: Dict[str, object] = {}
@@ -158,9 +160,7 @@ class Database:
                 if vocab is None:
                     raise NotSupported(f"TEXT column {cd.name} needs a "
                                        "dicts={col: vocab} entry")
-                d = t.dicts[cd.col_id]
-                for s in vocab:
-                    d.get_or_add(str(s))
+                t.dicts[cd.col_id].get_or_add_bulk([str(s) for s in vocab])
             elif cd.type.is_array or cd.type.is_none_string or cd.type.is_geo:
                 raise NotSupported(f"load_table_device: column {cd.name}")
             arrays[cd.col_id] = cols[key].to(torch_dtype(cd.type.np_dtype()))
@@ -192,15 +192,31 @@ class Database:
             return self._transient_dicts[col_id]
         return self.catalog.get_table_by_id(table_id).dict_for(col_id)
 
-    def register_transient_dict(self):
-        """Per-query literal-string dictionary (reference
-        StringDictionaryProxy transient ids)."""
+    def register_llm_transform(self, fn) -> None:
+        """Backend of the LLM_TRANSFORM(text, prompt) string op:
+        `fn(text, prompt) -> str`, applied once per distinct dictionary
+        entry."""
+        from heavydb_tpu_torch.storage import string_ops as SO
+
+        SO.set_llm_transform(fn)
+
+    def register_transient_dict(self, key=None):
+        """A transient dictionary (reference StringDictionaryProxy transient
+        ids): a new one for each call without a `key`, as for a query's
+        literal strings; one per key otherwise, so that a transform or pair
+        concatenation bound again reuses its dictionary, and with it the
+        executor's tables and kernels."""
         from heavydb_tpu_torch.storage.string_dict import StringDictionary
 
+        if key is not None and key in self._transient_by_key:
+            ref = self._transient_by_key[key]
+            return ref, self._transient_dicts[ref[1]]
         i = self._next_transient
         self._next_transient += 1
         d = StringDictionary(dict_id=-i - 1)
         self._transient_dicts[i] = d
+        if key is not None:
+            self._transient_by_key[key] = ("$transient", i)
         return ("$transient", i), d
 
     # ------------------------------------------------------------------
@@ -287,7 +303,8 @@ def load_state(db: Database, tables, dicts=None, fragment_size=None) -> None:
 
     tables: [(name, [(col, type_name)], {col: np.ndarray})] — type_name is
     SQL ("INT", "DOUBLE NOT NULL", "TEXT", ...); arrays hold the stored
-    representation (null sentinels, dictionary ids).
+    representation (null sentinels, dictionary ids; the strings and None of
+    a TEXT ENCODING NONE column).
     dicts: {table: {col: [string, ...]}} — each TEXT column's dictionary
     vocabulary in id order, so the stored ids keep their strings.
     fragment_size: rows per fragment for every table (None = default)."""
@@ -306,6 +323,9 @@ def load_state(db: Database, tables, dicts=None, fragment_size=None) -> None:
                 for s in vocab.get(cd.name.lower(), ()):
                     d.get_or_add(str(s))
             key = next(k for k in columns if k.lower() == cd.name.lower())
+            if cd.type.is_none_string:
+                arrays[cd.col_id] = to_physical(columns[key], cd.type)
+                continue
             arrays[cd.col_id] = np.ascontiguousarray(
                 np.asarray(columns[key]).astype(cd.type.np_dtype(), copy=False))
         if arrays and next(iter(arrays.values())).shape[0]:

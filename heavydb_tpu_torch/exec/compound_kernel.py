@@ -157,7 +157,7 @@ class _Domain:
         for e in exprs:
             if e is not None:
                 needed |= {r.field_idx for r in E.collect_input_refs(e)}
-        return ExprCompiler({f: self.field_tv(f) for f in needed},
+        return ExprCompiler({f: self.field_tv(f) for f in needed}, self.aux,
                             self.error_flags, self.device, self.size)
 
     def restrict(self, preds):
@@ -183,7 +183,8 @@ class _Domain:
             base = self.cols[bi][local]
             ti = self.col_types[bi][local]
             cdict[r.field_idx] = (base, derive_valid(base, ti) if ti.nullable else None)
-        val, valid = ExprCompiler(cdict, self.error_flags, self.device, pb).compile(expr)
+        val, valid = ExprCompiler(cdict, self.aux, self.error_flags, self.device,
+                                  pb).compile(expr)
         return _broadcast(val, pb), valid
 
 
@@ -642,7 +643,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
         key_out_tvs = [(segs.resolve(a), segs.resolve(b) if b is not None
                         else None) for a, b in key_out_tvs]
     merge_masked_flags(aflags, mask)
-    agg_tvs = [la.finalize(p) for la, p in zip(lowered, partials)]
+    agg_tvs = [la.finalize(p, kc.aux) for la, p in zip(lowered, partials)]
     if kind == "perfect":
         present = present_counts > 0
     elif kind == "keyless":
@@ -656,7 +657,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
     for j, tv in enumerate(agg_tvs):
         gcols[n_keys + j] = tv
     gflags: Dict[str, torch.Tensor] = {}
-    gcomp = ExprCompiler(gcols, gflags, device, slots)
+    gcomp = ExprCompiler(gcols, kc.aux, gflags, device, slots)
     if node.having is not None:
         present = present & gcomp.compile_predicate(node.having)
     outs = []

@@ -14,11 +14,14 @@ decomposable aggregates (`_stream_plan`, `_exec_compound_streamed`), the
 kernel cache and `_postprocess`; ORDER BY, LIMIT and OFFSET (`_exec_sort`:
 the keyless slice, the full sort, the single-key and packed composite-key
 top-k of `_exec_topk`, and the top-k over fragment waves of
-`_try_stream_topk`).  Torch runs eagerly, so there is no jit and no
-artifact cache; the control scalars of each Compound run still reach the
-host in one read, and a Sort node reads nothing back.  Before a join
-Compound launches, its bytes are held to the card's free memory
-(`_check_join_memory`).
+`_try_stream_topk`); the dictionary-string tables (`_aux_array`: the
+predicate, transform, pair-concatenation, pair-rank, rank and order
+tables, built on the host over dictionary entries) and the scan of TEXT
+ENCODING NONE columns as ids of their table's lazy dictionary.  Torch
+runs eagerly, so there is no jit and no artifact cache; the control
+scalars of each Compound run still reach the host in one read, and a Sort
+node reads nothing back.  Before a join Compound launches, its bytes are
+held to the card's free memory (`_check_join_memory`).
 
 Every tensor lives on the executor's one explicit device.  Window, Union,
 Unnest, the geo join, subqueries that stay subqueries and the hash
@@ -133,8 +136,9 @@ class Executor:
         self.config = db.config
         self.device = db.device
         self.kernel_cache: Dict[tuple, object] = {}
-        # dictionary rank tables of string ORDER BY keys
-        self.aux_cache: Dict[tuple, torch.Tensor] = {}
+        # the device tables of dictionary strings and join translations
+        # (`_aux_array`), by a key that carries their dictionaries' sizes
+        self.aux_cache: Dict[tuple, object] = {}
         budget = self.config.device_cache_bytes
         if budget == 0:
             budget = default_device_budget(self.device)
@@ -218,7 +222,7 @@ class Executor:
                 cols.append(self._put(host, size, T.bigint(nullable=False)))
                 continue
             cd = t.columns[i]
-            if cd.type.is_array or cd.type.is_none_string or cd.type.is_geo:
+            if cd.type.is_array or cd.type.is_geo:
                 raise NotSupported(f"scan of {cd.type.sql_name()} column {cd.name}")
             key = (t.table_id, t.generation, cd.col_id, size, fkey)
             arr = self.scan_cache.get(key)
@@ -237,6 +241,16 @@ class Executor:
                         cat = torch.cat([cat, pad])
                     cols.append(cat)
                     continue
+            if arr is None and cd.type.is_none_string:
+                # TEXT ENCODING NONE scans as ids of the table's lazy
+                # dictionary of this generation (the reference's
+                # StringDictionaryProxy interning at query time)
+                _, ids = t.lazy_text_dict(cd.col_id)
+                use = range(len(t.fragments)) if frags is None else frag_ids
+                host = np.concatenate([ids[int(gstart[f]):int(gstart[f + 1])]
+                                       for f in use] + [np.empty(0, np.int32)])
+                arr = self._put(host, size, T.text_dict(nullable=cd.type.nullable))
+                self.scan_cache[key] = arr
             if arr is None:
                 if frags is None:
                     host = t.column_values(cd.col_id)
@@ -268,19 +282,18 @@ class Executor:
         return m
 
     def _dict_rank_table(self, ref) -> torch.Tensor:
-        """id -> lexicographic rank, for string ORDER BY; built on the host
-        once per dictionary size."""
+        """id -> lexicographic rank, for string ORDER BY keys and MIN / MAX
+        over a dictionary string; built on the host once per dictionary
+        size."""
         d = self.db.dict_by_ref(ref)
-        key = ("rank", ref, d.size)
-        hit = self.aux_cache.get(key)
-        if hit is not None:
-            return hit
-        host = np.zeros(B.bucket(max(d.size, 1)), np.int32)
-        order = np.argsort(np.array(d.entries(), dtype=object))
-        host[order.astype(np.int32)] = np.arange(len(order), dtype=np.int32)
-        arr = torch.from_numpy(host).to(self.device)
-        self.aux_cache[key] = arr
-        return arr
+
+        def make():
+            host = np.zeros(B.bucket(max(d.size, 1)), np.int32)
+            order = np.argsort(np.array(d.entries(), dtype=object))
+            host[order.astype(np.int32)] = np.arange(len(order), dtype=np.int32)
+            return host
+
+        return self._cached(("rank", ref, d.size), make)
 
     def _exec_sort(self, node: R.Sort, memo) -> B.Batch:
         child = node.inputs[0]
@@ -848,11 +861,13 @@ class Executor:
 
     def _probe_count(self, batch, offset: int, conjs) -> Optional[int]:
         """Rows of `batch` passing every conjunct (each over this input's
-        fields only); None for a conjunct it cannot count here."""
+        fields only), with the dictionary-string tables they read; None for
+        a conjunct it cannot count here."""
         for c in conjs:
             if any(isinstance(s, (E.SubqueryExpr, E.Agg, E.WindowFunc))
                    for s in E.walk(c)):
                 return None
+        specs = _string_aux_specs(conjs)
         fields = sorted({r.field_idx for c in conjs for r in E.collect_input_refs(c)})
         cdict = {}
         for f in fields:
@@ -861,7 +876,8 @@ class Executor:
                 return None
             v, ti = batch.cols[local], batch.types[local]
             cdict[f] = (v, derive_valid(v, ti) if ti.nullable else None)
-        comp = ExprCompiler(cdict, {}, self.device, batch.padded)
+        comp = ExprCompiler(cdict, self._aux_tables(specs, list(specs)), None,
+                            self.device, batch.padded)
         m = self._in_domain(batch.padded, batch.nrows)
         try:
             for c in conjs:
@@ -901,8 +917,18 @@ class Executor:
         return keep
 
     def _simple_qual(self, c, scan: R.Scan, offset: int = 0):
-        """col <cmp> const over this scan's columns -> (col_id, op, value)."""
+        """col <cmp> const over this scan's columns -> (col_id, op, value);
+        a dictionary string `col = 'lit'` compares the literal's id."""
         flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "="}
+        if isinstance(c, E.DictStrPredicate) and c.kind == "CMP" \
+                and c.cmp_op == "=" and not c.negated \
+                and isinstance(c.arg, E.InputRef):
+            local = c.arg.field_idx - offset
+            if 0 <= local < len(scan.table.columns) and c.dict_ref is not None:
+                cd = scan.table.columns[local]
+                if (scan.table.table_id, cd.col_id) == c.dict_ref:
+                    return (cd.col_id, "=", self.db.dict_by_ref(c.dict_ref).get_id(c.pattern))
+            return None
         if not isinstance(c, E.BinOp) or c.op not in E.COMPARISON_OPS \
                 or c.op == E.BinOpKind.NE:
             return None
@@ -992,6 +1018,7 @@ class Executor:
         elif node.is_aggregate:
             plan.group_strategy = ("keyless", None)
             plan.group_cap = 1
+        plan.aux_specs.update(_string_aux_specs(_iter_node_exprs(node)))
         return plan
 
     def _split_filter(self, node: R.Compound, offsets, plan) -> None:
@@ -1156,25 +1183,170 @@ class Executor:
                 args.append(batches[bi].cols[ci])
         for bi in layout.nrows_batches:
             args.append(int(batches[bi].nrows))
-        args.extend(self._aux_array(plan.aux_specs[k]) for k in layout.aux_order)
+        aux = self._aux_tables(plan.aux_specs, layout.aux_order)
+        args.extend(aux[k] for k in layout.aux_order)
         return args
 
-    def _aux_array(self, spec) -> torch.Tensor:
-        """Device tables a kernel reads beside its columns: a join key's
-        dictionary translation (build dictionary id -> probe dictionary id,
-        -1 for a string the probe's dictionary lacks)."""
-        kind, (from_ref, to_ref) = spec
-        if kind != "translate":
+    # ---- aux tables ----
+    def _aux_tables(self, specs, order) -> dict:
+        """The device table of each aux key in `order`.  Pair concats, then
+        transforms, are built first: they fill the transient dictionaries
+        that the other tables over their outputs read."""
+        out = {}
+        for stage in ("pairconcat", "strtransform"):
+            for k in order:
+                if specs[k][0] == stage:
+                    out[k] = self._aux_array(specs[k])
+        for k in order:
+            if k not in out:
+                out[k] = self._aux_array(specs[k])
+        return out
+
+    def _aux_array(self, spec):
+        """Device tables a kernel reads beside its columns, built on the
+        host over dictionary entries and copied to the device once per cache
+        key (each key carries the sizes of the dictionaries it reads):
+          strpred       a bool match table a dictionary id (LIKE, ILIKE,
+                        REGEXP, CMP, IN), or its value (LENGTH, INTFN,
+                        TRYCAST; the type's null sentinel or NaN where NULL)
+          strtransform  id -> id of the transformed string in the
+                        transform's transient dictionary (INT32_MIN: NULL)
+          pairconcat    (left id, right id) -> id of the concatenation in
+                        its transient dictionary
+          pairrank      (left, right): id -> rank in the sorted union of
+                        both sides' (transformed) entries
+          dictrank      id -> lexicographic rank; dictorder: rank -> id
+          translate     a join key's build dictionary id -> probe
+                        dictionary id (-1 for a string the probe lacks)"""
+        kind, payload = spec
+        build = {"strpred": self._strpred_table,
+                 "strtransform": self._transform_table,
+                 "pairconcat": self._pair_concat_table,
+                 "pairrank": self._pair_rank_tables,
+                 "dictrank": self._dict_rank_table,
+                 "dictorder": self._dict_order_table,
+                 "translate": self._translate_table}.get(kind)
+        if build is None:
             raise NotSupported(f"aux {kind}")
-        fd = self.db.dict_by_ref(from_ref)
-        td = self.db.dict_by_ref(to_ref)
-        key = ("translate", from_ref, to_ref, fd.size, td.size)
+        return build(payload)
+
+    def _cached(self, key, make):
+        """aux_cache[key], made on the host by make() and copied to the
+        device (a tuple of tables copies each) on a miss."""
         hit = self.aux_cache.get(key)
         if hit is None:
+            host = make()
+            if isinstance(host, tuple):
+                hit = tuple(torch.from_numpy(h).to(self.device) for h in host)
+            else:
+                hit = torch.from_numpy(host).to(self.device)
+            self.aux_cache[key] = hit
+        return hit
+
+    def _strpred_table(self, pred: E.DictStrPredicate):
+        d = self.db.dict_by_ref(pred.dict_ref)
+        return self._cached(("strpred", pred.dict_ref, d.size, pred.key()),
+                            lambda: _strpred_host(pred, d))
+
+    def _transform_table(self, tr: E.StringTransform):
+        from heavydb_tpu_torch.storage.string_ops import apply_chain
+
+        src = self.db.dict_by_ref(tr.src_dict_ref)
+        dst = self.db.dict_by_ref(tr.dict_ref)
+
+        def make():
+            entries = src.entries()
+            ids = dst.get_or_add_bulk([apply_chain(s, tr.ops) for s in entries])
+            host = np.full(B.bucket(max(len(entries), 1)), _I32_MIN, np.int32)
+            host[:len(ids)] = ids
+            return host
+
+        return self._cached(("strtransform", tr.src_dict_ref, src.size, tr.ops,
+                             tr.dict_ref), make)
+
+    def _pair_concat_table(self, e: E.StringPairConcat):
+        from heavydb_tpu_torch.storage.string_ops import apply_chain
+
+        # a side that is itself a pair concat reads that pair's output
+        # dictionary: fill it first
+        for side in (e.left, e.right):
+            if isinstance(side, E.StringPairConcat):
+                self._pair_concat_table(side)
+        ld = self.db.dict_by_ref(e.left_ref)
+        rd = self.db.dict_by_ref(e.right_ref)
+        cap = self.config.pair_concat_max_entries
+        if ld.size * rd.size > cap:
+            raise NotSupported(
+                f"|| between dictionary columns with {ld.size}x{rd.size} entries "
+                f"(dense pairwise translation table cap {cap})")
+
+        def make():
+            les = [apply_chain(s, e.left_ops) for s in ld.entries()]
+            res = [apply_chain(s, e.right_ops) for s in rd.entries()]
+            host = np.full((B.bucket(max(len(les), 1)), B.bucket(max(len(res), 1))),
+                           _I32_MIN, np.int32)
+            strs, pos = [], []
+            for i, a in enumerate(les):
+                if a is None:
+                    continue
+                for j, b in enumerate(res):
+                    if b is not None:
+                        strs.append(a + b)
+                        pos.append(i * len(res) + j)
+            if strs:
+                flat = np.full(len(les) * len(res), _I32_MIN, np.int32)
+                flat[np.asarray(pos)] = self.db.dict_by_ref(e.dict_ref).get_or_add_bulk(strs)
+                host[:len(les), :len(res)] = flat.reshape(len(les), len(res))
+            return host
+
+        return self._cached(("pairconcat", e.left_ref, ld.size, e.left_ops, e.right_ref,
+                             rd.size, e.right_ops, e.dict_ref), make)
+
+    def _pair_rank_tables(self, e: E.DictPairCompare):
+        from heavydb_tpu_torch.storage.string_ops import apply_chain
+
+        ld = self.db.dict_by_ref(e.left_ref)
+        rd = self.db.dict_by_ref(e.right_ref)
+
+        def make():
+            les = [apply_chain(s, e.left_ops) for s in ld.entries()]
+            res = [apply_chain(s, e.right_ops) for s in rd.entries()]
+            rank_of = {s: i for i, s in enumerate(sorted(
+                {s for s in les + res if s is not None}))}
+            tables = []
+            for side in (les, res):
+                t = np.full(B.bucket(max(len(side), 1)), _I32_MIN, np.int32)
+                for i, s in enumerate(side):
+                    if s is not None:
+                        t[i] = rank_of[s]
+                tables.append(t)
+            return tuple(tables)
+
+        return self._cached(("pairrank", e.left_ref, ld.size, e.left_ops, e.right_ref,
+                             rd.size, e.right_ops), make)
+
+    def _dict_order_table(self, ref):
+        d = self.db.dict_by_ref(ref)
+
+        def make():
+            host = np.zeros(B.bucket(max(d.size, 1)), np.int32)
+            order = np.argsort(np.array(d.entries(), dtype=object))
+            host[:len(order)] = order.astype(np.int32)
+            return host
+
+        return self._cached(("order", ref, d.size), make)
+
+    def _translate_table(self, refs):
+        from_ref, to_ref = refs
+        fd = self.db.dict_by_ref(from_ref)
+        td = self.db.dict_by_ref(to_ref)
+
+        def make():
             host = np.full(B.bucket(max(fd.size, 1)), -1, np.int32)
             host[:fd.size] = fd.translation_to(td)
-            hit = self.aux_cache[key] = torch.from_numpy(host).to(self.device)
-        return hit
+            return host
+
+        return self._cached(("translate", from_ref, to_ref, fd.size, td.size), make)
 
     def _postprocess(self, node, plan, outs) -> Optional[B.Batch]:
         d = outs
@@ -1343,6 +1515,110 @@ def _hash_pack_spec(group_exprs, ranges):
 
 # a join domain's row indices are int32
 _MAX_JOIN_DOMAIN = (1 << 31) - 1
+
+# a NULL dictionary id in a transform or pair table
+_I32_MIN = int(np.iinfo(np.int32).min)
+
+
+def _string_aux_specs(exprs) -> dict:
+    """aux key -> spec of every dictionary-string table the expressions
+    read (the reference's `_plan_compound` aux specs): a predicate's table,
+    a transform's, a pair concat's, a pair comparison's rank tables, and
+    the rank and order tables of a MIN / MAX over a dictionary string."""
+    specs = {}
+    kinds = ((E.DictStrPredicate, "strpred"), (E.StringTransform, "strtransform"),
+             (E.StringPairConcat, "pairconcat"), (E.DictPairCompare, "pairrank"))
+    for e in exprs:
+        for sub in E.walk(e):
+            for cls, kind in kinds:
+                if isinstance(sub, cls):
+                    specs.setdefault(sub.key(), (kind, sub))
+            if isinstance(sub, E.Agg) and sub.kind in (E.AggKind.MIN, E.AggKind.MAX) \
+                    and sub.arg is not None and sub.arg.type.is_dict_string:
+                ref = getattr(sub.arg, "dict_ref", None)
+                if ref is not None:
+                    specs.setdefault(("dictrank", ref), ("dictrank", ref))
+                    specs.setdefault(("dictorder", ref), ("dictorder", ref))
+    return specs
+
+
+def _strpred_host(pred: E.DictStrPredicate, d) -> np.ndarray:
+    """A predicate's host table over the entries of dictionary d, padded
+    to the bucket of its size: bool matches (LIKE, ILIKE, REGEXP, CMP, IN)
+    or values (LENGTH; INTFN and TRYCAST with the null sentinel, or NaN,
+    where the entry gives NULL)."""
+    import json
+
+    padded = B.bucket(max(d.size, 1))
+    if pred.kind == "LENGTH":
+        host = np.zeros(padded, np.int32)
+        host[:d.size] = [len(s) for s in d.entries()]
+        return host
+    if pred.kind == "TRYCAST":
+        return _try_cast_host(pred, d, padded)
+    if pred.kind == "INTFN":
+        from heavydb_tpu_torch.storage.string_ops import int_string_fn
+
+        args = tuple(json.loads(pred.pattern))
+        sentinel = pred.type.null_sentinel()
+        host = np.zeros(padded, pred.type.np_dtype())
+        for i, s in enumerate(d.entries()):
+            v = int_string_fn(s, pred.cmp_op, args)
+            host[i] = sentinel if v is None else v
+        return host
+    if pred.kind in ("LIKE", "ILIKE"):
+        ids = d.like_ids(pred.pattern, pred.escape, pred.kind == "ILIKE")
+    elif pred.kind == "REGEXP":
+        ids = d.regexp_ids(pred.pattern)
+    elif pred.kind == "CMP":
+        ids = d.compare_ids(pred.cmp_op, pred.pattern)
+    elif pred.kind == "IN":
+        pats = pred.pattern.split("\x00") if pred.pattern else []
+        ids = np.array([i for i in (d.get_id(p) for p in pats) if i >= 0], np.int32)
+    else:
+        raise NotSupported(f"dict predicate {pred.kind}")
+    host = np.zeros(padded, bool)
+    host[ids] = True
+    return host
+
+
+def _try_cast_host(pred: E.DictStrPredicate, d, padded: int) -> np.ndarray:
+    """TRY_CAST(text AS type) of each entry: the value, or the type's null
+    sentinel (NaN for a float) where it does not parse.  DATE, TIMESTAMP
+    and TIME parse as ISO text (the reference's TryStringCast ->
+    StringToDatum); numbers as a float, then rounded to the type."""
+    import json
+
+    from heavydb_tpu_torch.plan.builder import _const_cast
+
+    _, scale = json.loads(pred.pattern)
+    ti = pred.type
+    dt = ti.np_dtype()
+    host = np.full(padded, ti.null_sentinel(), dt)
+    if ti.kind in (T.SQLTypeKind.DATE, T.SQLTypeKind.TIMESTAMP, T.SQLTypeKind.TIME):
+        for i, entry in enumerate(d.entries()):
+            try:
+                v = _const_cast(entry, T.text_none(), ti)
+            except (ValueError, OverflowError):  # no such date or time: NULL
+                continue
+            if v is not None:
+                host[i] = v
+        return host
+    for i, entry in enumerate(d.entries()):
+        try:
+            v = float(entry.strip())
+        except ValueError:
+            continue
+        if dt.kind == "f":
+            host[i] = v
+            continue
+        if ti.is_decimal:
+            v = round(v * 10**scale)
+        if abs(v - round(v)) < 1e-9 or ti.is_decimal:
+            iv = int(round(v))
+            if np.iinfo(dt).min < iv <= np.iinfo(dt).max:
+                host[i] = iv
+    return host
 
 
 def _build_form(jp: _JoinPlan, build_padded: int) -> str:

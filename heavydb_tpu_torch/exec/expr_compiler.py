@@ -11,8 +11,13 @@ Value representation: TV = (val, valid) where
 Null storage is in-band sentinels; three-valued AND/OR matches SQL.
 
 Dispatch is on `_c_<ExprType>`; a type without a method raises
-NotSupported.  This slice leaves out the dictionary-string, geo, array and
-subquery constructs.
+NotSupported.  The geo, array and subquery constructs are left out.
+
+Dictionary strings are int32 ids on the device.  Their predicates,
+transforms, pairwise concatenations and pairwise comparisons read tables
+the executor builds on the host over the dictionary entries (the `aux`
+mapping, exec/executor.py `_aux_array`); here each is a clamped index into
+its table.
 """
 
 from __future__ import annotations
@@ -28,6 +33,9 @@ from heavydb_tpu_torch.ops.groupby import torch_dtype
 from heavydb_tpu_torch.plan import exprs as E
 
 TV = Tuple[object, Optional[object]]  # (val, valid)
+
+# a dictionary id that is NULL: a transform's NULL result, a missing pair
+_I32_MIN = int(np.iinfo(np.int32).min)
 
 
 def and_valid(a, b):
@@ -63,11 +71,14 @@ class ExprCompiler:
 
     cols: field_idx -> (val, valid) — pre-derived column TVs over a domain
     of `domain_size` rows on `device`
+    aux:  aux key -> device table (or a pair of tables) of the dictionary
+    string expressions
     """
 
-    def __init__(self, cols: Dict[int, TV], error_flags=None, device="cpu",
-                 domain_size: int = 0):
+    def __init__(self, cols: Dict[int, TV], aux=None, error_flags=None,
+                 device="cpu", domain_size: int = 0):
         self.cols = cols
+        self.aux = aux if aux is not None else {}
         # error flags: name -> bool tensor (div-by-zero etc.)
         self.error_flags = error_flags if error_flags is not None else {}
         self.device = torch.device(device)
@@ -268,6 +279,61 @@ class ExprCompiler:
         if e.negated:
             res = ~res
         return res, valid
+
+    # ---- dictionary strings: gathers from host-built tables (each holds
+    # at least one entry, exec/batch.bucket) ----
+    def _c_DictStrPredicate(self, e: E.DictStrPredicate) -> TV:
+        ids, valid = self.compile(e.arg)
+        aux = self.aux[e.key()]
+        n = aux.shape[0]
+        out = aux[ids.clamp(0, n - 1).to(torch.int64)]
+        if e.kind == "LENGTH":
+            return out, valid
+        if e.kind == "INTFN":
+            # a NULL result (HASH('') ...) is stored as the null sentinel
+            return out, and_valid(valid, out != e.type.null_sentinel())
+        if e.kind == "TRYCAST":
+            if out.is_floating_point():
+                ok = ~torch.isnan(out)
+            else:
+                ok = out != e.type.null_sentinel()
+            return out, and_valid(valid, ok & (ids >= 0))
+        # a bool match table a dictionary id; a NULL (negative) id is False
+        res = out & (ids >= 0) & (ids < n)
+        if e.negated:
+            res = ~res
+        return res, valid
+
+    def _c_StringTransform(self, e: E.StringTransform) -> TV:
+        ids, valid = self.compile(e.arg)
+        tbl = self.aux[e.key()]  # id -> transformed dictionary id
+        n = tbl.shape[0]
+        safe = ids.clamp(0, n - 1).to(torch.int64)
+        out = torch.where((ids >= 0) & (ids < n), tbl[safe], _I32_MIN)
+        # an op may give NULL (SPLIT_PART out of range): the table's sentinel
+        return out, and_valid(valid, out != _I32_MIN)
+
+    def _c_StringPairConcat(self, e: E.StringPairConcat) -> TV:
+        idl, vl = self.compile(e.left)
+        idr, vr = self.compile(e.right)
+        tbl = self.aux[e.key()]  # (L, R) pair table -> output dictionary ids
+        nl, nr = tbl.shape
+        sl = idl.clamp(0, nl - 1).to(torch.int64)
+        sr = idr.clamp(0, nr - 1).to(torch.int64)
+        ok = (idl >= 0) & (idl < nl) & (idr >= 0) & (idr < nr)
+        out = torch.where(ok, tbl[sl, sr], _I32_MIN)
+        return out, and_valid(and_valid(vl, vr), out != _I32_MIN)
+
+    def _c_DictPairCompare(self, e: E.DictPairCompare) -> TV:
+        idl, vl = self.compile(e.left)
+        idr, vr = self.compile(e.right)
+        rl_tbl, rr_tbl = self.aux[e.key()]  # id -> rank in the merged order
+        rl = rl_tbl[idl.clamp(0, rl_tbl.shape[0] - 1).to(torch.int64)]
+        rr = rr_tbl[idr.clamp(0, rr_tbl.shape[0] - 1).to(torch.int64)]
+        ok = (idl >= 0) & (idr >= 0) & (rl != _I32_MIN) & (rr != _I32_MIN)
+        fn = {"<": torch.lt, "<=": torch.le, ">": torch.gt, ">=": torch.ge,
+              "=": torch.eq, "<>": torch.ne}[e.op]
+        return fn(rl, rr), and_valid(and_valid(vl, vr), ok)
 
     def _c_Extract(self, e: E.Extract) -> TV:
         val, valid = self.compile(e.operand)

@@ -190,8 +190,6 @@ class LoweredAgg:
             raise NotSupported("DISTINCT aggregates")
         if k not in _SUPPORTED:
             raise NotSupported(f"aggregate {k}")
-        if self._dict_ref() is not None and k in (A.MIN, A.MAX):
-            raise NotSupported("MIN/MAX over dictionary strings")
         arg_tv, cm = _arg_and_mask(self, compiler, mask)
         if cm is None:
             cm = torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
@@ -205,6 +203,14 @@ class LoweredAgg:
             }
         if k in (A.MIN, A.MAX, A.SAMPLE, A.SINGLE_VALUE):
             is_min = k == A.MIN
+            dref = self._dict_ref()
+            if dref is not None and k in (A.MIN, A.MAX):
+                # dictionary strings order by their lexicographic rank, an
+                # int32 stream for the min / max kernels; finalize maps the
+                # rank back to an id
+                rank = compiler.aux[("dictrank", dref)]
+                safe = val.clamp(0, rank.shape[0] - 1).to(torch.int64)
+                val = torch.where(val >= 0, rank[safe], 0).to(torch.int32)
             return {
                 "min" if is_min else "max":
                     segs.segment_minmax(gid, val, cm, num_slots, is_min),
@@ -229,9 +235,18 @@ class LoweredAgg:
             return getattr(self.agg.arg, "dict_ref", None)
         return None
 
-    def finalize(self, partials: Dict[str, object]) -> TV:
+    def finalize(self, partials: Dict[str, object], aux=None) -> TV:
+        """(values, valid) per slot; `aux` holds the `dictorder` table of a
+        MIN / MAX over a dictionary string (rank -> id)."""
         k = self.kind
         A = E.AggKind
+        dref = self._dict_ref()
+        if dref is not None and k in (A.MIN, A.MAX):
+            order = aux[("dictorder", dref)]
+            rank = partials["min" if k == A.MIN else "max"]
+            safe = rank.clamp(0, order.shape[0] - 1).to(torch.int64)
+            ids = torch.where((rank >= 0) & (rank < order.shape[0]), order[safe], 0)
+            return ids.to(torch.int32), partials["count"] > 0
         if k in (A.COUNT, A.COUNT_IF):
             return partials["count"], None
         if k in (A.SUM, A.SUM_IF):

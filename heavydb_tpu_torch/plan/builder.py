@@ -1523,7 +1523,8 @@ class ExprBinder:
         ra, rops, rref = side(r)
         if lref is None or rref is None:
             raise NotSupported("|| between computed string expressions")
-        ref, _ = self.db.register_transient_dict()
+        ref, _ = self.db.register_transient_dict(
+            _transient_key("pair", (lref, rref), (lops, rops)))
         return E.StringPairConcat(
             left=la, right=ra, left_ops=lops, right_ops=rops,
             left_ref=lref, right_ref=rref, dict_ref=ref,
@@ -1549,16 +1550,19 @@ class ExprBinder:
 
     def _extend_transform(self, arg: E.Expr, op: tuple) -> E.Expr:
         if isinstance(arg, E.StringTransform):
-            ref, _ = self.db.register_transient_dict()
+            ops = arg.ops + (op,)
+            ref, _ = self.db.register_transient_dict(
+                _transient_key("transform", (arg.src_dict_ref,), (ops,)))
             return E.StringTransform(
-                arg=arg.arg, ops=arg.ops + (op,),
+                arg=arg.arg, ops=ops,
                 src_dict_ref=arg.src_dict_ref, dict_ref=ref,
                 type=T.text_dict(nullable=arg.type.nullable),
             )
         src_ref = getattr(arg, "dict_ref", None)
         if src_ref is None:
             raise NotSupported("string function on computed string expression")
-        ref, _ = self.db.register_transient_dict()
+        ref, _ = self.db.register_transient_dict(
+            _transient_key("transform", (src_ref,), ((op,),)))
         return E.StringTransform(
             arg=arg, ops=(op,), src_dict_ref=src_ref, dict_ref=ref,
             type=T.text_dict(nullable=arg.type.nullable),
@@ -1742,6 +1746,17 @@ def _host_str_cmp(op, a, b):
         "=": operator.eq, "<>": operator.ne, "<": operator.lt,
         "<=": operator.le, ">": operator.gt, ">=": operator.ge,
     }[op](a, b)
+
+
+def _transient_key(kind: str, refs: tuple, chains: tuple):
+    """The key of a transform's or pair concatenation's transient output
+    dictionary: its source dictionaries and their op chains, whose strings
+    are the same in every query.  None (a new dictionary each time) for a
+    chain with LLM_TRANSFORM, whose registered backend may change between
+    queries."""
+    if any(name == "LLM_TRANSFORM" for ops in chains for name, _ in ops):
+        return None
+    return (kind, refs, chains)
 
 
 def _const_cast(value, src: T.TypeInfo, dst: T.TypeInfo):

@@ -6,9 +6,11 @@
 Loads the synthetic benchmark's schema (tools/synthetic.py: uniform INT
 columns x10 .. x10m, sparse BIGINT columns x10k_s10k and x1m_s10k, a FLOAT
 column v, random from a seed) on the CUDA device, runs each
-query (the group-by QUERIES, the ORDER BY SORT_QUERIES and the join +
-GROUP BY JOIN_QUERIES of tools/synthetic.py, whose dimension tables
-`load_dims` adds when one of them runs) warm under torch.profiler, and prints one JSON line per query: the
+query (the group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP
+BY JOIN_QUERIES and the dictionary-string STRING_QUERIES of
+tools/synthetic.py, whose dimension tables `load_dims` and whose `lstr`
+table `load_strings` add when one of them runs) warm under
+torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
 profiled run, the device's idle share (1 - busy / median wall), and the
@@ -28,9 +30,10 @@ import torch
 
 from heavydb_tpu_torch.config import Config
 from heavydb_tpu_torch.tools.synthetic import (FRAGMENT_ROWS, JOIN_QUERIES, QUERIES,
-                                               SORT_QUERIES, load_bench, load_dims)
+                                               SORT_QUERIES, STRING_QUERIES, load_bench,
+                                               load_dims, load_strings)
 
-ALL_QUERIES = {**QUERIES, **SORT_QUERIES, **JOIN_QUERIES}
+ALL_QUERIES = {**QUERIES, **SORT_QUERIES, **JOIN_QUERIES, **STRING_QUERIES}
 
 
 def _device_us(evt) -> float:
@@ -100,6 +103,8 @@ def main(argv=None) -> None:
     load_bench(db, args.rows, args.seed, args.fragment_rows)
     if set(args.queries) & set(JOIN_QUERIES):
         load_dims(db, args.seed + 1)
+    if set(args.queries) & set(STRING_QUERIES):
+        load_strings(db, args.rows, args.seed + 4, args.fragment_rows)
     card = torch.cuda.get_device_name(0)
     for name in args.queries:
         sql = ALL_QUERIES[name]

@@ -1,7 +1,8 @@
 """The on-card workload shared by `chip_smoke.py` and `profile_queries`:
 the synthetic benchmark's schema, the SELECTs of the port's slices (the
-group-by QUERIES, the ORDER BY SORT_QUERIES and the join + GROUP BY
-JOIN_QUERIES) and the loaders that build the tables on the device.
+group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP BY
+JOIN_QUERIES and the dictionary-string STRING_QUERIES) and the loaders that
+build the tables on the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
@@ -14,6 +15,15 @@ config 3's dimension (bench.py:321-325: k = 1..1000, nm uniform in 0..49);
 1..10^7, g uniform in 1..1000); `sdim (k, w)`, the sparse keys of
 x1m_s10k (k a permutation of (1..10^6) x 10^4, w uniform in [0, 1));
 `multi (k, w)`, keys 1..500 three times each (a 1:3 fan-out).
+
+The string queries' table (`load_strings`): `lstr`, rows of TPC-H
+lineitem's shape with part and customer attributes added to each row,
+over the TPC-H specification's vocabularies (v3, 4.2.2.13 and 4.2.3):
+`shipmode` (the 7 l_shipmode values), `shipinstruct` (the 4
+l_shipinstruct values), `ptype` (the 150 p_type values, 6 x 5 x 5
+syllables), `cname` (`Customer#%09d`, the c_name form, 10^6 entries); each
+TEXT column uniform over its vocabulary with 1 % NULL; `x10`, `x100`,
+`x1k` INT uniform as in `bench`; `v FLOAT`.
 """
 
 from __future__ import annotations
@@ -90,6 +100,72 @@ JOIN_QUERIES = {
                    "EXISTS (SELECT 1 FROM dim1k d WHERE d.k = b.x1k AND d.nm < 5) "
                    "GROUP BY b.x10",
 }
+
+
+# dictionary-string predicates, transforms, pair concatenations and
+# comparisons and MIN / MAX over `lstr` (load_strings), one query a path
+STRING_QUERIES = {
+    # CMP =: a 7-entry bool table, one gather a row; B1 at 10 slots
+    "STR_EQ": "SELECT x10, COUNT(*), SUM(v) FROM lstr WHERE shipmode = 'AIR' GROUP BY x10",
+    # the TPC-H Q12 filter: IN and a negated CMP; a dictionary group key
+    "STR_IN": "SELECT shipmode, COUNT(*), SUM(v) FROM lstr WHERE shipmode IN ('MAIL', "
+              "'SHIP') AND shipinstruct <> 'NONE' GROUP BY shipmode",
+    # the TPC-H Q14 filter over 150 entries; B1 at 100 slots
+    "STR_LIKE": "SELECT x100, COUNT(*), SUM(v) FROM lstr WHERE ptype LIKE 'PROMO%' "
+                "GROUP BY x100",
+    # the rank and order tables; MIN and MAX over int32 ranks at 1000 slots
+    "STR_MINMAX": "SELECT x1k, MIN(ptype), MAX(ptype), COUNT(*) FROM lstr GROUP BY x1k",
+    # a transform into a transient dictionary: a key with no range
+    "STR_TRANSFORM": "SELECT SUBSTRING(ptype, 1, 5) AS p, COUNT(*), SUM(v) FROM lstr "
+                     "GROUP BY p",
+    # a 7 x 4 pair table and the pair ranks in one filter
+    "STR_PAIR": "SELECT x10, COUNT(*) FROM lstr WHERE shipmode || shipinstruct = "
+                "'AIRNONE' OR shipmode < shipinstruct GROUP BY x10",
+    # a host scan of a 10^6-entry dictionary
+    "STR_LIKE_1M": "SELECT COUNT(*), SUM(v) FROM lstr WHERE cname LIKE '%7777%'",
+}
+
+SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
+SHIPINSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
+P_TYPE_SYLLABLES = (["STANDARD", "SMALL", "MEDIUM", "LARGE", "ECONOMY", "PROMO"],
+                    ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"],
+                    ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"])
+CUSTOMERS = 1_000_000
+STRING_NULL_SHARE = 0.01
+
+
+def string_vocabularies(customers: int = CUSTOMERS) -> Dict[str, list]:
+    """Each TEXT column of `lstr` -> its vocabulary, in dictionary id order."""
+    a, b, c = P_TYPE_SYLLABLES
+    return {"shipmode": list(SHIPMODES), "shipinstruct": list(SHIPINSTRUCTS),
+            "ptype": [f"{x} {y} {z}" for x in a for y in b for z in c],
+            "cname": [f"Customer#{i:09d}" for i in range(1, customers + 1)]}
+
+
+def load_strings(db, n: int, seed: int, fragment_rows: int = FRAGMENT_ROWS,
+                 customers: int = CUSTOMERS):
+    """CREATE TABLE lstr and load `n` random rows made on db's device from
+    `seed`; returns (the device columns, each TEXT column's vocabulary).
+    A NULL TEXT value is the id INT32_MIN."""
+    gen = torch.Generator(device=db.device)
+    gen.manual_seed(seed)
+    dev = db.device
+    vocab = string_vocabularies(customers)
+    null = torch.iinfo(torch.int32).min
+    data = {}
+    for c, words in vocab.items():
+        ids = torch.randint(0, len(words), (n,), dtype=torch.int32, device=dev,
+                            generator=gen)
+        nulls = torch.rand(n, device=dev, generator=gen) < STRING_NULL_SHARE
+        data[c] = torch.where(nulls, null, ids)
+    for c, k in (("x10", 10), ("x100", 100), ("x1k", 1000)):
+        data[c] = torch.randint(1, k + 1, (n,), dtype=torch.int32, device=dev,
+                                generator=gen)
+    data["v"] = torch.rand(n, dtype=torch.float32, device=dev, generator=gen)
+    db.sql("CREATE TABLE lstr (shipmode TEXT, shipinstruct TEXT, ptype TEXT, cname TEXT, "
+           f"x10 INT, x100 INT, x1k INT, v FLOAT) WITH (fragment_size={fragment_rows})")
+    db.load_table_device("lstr", data, dicts=vocab)
+    return data, vocab
 
 
 def load_bench(db, n: int, seed: int,

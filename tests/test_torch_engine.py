@@ -25,6 +25,14 @@ from heavydb_tpu_torch.sql.parser import parse_many
 N_ROWS = 20_000
 
 
+def _type_name(ti):
+    """A column's type as CREATE TABLE takes it (the type's name leaves out
+    TEXT's ENCODING NONE)."""
+    if ti.is_none_string:
+        return str(ti).replace("TEXT", "TEXT ENCODING NONE", 1)
+    return str(ti)
+
+
 def _copy_state(ref_db, names, fragment_size=None):
     """Read table definitions, physical columns and dictionaries off the
     reference catalog and rebuild them in a port Database."""
@@ -33,7 +41,7 @@ def _copy_state(ref_db, names, fragment_size=None):
         t = ref_db.catalog.get_table(name)
         tables.append((
             name,
-            [(cd.name, str(cd.type)) for cd in t.columns],
+            [(cd.name, _type_name(cd.type)) for cd in t.columns],
             {cd.name: np.asarray(t.column_values(cd.col_id)) for cd in t.columns},
         ))
         dicts[name] = {cd.name: list(t.dicts[cd.col_id].entries())
