@@ -67,6 +67,30 @@ printing JSON lines:
            with a residual, TEXT keys of two dictionaries and a projection
            in ORDER BY order on small tables: the same rows on CUDA as on
            the CPU
+  subq     the subquery and set-operation queries of tools/synthetic.py
+           SUBQ_QUERIES on the same tables: a scalar subquery in HAVING,
+           TPC-H Q18's IN over a radix-tier GROUP BY (its IN list's size and
+           host copy time), NOT IN, UNION ALL, INTERSECT and ROLLUP; each
+           equal to numpy, with its warm ms, the tier of each Compound, join
+           builds, peak device bytes and kernel launches (counted from 0 for
+           this phase)
+  set_shapes  nested IN, EXISTS / NOT EXISTS, a scalar subquery with no row
+           and with two (an error), NOT IN over a NULL, IN and UNION across
+           two dictionaries, INT with BIGINT and FLOAT under UNION ALL,
+           INTERSECT / EXCEPT with NULL rows, CUBE, GROUPING SETS, a CTE read
+           twice, ANY / ALL, scalar subqueries in the select list and a join
+           filter on 20,000-row tables: the same rows on CUDA as on the CPU
+  distinct the DISTINCT_QUERIES of tools/synthetic.py on bench: COUNT
+           (DISTINCT) on its hash form (the hash group-by on; its claim
+           rounds) and its sorted form, SUM / AVG (DISTINCT),
+           APPROX_COUNT_DISTINCT (equal to a host copy of the reference's
+           HyperLogLog), APPROX_QUANTILE (within the sketch's bound of the
+           exact median) and MODE; measured as the subq phase
+  distinct_shapes  every DISTINCT-family aggregate over INT, BIGINT, FLOAT
+           and DOUBLE with NULLs, NaN and -0.0, keyless, grouped and on the
+           sort tier, on CUDA against the CPU; the hash form against the
+           sorted one over 2^21 + 4096 rows; a claim table made to leave a
+           row unresolved reruns on the sorted form
   strings  the dictionary-string queries of tools/synthetic.py
            STRING_QUERIES on a second 100M-row table made on the device
            (load_strings: TPC-H lineitem rows with the l_shipmode,
@@ -83,8 +107,10 @@ printing JSON lines:
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
-Then the kernel summary line, the card line, and the final
-{"ok": true, "device": ...} line.  Any failure exits non-zero.
+Then the script's wall time, the kernel summary line (its launches are
+those of the e2e, sort, join, subq, distinct and strings phases), the card
+line, and the final {"ok": true, "device": ...} line.  Any failure exits
+non-zero.
 """
 
 from __future__ import annotations
@@ -1073,7 +1099,34 @@ ROUTES = {
     "STR_EQ": {"lane_agg"}, "STR_IN": {"lane_agg"}, "STR_LIKE": {"lane_agg"},
     "STR_MINMAX": {"radix_hist", "groupby_minmax"}, "STR_TRANSFORM": set(),
     "STR_PAIR": {"lane_agg"}, "STR_LIKE_1M": set(),
+    # the subq phase: SUBQ_SCALAR's keyless sum is plain torch, its group-by
+    # B2; SUBQ_IN's inner GROUP BY x10m the radix tier (B5 + B6), its outer
+    # group-by B2 + B3; SUBQ_NOT_IN B1 at 10 slots; a Compound over a Union
+    # has no key range, so UNION_ALL and SET_INTERSECT group on the sort
+    # tier (the reference's rule); ROLLUP's branches B2 (1000 slots), B1 (10)
+    # and a keyless one
+    "SUBQ_SCALAR": {"radix_hist"},
+    "SUBQ_IN": {"radix_partition", "radix_group", "radix_hist", "groupby_minmax"},
+    "SUBQ_NOT_IN": {"lane_agg"}, "UNION_ALL": set(), "SET_INTERSECT": set(),
+    "ROLLUP": {"radix_hist", "lane_agg"},
+    # the distinct phase: the DISTINCT family is plain torch (sorts, scans,
+    # scatters), as the reference's is plain XLA; a perfect-tier group-by
+    # counts its groups' rows with B1, DIST_COUNT's hash form also counts
+    # the slots each group owns with B1, QUANTILE's sketch takes each
+    # group's count, MIN and MAX with B1
+    "DIST_COUNT": {"lane_agg"}, "DIST_COUNT_WIDE": set(), "DIST_SUM": {"lane_agg"},
+    "APPROX_CD": {"lane_agg"}, "QUANTILE": {"lane_agg"}, "MODE": {"lane_agg"},
 }
+def check_route(name, delta) -> None:
+    """Raise unless the query launched exactly the kernels ROUTES names
+    (delta: each kernel's launches in its runs)."""
+    for kname, d in zip(KERNEL_NAMES, delta):
+        if (d > 0) != (kname in ROUTES[name]):
+            raise AssertionError(
+                f"{name}: {kname} launched {d} times; expected the "
+                f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+
+
 # queries checked column by column as arrays (large results)
 ARRAY_CHECKED = ("BH002", "BH003", "BH004", "Q10M_AGGS")
 
@@ -1174,11 +1227,7 @@ def run_e2e(n: int, card: str, counters):
         decode(db.sql(q))
         e2e_ms = (time.perf_counter() - t0) * 1e3
         delta = [a - b for a, b in zip(launches(), before)]
-        for kname, d in zip(KERNEL_NAMES, delta):
-            if (d > 0) != (kname in ROUTES[name]):
-                raise AssertionError(
-                    f"{name}: {kname} launched {d} times; expected the "
-                    f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+        check_route(name, delta)
         waves = db.executor.waves_run - waves0
         if waves:
             raise AssertionError(f"{name}: ran in {waves} fragment waves at the "
@@ -1445,11 +1494,7 @@ def run_sort(db, host, counters):
                 torch.cuda.synchronize()
                 reps.append((time.perf_counter() - t0) * 1e3)
             delta = [c.launches - b for c, b in zip(counters, before)]
-            for kname, d in zip(KERNEL_NAMES, delta):
-                if (d > 0) != (kname in ROUTES[name]):
-                    raise AssertionError(
-                        f"{name}: {kname} launched {d} times; expected the "
-                        f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+            check_route(name, delta)
             if (waves < 3) if name == "TOPK_V_STREAMED" else waves:
                 raise AssertionError(f"{name}: {waves} fragment waves")
             out.append(dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
@@ -1634,11 +1679,7 @@ def run_join(db, host, counters):
             reps.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() - base
         delta = [c.launches - b for c, b in zip(counters, before)]
-        for kname, d in zip(KERNEL_NAMES, delta):
-            if (d > 0) != (kname in ROUTES[name]):
-                raise AssertionError(
-                    f"{name}: {kname} launched {d} times; expected the "
-                    f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+        check_route(name, delta)
         out.append(dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
                         warm_ms=statistics.median(reps), warm_runs_ms=reps,
                         builds=[r.builds for r in runs], caps=[r.caps for r in runs],
@@ -1900,18 +1941,9 @@ def run_strings(db, counters, n: int = STRING_ROWS):
     ex = db.executor
     out = [dict(query="load_strings", seconds=load_s, rows=n,
                 vocabulary={c: len(w) for c, w in vocab.items()})]
-    tiers = []
-    orig = X.Executor._postprocess
-
-    def spy(self, node, plan, outs):
-        if plan.group_strategy is not None:
-            tiers.append(plan.group_strategy[0])
-        return orig(self, node, plan, outs)
-
     for c in counters:
         c.launches = 0  # the strings path starts here
-    X.Executor._postprocess = spy
-    try:
+    with _TierSpy() as tiers:
         for name, q in STRING_QUERIES.items():
             before = [c.launches for c in counters]
             del tiers[:]
@@ -1932,11 +1964,7 @@ def run_strings(db, counters, n: int = STRING_ROWS):
                 reps.append((time.perf_counter() - t0) * 1e3)
             peak = torch.cuda.max_memory_allocated() - base
             delta = [c.launches - b for c, b in zip(counters, before)]
-            for kname, d in zip(KERNEL_NAMES, delta):
-                if (d > 0) != (kname in ROUTES[name]):
-                    raise AssertionError(
-                        f"{name}: {kname} launched {d} times; expected the "
-                        f"route to use {sorted(ROUTES[name]) or 'no kernel'}")
+            check_route(name, delta)
             line = dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
                         warm_ms=statistics.median(reps), warm_runs_ms=reps,
                         tiers=run_tiers, peak_device_bytes=peak,
@@ -1955,8 +1983,6 @@ def run_strings(db, counters, n: int = STRING_ROWS):
                 line.update(cold_ms=first_ms, aux_build_ms=(time.perf_counter() - t0) * 1e3,
                             dictionary_entries=len(vocab["cname"]))
             out.append(line)
-    finally:
-        X.Executor._postprocess = orig
     return out, [c.launches for c in counters]
 
 
@@ -2066,7 +2092,522 @@ def run_string_shapes(counters, n: int = 20_000):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# subqueries and set operations; the DISTINCT family
+# ---------------------------------------------------------------------------
+
+# (group-key columns, FLOAT-sum result columns) of each subq / distinct cell
+SUBQ_SHAPES = {"SUBQ_SCALAR": (1, set()), "SUBQ_IN": (1, {2}), "SUBQ_NOT_IN": (1, set()),
+               "UNION_ALL": (1, set()), "SET_INTERSECT": (1, set()), "ROLLUP": (2, {3})}
+DISTINCT_SHAPES = {"DIST_COUNT": (1, set()), "DIST_COUNT_WIDE": (0, set()),
+                   "DIST_SUM": (1, set()), "APPROX_CD": (1, set()), "MODE": (1, set())}
+
+
+def _count_sum(keys, size, *cols):
+    """bincount counts and float64 sums of each column over int keys."""
+    return [np.bincount(keys, minlength=size)] + [
+        np.bincount(keys, weights=c.astype(np.float64), minlength=size) for c in cols]
+
+
+def _largest(keys, vals, size, span):
+    """The largest of the small ints vals (1..span) of each key."""
+    seen = np.bincount(keys * (span + 1) + vals, minlength=size * (span + 1)) > 0
+    return span - np.argmax(seen.reshape(size, span + 1)[:, ::-1], axis=1)
+
+
+def subq_in_ids(h):
+    """x10m values whose SUM(x100) passes SUBQ_IN_BOUND (the inner query)."""
+    from heavydb_tpu_torch.tools.synthetic import SUBQ_IN_BOUND
+    s = np.bincount(h["x10m"], weights=h["x100"].astype(np.float64), minlength=10_000_001)
+    return np.nonzero(s > SUBQ_IN_BOUND)[0]
+
+
+def expected_subq(name, h, dims):
+    """numpy answer of each SUBQ_QUERIES query: {key tuple: row tuple}."""
+    if name == "SUBQ_SCALAR":
+        cnt, s = _count_sum(h["x1k"], 1001, h["y100"])
+        bound = int(h["y100"].sum(dtype=np.int64)) // 1000
+        return {(k,): (int(cnt[k]), int(s[k])) for k in range(1, 1001) if s[k] > bound}
+    if name == "SUBQ_IN":
+        inside = np.zeros(10_000_001, bool)
+        inside[subq_in_ids(h)] = True
+        sel = inside[h["x10m"]]
+        gk = _by_key(dims["dim10m"]["k"], dims["dim10m"]["g"], 10_000_001, np.int64)
+        g = gk[h["x10m"][sel]]
+        cnt, sv = _count_sum(g, 1001, h["v"][sel])
+        mx = _largest(g, h["x100"][sel].astype(np.int64), 1001, 100)
+        return {(k,): (int(cnt[k]), sv[k], int(mx[k])) for k in range(1001) if cnt[k]}
+    if name == "SUBQ_NOT_IN":
+        out = np.zeros(1001, bool)
+        out[dims["dim1k"]["k"][dims["dim1k"]["nm"] < 5]] = True
+        keep = ~out[h["x1k"]]
+        cnt = np.bincount(h["x10"][keep], minlength=11)
+        return {(k,): (int(cnt[k]),) for k in range(11) if cnt[k]}
+    if name == "UNION_ALL":
+        a, b = h["x10"] <= 3, h["x10"] >= 8
+        ca, sa = _count_sum(h["x100"][a], 101, h["y10"][a])
+        cb, sb = _count_sum(h["y100"][b], 101, h["x10"][b])
+        return {(k,): (int(ca[k] + cb[k]), int(sa[k] + sb[k])) for k in range(101)
+                if ca[k] + cb[k]}
+    if name == "SET_INTERSECT":
+        both = np.intersect1d(h["x10k"][h["x100k"] <= 20], h["x10k"][h["x100k"] > 99980])
+        return {(int(k),): () for k in both}
+    if name == "ROLLUP":
+        x10 = h["x10"].astype(np.int64)
+        c2, s2 = _count_sum(x10 * 101 + h["x100"], 11 * 101, h["v"])
+        c1, s1 = _count_sum(x10, 11, h["v"])
+        out = {(k // 101, k % 101): (int(c2[k]), s2[k]) for k in np.nonzero(c2)[0]}
+        out.update({(k, None): (int(c1[k]), s1[k]) for k in np.nonzero(c1)[0]})
+        out[(None, None)] = (int(c1.sum()), float(s1.sum()))
+        return out
+    raise KeyError(name)
+
+
+def _splitmix64_np(x):
+    """The reference's splitmix64 over uint64 numpy values."""
+    z = x + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def hll_estimates_np(keys, vals, size):
+    """The reference's APPROX_COUNT_DISTINCT of int vals (1..10^7) per int
+    key, on the host: splitmix64, register = the top 11 bits, rho = 64 -
+    floor(log(f) x (1 / log 2)) of f = float64 of the rest with its low 11
+    bits set, the largest rho a register, the HyperLogLog estimate with
+    linear counting."""
+    with np.errstate(over="ignore"):
+        h = _splitmix64_np(np.arange(int(vals.max()) + 1, dtype=np.uint64))
+        reg = (h >> np.uint64(53)).astype(np.int64)
+        rest = (h << np.uint64(11)) | np.uint64(0x7FF)
+    rho = 64 - np.floor(np.log(rest.astype(np.float64)) * (1.0 / np.log(2.0))).astype(
+        np.int64)
+    cell = keys.astype(np.int64) * 2048 + reg[vals]
+    seen = np.zeros(size * 2048 * 64, bool)
+    seen[cell * 64 + rho[vals]] = True
+    seen = seen.reshape(size, 2048, 64)
+    regs = np.where(seen.any(2), 63 - np.argmax(seen[:, :, ::-1], axis=2), 0)
+    m = 2048
+    alpha = 0.7213 / (1 + 1.079 / m)
+    est = alpha * m * m / np.exp(np.log(2.0) * -regs.astype(np.float64)).sum(1)
+    zeros = (regs == 0).sum(1).astype(np.float64)
+    lc = m * np.log(np.where(zeros > 0, m / np.maximum(zeros, 1), 1.0))
+    est = np.where((est <= 2.5 * m) & (zeros > 0), lc, est)
+    return np.round(est).astype(np.int64)
+
+
+def quantiles_np(keys, vals, size, q):
+    """Each int key's exact quantile of vals (numpy's linear interpolation)
+    and the range of its values."""
+    order = np.argsort(keys.astype(np.int8), kind="stable")
+    sv = vals[order].astype(np.float64)
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=size))])
+    out = {}
+    for k in range(size):
+        part = sv[bounds[k]:bounds[k + 1]]
+        if part.shape[0]:
+            out[k] = (float(np.quantile(part, q)), float(part.max() - part.min()))
+    return out
+
+
+def expected_distinct(name, h):
+    """numpy answer of each DISTINCT_QUERIES query but QUANTILE: {key
+    tuple: row tuple}."""
+    if name == "DIST_COUNT":
+        seen = np.zeros(101 * 10_001, bool)
+        seen[h["x100"].astype(np.int64) * 10_001 + h["x10k"]] = True
+        cnt = seen.reshape(101, 10_001).sum(1)
+        return {(k,): (int(cnt[k]),) for k in range(101) if cnt[k]}
+    if name == "DIST_COUNT_WIDE":
+        seen = np.zeros(1_000_001, bool)
+        seen[h["x1m_s10k"] // 10_000] = True
+        return {(): (int(seen.sum()),)}
+    if name == "DIST_SUM":
+        seen = np.zeros((101, 1001), bool)
+        seen.reshape(-1)[h["x100"].astype(np.int64) * 1001 + h["x1k"]] = True
+        cnt = seen.sum(1)
+        s = (seen * np.arange(1001)).sum(1)
+        return {(k,): (int(s[k]), s[k] / cnt[k]) for k in range(101) if cnt[k]}
+    if name == "APPROX_CD":
+        est = hll_estimates_np(h["x10"], h["x10m"], 11)
+        present = np.bincount(h["x10"], minlength=11) > 0
+        return {(k,): (int(est[k]),) for k in range(11) if present[k]}
+    if name == "MODE":
+        cnt = np.bincount(h["x10"].astype(np.int64) * 101 + h["x100"],
+                          minlength=11 * 101).reshape(11, 101)
+        return {(k,): (int(np.argmax(cnt[k])),) for k in range(11) if cnt[k].any()}
+    raise KeyError(name)
+
+
+def check_rows(name, rows, want, n_keys, f32_cols) -> int:
+    """Raise unless rows equal want ({key tuple: row tuple}): integers
+    exact, FLOAT sums to float32 tolerance, other floats to float64's."""
+    if len(rows) != len(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, numpy has {len(want)}")
+    for r in rows:
+        w = want[tuple(r[:n_keys])]
+        for j, (g, e) in enumerate(zip(r[n_keys:], w)):
+            col = n_keys + j
+            ok = np.isclose(g, e, **(F32_TOL if col in f32_cols else F64_TOL)) \
+                if isinstance(e, float) else g == e
+            if not ok:
+                raise AssertionError(f"{name}: {r} vs {w} (column {col})")
+    return len(rows)
+
+
+def check_quantile(rows, h) -> dict:
+    """QUANTILE against numpy's exact per-group median: within the
+    histogram sketch's bound, (max - min) / 4096^2 a group (100 groups:
+    4096 bins, 2 zooms)."""
+    want = quantiles_np(h["x100"], h["v"], 101, 0.5)
+    if len(rows) != len(want):
+        raise AssertionError(f"QUANTILE: {len(rows)} rows, numpy has {len(want)}")
+    worst = 0.0
+    for k, got in rows:
+        exact, span = want[k]
+        bound = span / 4096 ** 2
+        if not abs(got - exact) <= bound * (1 + 1e-9):
+            raise AssertionError(f"QUANTILE: group {k}: {got} vs {exact} (bound {bound})")
+        worst = max(worst, abs(got - exact) / bound if bound else 0.0)
+    return dict(rows_out=len(rows), worst_error_over_bound=worst)
+
+
+def _measure(db, name, q, counters, check, tiers):
+    """One SUBQ / DISTINCT cell: the first run (checked), then five warm
+    runs with the peak device bytes above what was allocated before them;
+    launches of the cell and the group-by tier of each Compound of the
+    first run."""
+    before = [c.launches for c in counters]
+    del tiers[:]
+    t0 = time.perf_counter()
+    rs = db.sql(q)
+    rows = rs.rows()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    run_tiers = list(tiers)
+    checked = check(rs, rows)
+    joins = [dict(builds=r.builds, caps=r.caps, retries=r.retries)
+             for r in db.executor.join_runs]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        db.sql_device(q)
+        torch.cuda.synchronize()
+        reps.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() - base
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route(name, delta)
+    return dict(query=name, **checked, first_with_decode_ms=first_ms,
+                warm_ms=statistics.median(reps), warm_runs_ms=reps, tiers=run_tiers,
+                joins=joins, peak_device_bytes=peak,
+                launches=dict(zip(KERNEL_NAMES, delta)))
+
+
+class _TierSpy:
+    """Records the group-by tier of every Compound run (Executor._postprocess)."""
+
+    def __init__(self):
+        from heavydb_tpu_torch.exec import executor as X
+
+        self.X, self.orig, self.tiers = X, X.Executor._postprocess, []
+        orig, tiers = self.orig, self.tiers
+
+        def spy(ex, node, plan, outs):
+            if plan.group_strategy is not None:
+                tiers.append(plan.group_strategy[0])
+            return orig(ex, node, plan, outs)
+
+        self.spy = spy
+
+    def __enter__(self):
+        self.X.Executor._postprocess = self.spy
+        return self.tiers
+
+    def __exit__(self, *exc):
+        self.X.Executor._postprocess = self.orig
+
+
+def run_subq(db, host, dims, counters):
+    """Each SUBQ_QUERIES query on bench and load_dims' tables with the
+    launch counters set to 0 before the first: rows against numpy, warm ms
+    (median of 5), the tier of each Compound, join builds, peak device
+    bytes and launches; SUBQ_IN also the size of its IN list and the time
+    of the list's host sort and copy to the card, which its filter makes
+    at every run (median of 5).  Returns the lines and each kernel's
+    launches in the phase."""
+    from heavydb_tpu_torch.tools.synthetic import SUBQ_QUERIES
+
+    for c in counters:
+        c.launches = 0  # the subq path starts here
+    out = []
+    with _TierSpy() as tiers:
+        for name, q in SUBQ_QUERIES.items():
+            n_keys, f32 = SUBQ_SHAPES[name]
+            want = expected_subq(name, host, dims)
+
+            def check(rs, rows, name=name, want=want, n_keys=n_keys, f32=f32):
+                return dict(rows_out=check_rows(name, rows, want, n_keys, f32))
+
+            line = _measure(db, name, q, counters, check, tiers)
+            if name == "SUBQ_IN":
+                ids = subq_in_ids(host).tolist()
+                if not 1_000 <= len(ids) <= 20_000:
+                    raise AssertionError(f"SUBQ_IN: its IN list holds {len(ids)} ids")
+
+                def copy():
+                    torch.from_numpy(np.sort(np.asarray(ids))).to("cuda")
+
+                line.update(in_list_ids=len(ids), in_list_copy_ms=timed(copy, 5))
+            out.append(line)
+    return out, [c.launches for c in counters]
+
+
+def run_distinct(db, host, counters):
+    """Each DISTINCT_QUERIES query on bench (under its QUERY_SETTINGS),
+    measured as run_subq's: rows against numpy (QUANTILE within the
+    sketch's bound of the exact median, APPROX_CD equal to the host copy
+    of the reference's HyperLogLog); DIST_COUNT also the claim rounds that
+    resolved a key and the rows left unresolved.  Returns the lines and
+    each kernel's launches in the phase."""
+    from heavydb_tpu_torch.ops import groupby as G
+    from heavydb_tpu_torch.tools.synthetic import DISTINCT_QUERIES, query_settings
+
+    claims = []
+    real = G.hash_group_ids
+
+    def spy(packed, mask, slots, rounds=4):
+        gid, total, unresolved, keys = real(packed, mask, slots, rounds)
+        won = gid[gid < total]
+        claims.append(dict(slots=slots, rounds=rounds, unresolved=int(unresolved),
+                           rounds_used=int(won.max()) // slots + 1 if won.numel() else 0))
+        return gid, total, unresolved, keys
+
+    for c in counters:
+        c.launches = 0  # the distinct path starts here
+    out = []
+    with _TierSpy() as tiers:
+        for name, q in DISTINCT_QUERIES.items():
+            if name == "QUANTILE":
+                def check(rs, rows):
+                    return check_quantile(rows, host)
+            else:
+                n_keys, f32 = DISTINCT_SHAPES[name]
+                want = expected_distinct(name, host)
+
+                def check(rs, rows, name=name, want=want, n_keys=n_keys, f32=f32):
+                    return dict(rows_out=check_rows(name, rows, want, n_keys, f32))
+
+            with query_settings(db, name) as settings:
+                line = _measure(db, name, q, counters, check, tiers)
+                if name == "DIST_COUNT":
+                    # one more run, read back: the claim rounds of the hash form
+                    del claims[:]
+                    G.hash_group_ids = spy
+                    try:
+                        db.sql(q).rows()
+                    finally:
+                        G.hash_group_ids = real
+                    if not claims or claims[0]["unresolved"]:
+                        raise AssertionError(f"DIST_COUNT: the hash form's claims: {claims}")
+                    line.update(settings=settings, hash_claims=claims[0])
+            out.append(line)
+    return out, [c.launches for c in counters]
+
+
+def _same_on_both(q, got, want, f32):
+    """Raise unless the CUDA rows equal the CPU rows (as multisets without
+    ORDER BY)."""
+    if "ORDER BY" not in q:
+        got, want = sorted(got, key=repr), sorted(want, key=repr)
+    if len(got) != len(want):
+        raise AssertionError(f"{q}: {len(got)} rows on CUDA, {len(want)} on the CPU")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            ok = (a is None and b is None) or (
+                np.isclose(a, b, equal_nan=True, **(F32_TOL if f32 else F64_TOL))
+                if isinstance(b, float) and a is not None else a == b)
+            if not ok:
+                raise AssertionError(f"{q}: {g} on CUDA, {w} on the CPU")
+
+
+# small tables, the same rows on CUDA as on the CPU: nested IN, EXISTS /
+# NOT EXISTS true and false, a scalar subquery with no row, NOT IN over a
+# list with a NULL, IN and UNION across two dictionaries, INT with BIGINT
+# and with FLOAT under UNION ALL, INTERSECT / EXCEPT with NULL rows, CUBE and
+# GROUPING SETS, a CTE read twice, ANY / ALL, scalar subqueries in the
+# select list and in a join's filter
+SET_SHAPE_QUERIES = [
+    "SELECT k, COUNT(*) FROM st WHERE a IN (SELECT a FROM su WHERE s IN "
+    "(SELECT s FROM sn)) GROUP BY k",
+    "SELECT COUNT(*) FROM st WHERE EXISTS (SELECT 1 FROM su WHERE a > 10)",
+    "SELECT COUNT(*) FROM st WHERE EXISTS (SELECT 1 FROM su WHERE a > 1000)",
+    "SELECT COUNT(*) FROM st WHERE NOT EXISTS (SELECT 1 FROM su WHERE a > 10)",
+    "SELECT COUNT(*) FROM st WHERE NOT EXISTS (SELECT 1 FROM su WHERE a > 1000)",
+    "SELECT COUNT(*), (SELECT a FROM su WHERE a > 1000) FROM st",
+    "SELECT COUNT(*) FROM st WHERE a NOT IN (SELECT a FROM sn)",
+    "SELECT COUNT(*) FROM st WHERE a NOT IN (SELECT a FROM su)",
+    "SELECT k, COUNT(*) FROM st WHERE s IN (SELECT s FROM su) GROUP BY k",
+    "SELECT s FROM st UNION SELECT s FROM su",
+    "SELECT s, COUNT(*) FROM (SELECT s FROM st UNION ALL SELECT s FROM su) v GROUP BY s",
+    "SELECT a FROM sn WHERE a = 3 UNION ALL SELECT b FROM st WHERE b > 8589934600",
+    "SELECT a FROM sn WHERE a = 3 UNION ALL SELECT f FROM st WHERE f < 1",
+    "SELECT a, s FROM st INTERSECT SELECT a, s FROM sn",
+    "SELECT a FROM sn EXCEPT SELECT a FROM su",
+    "SELECT a FROM st EXCEPT SELECT a FROM su",
+    "SELECT k, a, COUNT(*), SUM(b) FROM st GROUP BY CUBE(k, a)",
+    "SELECT k, a, COUNT(*) FROM st GROUP BY GROUPING SETS ((k, a), (a), ())",
+    "WITH r AS (SELECT k, SUM(a) AS tot FROM st GROUP BY k) "
+    "SELECT k, tot FROM r WHERE tot = (SELECT MAX(tot) FROM r)",
+    "SELECT COUNT(*) FROM st WHERE a > ANY (SELECT a FROM sn)",
+    "SELECT COUNT(*) FROM st WHERE a < ALL (SELECT a FROM su WHERE a > 40)",
+    "SELECT k, (SELECT MAX(a) FROM su) FROM st WHERE k < 2",
+    "SELECT st.k, COUNT(*) FROM st JOIN su ON st.a = su.a WHERE su.a < "
+    "(SELECT AVG(a) FROM su) GROUP BY st.k",
+]
+
+
+def _twin_dbs():
+    import heavydb_tpu_torch as hdt
+
+    return [hdt.connect(), hdt.connect(device="cpu")]
+
+
+def run_set_shapes(n: int = 20_000):
+    """SET_SHAPE_QUERIES on CUDA against the same port on the CPU, and a
+    scalar subquery with two rows raising ExecutionError on both."""
+    from heavydb_tpu_torch.errors import ExecutionError
+
+    rng = np.random.default_rng(SEED + 6)
+    i32 = np.iinfo(np.int32).min
+    st = {"a": np.where(rng.random(n) < 0.05, i32, rng.integers(0, 60, n)).astype(np.int32),
+          "b": (rng.integers(0, 50, n) + (1 << 33)).astype(np.int64),
+          "f": (rng.integers(0, 40, n) / 4).astype(np.float32),
+          "s": np.array(["x", "y", "z", None], object)[rng.integers(0, 4, n)],
+          "k": rng.integers(0, 10, n).astype(np.int32)}
+    su = {"s": np.array(["y", "q", "z", "w"], object)[rng.integers(0, 4, 120)],
+          "a": rng.integers(0, 80, 120).astype(np.int32)}
+    dbs = _twin_dbs()
+    for db in dbs:
+        db.sql("CREATE TABLE st (a INT, b BIGINT, f FLOAT, s TEXT, k INT)")
+        db.load_table("st", st)
+        db.sql("CREATE TABLE su (s TEXT, a INT)")
+        db.load_table("su", su)
+        db.sql("CREATE TABLE sn (a INT, s TEXT)")
+        db.sql("INSERT INTO sn VALUES (3, 'x'), (NULL, NULL), (7, 'q')")
+    rows_out = []
+    for q in SET_SHAPE_QUERIES:
+        got, want = (db.sql(q).rows() for db in dbs)
+        _same_on_both(q, got, want, False)
+        rows_out.append(len(got))
+    raised = 0
+    for db in dbs:
+        try:
+            db.sql("SELECT COUNT(*) FROM st WHERE a = (SELECT a FROM sn)").rows()
+        except ExecutionError:
+            raised += 1
+    if raised != len(dbs):
+        raise AssertionError(f"a two-row scalar subquery raised on {raised} engines")
+    return dict(queries=len(SET_SHAPE_QUERIES), rows=n, rows_out=rows_out,
+                two_row_scalar_raised=raised)
+
+
+def _distinct_shape_queries():
+    qs = []
+    for c in ("a", "b", "f", "d", "fn"):
+        aggs = (f"COUNT(DISTINCT {c}), APPROX_COUNT_DISTINCT({c}), MODE({c}), "
+                f"SUM(DISTINCT {c}), AVG(DISTINCT {c})")
+        qs += [f"SELECT {aggs}, APPROX_QUANTILE({c}, 0.25) FROM sd",
+               f"SELECT k, {aggs}, APPROX_MEDIAN({c}) FROM sd GROUP BY k",
+               f"SELECT sp, {aggs}, APPROX_QUANTILE({c}, 0.9) FROM sd GROUP BY sp"]
+    return qs
+
+
+DISTINCT_SHAPE_QUERIES = _distinct_shape_queries()
+
+
+def run_distinct_shapes(n: int = 20_000, n_big: int = (1 << 21) + 4096):
+    """DISTINCT_SHAPE_QUERIES (every aggregate over INT, BIGINT, FLOAT and
+    DOUBLE with NULLs, NaN and -0.0, keyless, grouped and on the sort tier)
+    on CUDA against the same port on the CPU; then COUNT(DISTINCT) of a
+    FLOAT NOT NULL over n_big rows on its hash form (the hash group-by on)
+    against the CPU, and with hash_group_ids made to leave a row unresolved:
+    the run ends on the sorted form and gives the sorted form's rows."""
+    from heavydb_tpu_torch.exec import executor as X
+    from heavydb_tpu_torch.ops import groupby as G
+
+    rng = np.random.default_rng(SEED + 7)
+    i32, i64 = np.iinfo(np.int32).min, np.iinfo(np.int64).min
+    f = (rng.integers(0, 30, n) / 4).astype(np.float32)
+    f[rng.random(n) < 0.05] = -0.0
+    f[rng.random(n) < 0.05] = np.nan
+    d = rng.integers(-20, 20, n) / 8.0
+    d[rng.random(n) < 0.05] = -0.0
+    d[rng.random(n) < 0.05] = np.nan
+    special = np.array([np.nan, -0.0, 0.0, np.inf, 1.5, -2.25], np.float32)
+    sd = {"a": np.where(rng.random(n) < 0.05, i32, rng.integers(0, 500, n)).astype(np.int32),
+          "b": np.where(rng.random(n) < 0.05, i64, rng.integers(0, 300, n) << 33),
+          "f": f, "d": d, "fn": rng.choice(special, n),
+          "k": rng.integers(0, 40, n).astype(np.int32),
+          "sp": (rng.integers(0, 3000, n) * 1000003).astype(np.int64)}
+    fn_big = (rng.integers(-400, 400, n_big) / 4).astype(np.float32)
+    for val in (np.nan, -0.0, 0.0, np.inf):
+        fn_big[rng.random(n_big) < 0.01] = val
+    dbs = _twin_dbs()
+    for db in dbs:
+        db.sql("CREATE TABLE sd (a INT, b BIGINT, f FLOAT, d DOUBLE, fn FLOAT NOT NULL, "
+               "k INT, sp BIGINT)")
+        db.load_table("sd", sd)
+        db.sql("CREATE TABLE sb (fn FLOAT NOT NULL, k INT)")
+        db.load_table("sb", {"fn": fn_big, "k": rng.integers(0, 10, n_big).astype(np.int32)})
+    rows_out = []
+    for q in DISTINCT_SHAPE_QUERIES:
+        got, want = (db.sql(q).rows() for db in dbs)
+        _same_on_both(q, got, want, "(f)" in q or "(fn)" in q)
+        rows_out.append(len(got))
+    big = "SELECT k, COUNT(DISTINCT fn) FROM sb GROUP BY k"
+    answers = {}
+    for on in (True, False):
+        for db in dbs:
+            db.config.enable_hash_groupby = on
+        got, want = (db.sql(big).rows() for db in dbs)
+        _same_on_both(big, got, want, False)
+        answers[on] = sorted(got)
+    if answers[True] == answers[False]:
+        raise AssertionError("the hash and the sorted COUNT(DISTINCT) forms agree on "
+                             "-0.0 and NaN")
+    # the overflow retry on CUDA: a claim table that leaves a row unresolved
+    real, post = G.hash_group_ids, X.Executor._postprocess
+    forced = []
+
+    def short(packed, mask, slots, rounds=4):
+        gid, total, _, keys = real(packed, mask, slots, rounds)
+        return gid, total, torch.ones((), dtype=torch.int32, device=gid.device), keys
+
+    def spy(ex, node, plan, outs):
+        res = post(ex, node, plan, outs)
+        forced.append(plan.distinct_force_sort)
+        return res
+
+    dbs[0].config.enable_hash_groupby = True
+    G.hash_group_ids, X.Executor._postprocess = short, spy
+    try:
+        retried = sorted(dbs[0].sql(big).rows())
+    finally:
+        G.hash_group_ids, X.Executor._postprocess = real, post
+        dbs[0].config.enable_hash_groupby = False
+    if retried != answers[False] or forced != [True, True]:
+        raise AssertionError(f"the overflow retry: {forced}, rows equal to the sorted "
+                             f"form's: {retried == answers[False]}")
+    return dict(queries=len(DISTINCT_SHAPE_QUERIES), rows=n, rows_out=rows_out,
+                hash_form_rows=n_big, retry_runs=len(forced))
+
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     card = smi()
     rate = mem_rate(card)
     from heavydb_tpu_torch.kernels import (_build, gate, groupby_minmax, groupby_slots,
@@ -2124,15 +2665,23 @@ def main() -> None:
         emit({"phase": "join", **line})
     for line in join_yardsticks(host, dims):
         emit({"phase": "join_split", **line})
-    del dims
     emit({"phase": "join_shapes", **run_join_shapes()})
+    subq_lines, subq_total = run_subq(db, host, dims, counters)
+    for line in subq_lines:
+        emit({"phase": "subq", **line})
+    del dims
+    emit({"phase": "set_shapes", **run_set_shapes()})
+    distinct_lines, distinct_total = run_distinct(db, host, counters)
+    for line in distinct_lines:
+        emit({"phase": "distinct", **line})
+    emit({"phase": "distinct_shapes", **run_distinct_shapes()})
     string_lines, string_total = run_strings(db, counters)
     for line in string_lines:
         emit({"phase": "strings", **line})
     emit({"phase": "string_shapes", **run_string_shapes(counters)})
-    # the kernels line counts the launches of the four main-path phases
-    total = [a + b + c + d for a, b, c, d in zip(total, sort_total, join_total,
-                                                  string_total)]
+    # the kernels line counts the launches of the six main-path phases
+    total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
+                                  distinct_total, string_total)]
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db
@@ -2161,6 +2710,7 @@ def main() -> None:
             row.update(design_bytes=s["design_bytes"],
                        design_bound_ms=s["design_bound_ms"])
         rows.append(row)
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
 
 

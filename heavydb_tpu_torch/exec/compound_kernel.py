@@ -37,21 +37,15 @@ from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.plan import exprs as E
 
-# the reference's uint64 constants as int64 bit patterns
-_SM_GOLDEN = 0x9E3779B97F4A7C15 - (1 << 64)
-_SM_MUL1 = 0xBF58476D1CE4E5B9 - (1 << 64)
-_SM_MUL2 = 0x94D049BB133111EB - (1 << 64)
+# the reference's uint64 constants as int64 bit patterns (ops/groupby.py)
+_SM_GOLDEN, _SM_MUL1, _SM_MUL2 = G._SM_GOLDEN, G._SM_MUL1, G._SM_MUL2
+_srl = G._srl
 _HASH_SEED = 0x243F6A8885A308D3
 
 # claim scatters that collide cost ~4.6 us a slot past VMEM on the TPU, so
 # the reference keeps builds past 2^21 slots on the sorted form; kept as
 # is, so that the plan, its caps and its retries match the reference's
 _JOIN_HASH_MAX_SLOTS = 1 << 21
-
-
-def _srl(x, s: int):
-    """Logical shift right of an int64 tensor, as uint64 would shift."""
-    return (x >> s) & ((1 << (64 - s)) - 1)
 
 
 def _splitmix64_combine(h, k):
@@ -236,6 +230,7 @@ def build_compound_kernel(node, batches, plan, device):
     pre_mask = list(plan.pre_mask)
     build_filters = dict(plan.build_filters)
     filter_rest = plan.filter_rest
+    distinct_force_sort = plan.distinct_force_sort
 
     def kernel(*args):
         it = iter(args)
@@ -295,7 +290,7 @@ def build_compound_kernel(node, batches, plan, device):
                 out["n_out"] = mask.sum().to(torch.int32)
         else:
             out.update(_aggregate(node, strategy, cap, mask, dom.compiler,
-                                  merge_masked_flags, device))
+                                  merge_masked_flags, device, distinct_force_sort))
 
         for name, flag in error_flags.items():
             out[f"err_{name}"] = flag.any()
@@ -537,11 +532,13 @@ def _slot_coords(slot_ids, ranges):
 
 
 def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
-               device) -> dict:
+               device, distinct_force_sort) -> dict:
     n_keys = len(node.group_exprs)
     kc = domain_compiler(node.group_exprs + list(node.aggs))
     aflags: Dict[str, torch.Tensor] = {}
     kc.error_flags = aflags
+    # COUNT(DISTINCT) on its sorted form, not the hash form
+    kc.distinct_force_sort = distinct_force_sort
     kind = strategy[0]
     lowered = [AGG.LoweredAgg(a) for a in node.aggs]
     res: Dict[str, object] = {}

@@ -23,8 +23,12 @@ scalars of each Compound run still reach the host in one read, and a Sort
 node reads nothing back.  Before a join Compound launches, its bytes are
 held to the card's free memory (`_check_join_memory`).
 
-Every tensor lives on the executor's one explicit device.  Window, Union,
-Unnest, the geo join, subqueries that stay subqueries and the hash
+Uncorrelated subqueries run first and become constants in place
+(`_substitute_subqueries`, `_eval_subquery`: scalar, EXISTS, IN / NOT IN);
+UNION ALL concatenates its inputs (`_exec_union`), and UNION DISTINCT,
+INTERSECT / EXCEPT and GROUPING SETS / ROLLUP / CUBE are Compounds over it.
+Every tensor lives on the executor's one explicit device.  Window,
+Unnest, the geo join, a subquery left after substitution and the hash
 group-by tier raise NotSupported.
 """
 
@@ -50,6 +54,7 @@ from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, mak
 from heavydb_tpu_torch.ops import sort as S
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
+from heavydb_tpu_torch.plan.builder import _const_cast
 from heavydb_tpu_torch.plan.select_planner import _node_dict_ref
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
 from heavydb_tpu_torch.utils.timer import NullTimer
@@ -160,11 +165,97 @@ class Executor:
     # ------------------------------------------------------------------
     def execute(self, root: R.RelNode) -> B.Batch:
         self.join_runs = []
+        return self._execute_plan(root)
+
+    def _execute_plan(self, root: R.RelNode) -> B.Batch:
+        """Run a plan after substituting its uncorrelated subqueries; a
+        subquery's own plan comes back through here, so the outer query's
+        `join_runs` keep its subqueries' join runs too."""
+        self._substitute_subqueries(root, set())
         for node in R.topo_order(root):
             for e in _iter_node_exprs(node):
                 if any(isinstance(s, E.SubqueryExpr) for s in E.walk(e)):
-                    raise NotSupported("subqueries")
+                    raise NotSupported("a subquery left after substitution")
         return self._exec(root, {}, needed=set(range(root.arity)))
+
+    # ------------------------------------------------------------------
+    # uncorrelated subqueries (the reference's executeRelAlgSubqueries)
+    # ------------------------------------------------------------------
+    def _substitute_subqueries(self, node: R.RelNode, seen: set) -> None:
+        """Run every SubqueryExpr of the plan's Compounds and rewrite it in
+        place into a Constant or an InValues, inputs first; everything
+        after this (the kernel cache key, streaming, fragment skipping, the
+        string tables) sees the constants."""
+        if node.id in seen:
+            return
+        seen.add(node.id)
+        for i in node.inputs:
+            self._substitute_subqueries(i, seen)
+        if not isinstance(node, R.Compound):
+            return
+
+        def subst(e: E.Expr) -> E.Expr:
+            return self._eval_subquery(e) if isinstance(e, E.SubqueryExpr) else e
+
+        def rw(e):
+            return None if e is None else E.rewrite(e, subst)
+
+        node.join_levels = [(k, rw(c)) for k, c in node.join_levels]
+        node.filter_cond = rw(node.filter_cond)
+        node.group_exprs = [rw(e) for e in node.group_exprs]
+        node.aggs = [rw(e) for e in node.aggs]
+        node.target_exprs = [rw(e) for e in node.target_exprs]
+        node.having = rw(node.having)
+
+    def _eval_subquery(self, e: E.SubqueryExpr) -> E.Expr:
+        """The subquery's value as an expression: a scalar (NULL for no
+        row; more than one row raises), EXISTS as a boolean, IN as an
+        InValues over the result's non-NULL values (dictionary strings
+        remapped into the probe column's dictionary, strings it lacks
+        dropped); NOT IN over a list holding a NULL is never true.  The
+        result is read from the device once."""
+        from heavydb_tpu_torch.plan.optimizer import optimize
+
+        # the reference optimizes the subquery's plan again (a CTE shared
+        # with the outer plan runs once for each, with its own memo)
+        plan = optimize(e.plan)
+        out = self._execute_plan(plan)
+        if e.kind == "exists":
+            res = (out.nrows > 0) != bool(e.negated)
+            return E.Constant(1 if res else 0, T.boolean(False))
+        ti = out.types[0]
+        if e.kind == "scalar":
+            if out.nrows == 0:
+                return E.Constant(None, e.type)
+            if out.nrows > 1:
+                raise ExecutionError("scalar subquery returned more than one row")
+            v = out.col(0)[0].item()
+            if _is_null_value(v, ti):
+                return E.Constant(None, e.type)
+            return E.Constant(v, ti.with_nullable(False))
+        vals = out.col(0)[: out.nrows].cpu().numpy()
+        arg = e.arg
+        if arg.type.is_dict_string:
+            sub_ref = _node_dict_ref(plan, 0) if ti.is_dict_string else None
+            if sub_ref is None:
+                raise NotSupported("IN subquery over computed strings")
+            strings = self.db.dict_by_ref(sub_ref).get_strings(vals)
+            probe = self.db.dict_by_ref(arg.dict_ref)
+            ids = [probe.get_id(s) for s in strings if s is not None]
+            return E.InValues(arg=arg, values=tuple(i for i in ids if i >= 0),
+                              negated=e.negated, type=T.boolean(arg.type.nullable))
+        pys = []
+        had_null = False
+        for v in vals.tolist():
+            if _is_null_value(v, ti):
+                had_null = True
+                continue
+            pys.append(_const_cast(v, ti, arg.type))
+        if e.negated and had_null:
+            # x NOT IN (..., NULL) is never TRUE (three-valued logic)
+            return E.Constant(0, T.boolean(nullable=False))
+        return E.InValues(arg=arg, values=tuple(pys), negated=e.negated,
+                          type=T.boolean(arg.type.nullable))
 
     def _exec(self, node: R.RelNode, memo, needed) -> B.Batch:
         if node.id in memo:
@@ -181,6 +272,8 @@ class Executor:
                 out = self._exec_sort(node, memo)
             elif isinstance(node, R.Compound):
                 out = self._exec_compound(node, memo)
+            elif isinstance(node, R.Union):
+                out = self._exec_union(node, memo)
             else:
                 raise NotSupported(f"cannot execute node {type(node).__name__}")
         memo[node.id] = out
@@ -273,6 +366,18 @@ class Executor:
                 ti.np_dtype()))
         return B.from_host_columns(arrays, len(node.rows), node.types,
                                    self.device)
+
+    # ---- Union ----
+    def _exec_union(self, node: R.Union, memo) -> B.Batch:
+        """UNION ALL: the inputs' live rows concatenated on the device.  The
+        values keep the promoted dtype of the concatenation (INT with FLOAT
+        gives float32) under the Union's declared types, the left input's,
+        as the reference's do.  UNION DISTINCT, INTERSECT / EXCEPT and the
+        grouping sets are Compounds over this node."""
+        parts = [self._exec(i, memo, set(range(i.arity))) for i in node.inputs]
+        out = B.concat_batches(parts)
+        out.types = list(node.types)
+        return out
 
     # ---- Sort ----
     def _in_domain(self, padded: int, nrows: int) -> torch.Tensor:
@@ -953,7 +1058,8 @@ class Executor:
     # ---- compound planning ----
     def _plan_compound(self, node: R.Compound, batches, offsets=(0,)):
         cfg = self.config
-        plan = _CompoundPlan(offsets=list(offsets))
+        plan = _CompoundPlan(offsets=list(offsets),
+                             distinct_force_sort=not cfg.enable_hash_groupby)
         probe = batches[0]
         if node.filter_cond is not None and node.join_levels \
                 and not any(k == "FULL" for k, _ in node.join_levels):
@@ -1165,7 +1271,7 @@ class Executor:
                 (i, str(c.dtype)) for i, c in enumerate(b.cols) if c is not None)
             for b in batches)
         key = (node.plan_key(), shapes, tuple(plan.caps), plan.group_strategy,
-               plan.group_cap,
+               plan.group_cap, plan.distinct_force_sort,
                tuple((jp.kind, jp.pack, jp.pack_spans, jp.key_min, jp.key_range,
                       jp.translate, jp.unique_build, jp.hash_fallback)
                      for jp in plan.joins),
@@ -1358,6 +1464,11 @@ class Executor:
             return B.Batch(list(d["cols"]), 1, list(node.types))
         # ALL control scalars in ONE device->host copy
         host = dict(zip(ctrl_keys(d), d["ctrl_vec"].tolist()))
+        if host.get("err_count_distinct_overflow"):
+            # a COUNT(DISTINCT) hash claim table ran out of rounds: run
+            # again on the sorted form
+            plan.distinct_force_sort = True
+            return None
         if host.get("err_div_by_zero"):
             raise DivisionByZero("division by zero")
         # the join rungs: a build key that claimed no hash slot -> the
@@ -1469,6 +1580,9 @@ class _CompoundPlan:
     pre_mask: list = dataclasses.field(default_factory=list)
     build_filters: dict = dataclasses.field(default_factory=dict)
     filter_rest: Optional[list] = None
+    # COUNT(DISTINCT) on its sorted form: unless the hash group-by is
+    # enabled (the reference's rule), and after a claim table ran out
+    distinct_force_sort: bool = False
 
 
 @dataclasses.dataclass
@@ -1489,6 +1603,19 @@ class _KernelLayout:
 
 
 _NO_PACK = object()
+
+
+def _is_null_value(v, ti: T.TypeInfo) -> bool:
+    """A value read back from a column is its type's NULL (None, NaN or
+    the null sentinel)."""
+    if v is None:
+        return True
+    if isinstance(v, float):
+        return v != v
+    try:
+        return v == ti.null_sentinel()
+    except Exception:
+        return False
 
 
 def _hash_pack_spec(group_exprs, ranges):
@@ -1588,8 +1715,6 @@ def _try_cast_host(pred: E.DictStrPredicate, d, padded: int) -> np.ndarray:
     and TIME parse as ISO text (the reference's TryStringCast ->
     StringToDatum); numbers as a float, then rounded to the type."""
     import json
-
-    from heavydb_tpu_torch.plan.builder import _const_cast
 
     _, scale = json.loads(pred.pattern)
     ti = pred.type

@@ -1,8 +1,9 @@
 """Aggregate lowering: E.Agg -> per-slot partials -> finalize.
 
-Port of heavydb_tpu/ops/agg.py for the aggregates of this slice: COUNT,
-COUNT_IF, SUM, SUM_IF, AVG, MIN, MAX, SAMPLE, SINGLE_VALUE, STDDEV and
-VARIANCE.  The reference's 8-bit biased limbs and f32 hi/lo splits exist
+Port of heavydb_tpu/ops/agg.py: COUNT, COUNT_IF, SUM, SUM_IF, AVG, MIN,
+MAX, SAMPLE, SINGLE_VALUE, STDDEV, VARIANCE, COUNT / SUM / AVG (DISTINCT),
+APPROX_COUNT_DISTINCT, APPROX_QUANTILE (and APPROX_MEDIAN) and MODE, keyless
+and grouped.  The reference's 8-bit biased limbs and f32 hi/lo splits exist
 because Mosaic on the TPU has no 64-bit types; here exact integer sums are
 an int64 stream and DOUBLE sums a float64 stream (kernels/lane_agg.py
 stream classes).
@@ -24,10 +25,10 @@ from heavydb_tpu_torch.plan import exprs as E
 
 TV = Tuple[object, Optional[object]]
 
-# aggregates of this slice; DISTINCT, APPROX_*, MODE and the rest raise
 _SUPPORTED = {E.AggKind[k] for k in (
     "COUNT", "COUNT_IF", "SUM", "SUM_IF", "AVG", "MIN", "MAX", "SAMPLE",
-    "SINGLE_VALUE", "STDDEV", "VARIANCE")}
+    "SINGLE_VALUE", "STDDEV", "VARIANCE", "COUNT_DISTINCT", "APPROX_COUNT_DISTINCT",
+    "APPROX_QUANTILE", "MODE")}
 
 
 def _fusable(la) -> bool:
@@ -186,16 +187,40 @@ class LoweredAgg:
             segs = G
         k = self.kind
         A = E.AggKind
-        if self.agg.distinct:
-            raise NotSupported("DISTINCT aggregates")
         if k not in _SUPPORTED:
             raise NotSupported(f"aggregate {k}")
+        if k in (A.COUNT_DISTINCT, A.APPROX_COUNT_DISTINCT, A.APPROX_QUANTILE, A.MODE):
+            val, valid = compiler.compile(self.agg.arg)
+            arg_tv = (_full_like_rows(compiler, val), valid)
+        if k == A.COUNT_DISTINCT:
+            # the hash form, unless the plan asks for the sorted one; a
+            # claim table that ran out of rounds flags the run, and the
+            # executor runs it again on the sorted form
+            cnt, overflow = segs.distinct_count_per_group(
+                gid, arg_tv, mask, num_slots,
+                allow_hash=not getattr(compiler, "distinct_force_sort", False))
+            compiler._flag_error("count_distinct_overflow", overflow > 0, None)
+            return {"count": cnt}
+        if k == A.APPROX_COUNT_DISTINCT:
+            return {"hll": segs.hll_registers(gid, arg_tv, mask, num_slots)}
+        if k == A.APPROX_QUANTILE:
+            val, has = segs.quantile_per_group(gid, arg_tv, mask, num_slots,
+                                               float(self.agg.arg2.value))
+            return {"value": val, "count": has.to(torch.int64)}
+        if k == A.MODE:
+            val, has = segs.mode_per_group(gid, arg_tv, mask, num_slots)
+            return {"max": val, "count": has.to(torch.int64)}
         arg_tv, cm = _arg_and_mask(self, compiler, mask)
         if cm is None:
             cm = torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
         if k in (A.COUNT, A.COUNT_IF):
             return {"count": segs.segment_count(gid, cm, num_slots)}
         val = _full_like_rows(compiler, arg_tv[0])
+        if k in (A.SUM, A.SUM_IF, A.AVG) and self.agg.distinct:
+            # SUM / AVG(DISTINCT x): over the distinct (group, value) pairs
+            s, cnt = segs.distinct_sum_per_group(gid, (val, None), cm, num_slots,
+                                                 self._acc_dtype())
+            return {"sum": s, "count": cnt}
         if k in (A.SUM, A.SUM_IF, A.AVG):
             return {
                 "sum": segs.segment_sum(gid, val, cm, num_slots, self._acc_dtype()),
@@ -247,8 +272,12 @@ class LoweredAgg:
             safe = rank.clamp(0, order.shape[0] - 1).to(torch.int64)
             ids = torch.where((rank >= 0) & (rank < order.shape[0]), order[safe], 0)
             return ids.to(torch.int32), partials["count"] > 0
-        if k in (A.COUNT, A.COUNT_IF):
+        if k in (A.COUNT, A.COUNT_IF, A.COUNT_DISTINCT):
             return partials["count"], None
+        if k == A.APPROX_COUNT_DISTINCT:
+            return G.hll_estimate(partials["hll"]), None
+        if k == A.APPROX_QUANTILE:
+            return partials["value"], partials["count"] > 0
         if k in (A.SUM, A.SUM_IF):
             return partials["sum"], partials["count"] > 0
         if k == A.AVG:
@@ -259,7 +288,7 @@ class LoweredAgg:
             return s / cnt, partials["count"] > 0
         if k == A.MIN:
             return partials["min"], partials["count"] > 0
-        if k in (A.MAX, A.SAMPLE, A.SINGLE_VALUE):
+        if k in (A.MAX, A.SAMPLE, A.SINGLE_VALUE, A.MODE):
             return partials["max"], partials["count"] > 0
         if k in (A.STDDEV, A.VARIANCE):
             n = partials["count"].clamp(min=2).to(torch.float64)

@@ -1,8 +1,10 @@
 """The on-card workload shared by `chip_smoke.py` and `profile_queries`:
 the synthetic benchmark's schema, the SELECTs of the port's slices (the
 group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP BY
-JOIN_QUERIES and the dictionary-string STRING_QUERIES) and the loaders that
-build the tables on the device.
+JOIN_QUERIES, the dictionary-string STRING_QUERIES, the subquery and set
+operation SUBQ_QUERIES and the DISTINCT-family DISTINCT_QUERIES, with the
+settings some of them run under, QUERY_SETTINGS) and the loaders that build
+the tables on the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
@@ -28,6 +30,7 @@ TEXT column uniform over its vocabulary with 1 % NULL; `x10`, `x100`,
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -124,6 +127,70 @@ STRING_QUERIES = {
     # a host scan of a 10^6-entry dictionary
     "STR_LIKE_1M": "SELECT COUNT(*), SUM(v) FROM lstr WHERE cname LIKE '%7777%'",
 }
+
+# the HAVING bound of SUBQ_IN's inner query: ~7000 of bench's x10m values
+# pass it
+SUBQ_IN_BOUND = 1200
+
+# uncorrelated subqueries and set operations over bench and load_dims' tables
+SUBQ_QUERIES = {
+    # TPC-H Q11's shape with integer sums: a keyless sum read once, then B2
+    # at 1000 slots cut by HAVING against the constant
+    "SUBQ_SCALAR": "SELECT x1k, COUNT(*), SUM(y100) FROM bench GROUP BY x1k "
+                   "HAVING SUM(y100) > (SELECT SUM(y100) FROM bench) / 1000",
+    # TPC-H Q18's shape: the inner GROUP BY over 10^7 groups (radix tier)
+    # leaves a few thousand ids, tested against 100M rows beside a join
+    "SUBQ_IN": "SELECT d.g, COUNT(*), SUM(b.v), MAX(b.x100) FROM bench b JOIN dim10m d "
+               "ON b.x10m = d.k WHERE b.x10m IN (SELECT x10m FROM bench GROUP BY x10m "
+               f"HAVING SUM(x100) > {SUBQ_IN_BOUND}) GROUP BY d.g",
+    # NOT IN over ~100 ids of a dimension table
+    "SUBQ_NOT_IN": "SELECT x10, COUNT(*) FROM bench WHERE x1k NOT IN (SELECT k FROM dim1k "
+                   "WHERE nm < 5) GROUP BY x10",
+    # two compactions of ~30M rows, a concatenation, B1 at 100 slots
+    "UNION_ALL": "SELECT x100, COUNT(*), SUM(y10) FROM (SELECT x100, y10 FROM bench WHERE "
+                 "x10 <= 3 UNION ALL SELECT y100, x10 FROM bench WHERE x10 >= 8) u "
+                 "GROUP BY x100",
+    # a tagged union of ~2 x 20,000 rows and two COUNT_IFs at 10^4 slots
+    "SET_INTERSECT": "SELECT x10k FROM bench WHERE x100k <= 20 INTERSECT SELECT x10k "
+                     "FROM bench WHERE x100k > 99980",
+    # three grouping sets, each a scan of the table, then their UNION ALL
+    "ROLLUP": "SELECT x10, x100, COUNT(*), SUM(v) FROM bench GROUP BY ROLLUP(x10, x100)",
+}
+
+# COUNT / SUM / AVG (DISTINCT), APPROX_COUNT_DISTINCT, APPROX_QUANTILE and MODE
+DISTINCT_QUERIES = {
+    # the hash form (QUERY_SETTINGS): 4-byte values past 2^21 rows
+    "DIST_COUNT": "SELECT x100, COUNT(DISTINCT x10k) FROM bench GROUP BY x100",
+    # BIGINT values: the sorted form, keyless
+    "DIST_COUNT_WIDE": "SELECT COUNT(DISTINCT x1m_s10k) FROM bench",
+    # the sorted (group, value) pairs
+    "DIST_SUM": "SELECT x100, SUM(DISTINCT x1k), AVG(DISTINCT x1k) FROM bench GROUP BY x100",
+    # HyperLogLog: 10 x 2048 registers
+    "APPROX_CD": "SELECT x10, APPROX_COUNT_DISTINCT(x10m) FROM bench GROUP BY x10",
+    # the histogram sketch (past 2^21 rows)
+    "QUANTILE": "SELECT x100, APPROX_QUANTILE(v, 0.5) FROM bench GROUP BY x100",
+    # the sort of (group, value) pairs, ties to the smallest value
+    "MODE": "SELECT x10, MODE(x100) FROM bench GROUP BY x10",
+}
+
+# Config fields a query runs under, set on the connection around it:
+# COUNT(DISTINCT) takes its hash form only with the hash group-by enabled
+QUERY_SETTINGS = {"DIST_COUNT": {"enable_hash_groupby": True}}
+
+
+@contextlib.contextmanager
+def query_settings(db, name: str):
+    """Run the body with db's config set as QUERY_SETTINGS[name] says,
+    then restore it."""
+    settings = QUERY_SETTINGS.get(name, {})
+    saved = {k: getattr(db.config, k) for k in settings}
+    for k, v in settings.items():
+        setattr(db.config, k, v)
+    try:
+        yield settings
+    finally:
+        for k, v in saved.items():
+            setattr(db.config, k, v)
 
 SHIPMODES = ["REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB"]
 SHIPINSTRUCTS = ["DELIVER IN PERSON", "COLLECT COD", "NONE", "TAKE BACK RETURN"]
