@@ -104,13 +104,38 @@ printing JSON lines:
            comparisons, MIN / MAX over TEXT at 50 and 3000 groups (B1, B3),
            TEXT ENCODING NONE and the pair-table cap on 20,000-row tables:
            the same rows on CUDA as on the CPU
+  hash     the hash group-by tier's HASH_QUERIES of tools/synthetic.py on
+           a 10^7-row table made on the device (load_hsparse: a BIGINT key
+           and an INT pair of 20,000 distinct values each, 500 rows a key,
+           which the reference's estimator puts ~20 x too high, inside its
+           rule): each equal to numpy, on the hash tier,
+           with its NDV estimate (and an estimate's ms), claim-table cap,
+           retries, claims, warm ms, peak device bytes and launches, and
+           beside it the same query with the hash group-by off (the sort
+           tier); BH003 on bench with the flag on stays on the sort tier;
+           then both tiers again at 400,000 keys (25 rows a key), whose
+           estimate the rule refuses, with the estimate set to the true
+           count (the _TRUE_NDV lines)
+  hash_shapes  single keys of INT, BIGINT, FLOAT and DOUBLE with NULL,
+           NaN, -0.0, subnormals and +-inf, a range-packed pair with NULLs,
+           HAVING and ORDER BY at a 4096-slot claim table (B2 at 16384
+           slots), and a forced hash_unresolved retry: the same rows on
+           CUDA as on the CPU
+  dml      tools/synthetic.py DML_STEPS on bench after every phase that
+           reads it: UPDATE (~10^5 rows in each fragment), DELETE (~10^5
+           rows), CREATE TABLE AS SELECT (~3 x 10^7 rows), INSERT ... SELECT
+           (~10^7) and TRUNCATE; for each, its ms, matched rows, fragments
+           touched, bytes copied each way and the scan cache's bytes, then
+           its follow-up queries against a numpy model of the tables (no
+           upload after an UPDATE or a DELETE: the cache was patched on the
+           card), with warm ms and launches
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
-Then the script's wall time, the kernel summary line (its launches are
-those of the e2e, sort, join, subq, distinct and strings phases), the card
-line, and the final {"ok": true, "device": ...} line.  Any failure exits
-non-zero.
+Then each new phase's seconds, the script's wall time, the kernel summary
+line (its launches are those of the e2e, sort, join, subq, distinct,
+strings, hash and dml phases), the card line, and the final {"ok": true,
+"device": ...} line.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -1116,6 +1141,9 @@ ROUTES = {
     # group's count, MIN and MAX with B1
     "DIST_COUNT": {"lane_agg"}, "DIST_COUNT_WIDE": set(), "DIST_SUM": {"lane_agg"},
     "APPROX_CD": {"lane_agg"}, "QUANTILE": {"lane_agg"}, "MODE": {"lane_agg"},
+    # the hash phase: the hash tier aggregates over 4 x ~1.8M claim slots,
+    # past every kernel (plain scatters); the sort tier is plain torch
+    "HASH_BIGINT": set(), "HASH_PAIR": set(),
 }
 def check_route(name, delta) -> None:
     """Raise unless the query launched exactly the kernels ROUTES names
@@ -1943,30 +1971,21 @@ def run_strings(db, counters, n: int = STRING_ROWS):
                 vocabulary={c: len(w) for c, w in vocab.items()})]
     for c in counters:
         c.launches = 0  # the strings path starts here
-    with _TierSpy() as tiers:
+    with _RunSpy() as spy:
         for name, q in STRING_QUERIES.items():
             before = [c.launches for c in counters]
-            del tiers[:]
+            del spy.runs[:]
             t0 = time.perf_counter()
             rs = db.sql(q)
             rs.rows()
             first_ms = (time.perf_counter() - t0) * 1e3
-            run_tiers = list(tiers)
+            run_tiers = [r[0] for r in spy.runs]
             nrows = check_strings(name, rs, h, vocab)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            reps = []
-            for _ in range(5):
-                t0 = time.perf_counter()
-                db.sql_device(q)
-                torch.cuda.synchronize()
-                reps.append((time.perf_counter() - t0) * 1e3)
-            peak = torch.cuda.max_memory_allocated() - base
+            warm, reps, peak = warm_ms(db, q)
             delta = [c.launches - b for c, b in zip(counters, before)]
             check_route(name, delta)
             line = dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
-                        warm_ms=statistics.median(reps), warm_runs_ms=reps,
+                        warm_ms=warm, warm_runs_ms=reps,
                         tiers=run_tiers, peak_device_bytes=peak,
                         launches=dict(zip(KERNEL_NAMES, delta)))
             if name == "STR_LIKE_1M":
@@ -2273,61 +2292,98 @@ def check_quantile(rows, h) -> dict:
     return dict(rows_out=len(rows), worst_error_over_bound=worst)
 
 
-def _measure(db, name, q, counters, check, tiers):
+def warm_ms(db, q, reps: int = 5):
+    """Median ms of reps runs through sql_device (parse to control read,
+    the result left on the card), the runs, and the peak device bytes above
+    what was allocated before them."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        db.sql_device(q)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out), out, torch.cuda.max_memory_allocated() - base
+
+
+def _measure(db, name, q, counters, check, spy):
     """One SUBQ / DISTINCT cell: the first run (checked), then five warm
     runs with the peak device bytes above what was allocated before them;
     launches of the cell and the group-by tier of each Compound of the
     first run."""
     before = [c.launches for c in counters]
-    del tiers[:]
+    del spy.runs[:]
     t0 = time.perf_counter()
     rs = db.sql(q)
     rows = rs.rows()
     first_ms = (time.perf_counter() - t0) * 1e3
-    run_tiers = list(tiers)
+    run_tiers = [r[0] for r in spy.runs]
     checked = check(rs, rows)
     joins = [dict(builds=r.builds, caps=r.caps, retries=r.retries)
              for r in db.executor.join_runs]
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    reps = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        db.sql_device(q)
-        torch.cuda.synchronize()
-        reps.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated() - base
+    warm, reps, peak = warm_ms(db, q)
     delta = [c.launches - b for c, b in zip(counters, before)]
     check_route(name, delta)
     return dict(query=name, **checked, first_with_decode_ms=first_ms,
-                warm_ms=statistics.median(reps), warm_runs_ms=reps, tiers=run_tiers,
+                warm_ms=warm, warm_runs_ms=reps, tiers=run_tiers,
                 joins=joins, peak_device_bytes=peak,
                 launches=dict(zip(KERNEL_NAMES, delta)))
 
 
-class _TierSpy:
-    """Records the group-by tier of every Compound run (Executor._postprocess)."""
+class _RunSpy:
+    """Records (tier, cap) of every Compound run (Executor._postprocess) in
+    `runs`; with `claims` on, the claims of every hash_group_ids call:
+    slots a round, rounds, rows left unresolved, and the last round that
+    resolved a key (each read back, so only outside timed runs)."""
 
     def __init__(self):
         from heavydb_tpu_torch.exec import executor as X
+        from heavydb_tpu_torch.ops import groupby as G
 
-        self.X, self.orig, self.tiers = X, X.Executor._postprocess, []
-        orig, tiers = self.orig, self.tiers
+        self.X, self.G = X, G
+        self.post, self.claim = X.Executor._postprocess, G.hash_group_ids
+        self.runs, self.claims, self.claims_on = [], [], False
+        post, claim, me = self.post, self.claim, self
 
-        def spy(ex, node, plan, outs):
+        def spy_post(ex, node, plan, outs):
             if plan.group_strategy is not None:
-                tiers.append(plan.group_strategy[0])
-            return orig(ex, node, plan, outs)
+                me.runs.append((plan.group_strategy[0], plan.group_cap))
+            return post(ex, node, plan, outs)
 
-        self.spy = spy
+        def spy_claim(packed, mask, slots, rounds=4):
+            gid, total, unresolved, keys = claim(packed, mask, slots, rounds)
+            if me.claims_on:
+                won = gid[gid < total]
+                me.claims.append(dict(
+                    slots=slots, rounds=rounds, unresolved=int(unresolved),
+                    rounds_used=int(won.max()) // slots + 1 if won.numel() else 0))
+            return gid, total, unresolved, keys
+
+        self.spy_post, self.spy_claim = spy_post, spy_claim
 
     def __enter__(self):
-        self.X.Executor._postprocess = self.spy
-        return self.tiers
+        self.X.Executor._postprocess = self.spy_post
+        self.G.hash_group_ids = self.spy_claim
+        return self
 
     def __exit__(self, *exc):
-        self.X.Executor._postprocess = self.orig
+        self.X.Executor._postprocess = self.post
+        self.G.hash_group_ids = self.claim
+
+    def first(self, fn):
+        """fn() with the run and claim records cleared and claims on; returns
+        (fn's result, ms, runs, claims)."""
+        del self.runs[:], self.claims[:]
+        self.claims_on = True
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            self.claims_on = False
+        return out, ms, list(self.runs), list(self.claims)
 
 
 def run_subq(db, host, dims, counters):
@@ -2343,7 +2399,7 @@ def run_subq(db, host, dims, counters):
     for c in counters:
         c.launches = 0  # the subq path starts here
     out = []
-    with _TierSpy() as tiers:
+    with _RunSpy() as spy:
         for name, q in SUBQ_QUERIES.items():
             n_keys, f32 = SUBQ_SHAPES[name]
             want = expected_subq(name, host, dims)
@@ -2351,7 +2407,7 @@ def run_subq(db, host, dims, counters):
             def check(rs, rows, name=name, want=want, n_keys=n_keys, f32=f32):
                 return dict(rows_out=check_rows(name, rows, want, n_keys, f32))
 
-            line = _measure(db, name, q, counters, check, tiers)
+            line = _measure(db, name, q, counters, check, spy)
             if name == "SUBQ_IN":
                 ids = subq_in_ids(host).tolist()
                 if not 1_000 <= len(ids) <= 20_000:
@@ -2372,23 +2428,12 @@ def run_distinct(db, host, counters):
     of the reference's HyperLogLog); DIST_COUNT also the claim rounds that
     resolved a key and the rows left unresolved.  Returns the lines and
     each kernel's launches in the phase."""
-    from heavydb_tpu_torch.ops import groupby as G
     from heavydb_tpu_torch.tools.synthetic import DISTINCT_QUERIES, query_settings
-
-    claims = []
-    real = G.hash_group_ids
-
-    def spy(packed, mask, slots, rounds=4):
-        gid, total, unresolved, keys = real(packed, mask, slots, rounds)
-        won = gid[gid < total]
-        claims.append(dict(slots=slots, rounds=rounds, unresolved=int(unresolved),
-                           rounds_used=int(won.max()) // slots + 1 if won.numel() else 0))
-        return gid, total, unresolved, keys
 
     for c in counters:
         c.launches = 0  # the distinct path starts here
     out = []
-    with _TierSpy() as tiers:
+    with _RunSpy() as spy:
         for name, q in DISTINCT_QUERIES.items():
             if name == "QUANTILE":
                 def check(rs, rows):
@@ -2401,15 +2446,10 @@ def run_distinct(db, host, counters):
                     return dict(rows_out=check_rows(name, rows, want, n_keys, f32))
 
             with query_settings(db, name) as settings:
-                line = _measure(db, name, q, counters, check, tiers)
+                line = _measure(db, name, q, counters, check, spy)
                 if name == "DIST_COUNT":
                     # one more run, read back: the claim rounds of the hash form
-                    del claims[:]
-                    G.hash_group_ids = spy
-                    try:
-                        db.sql(q).rows()
-                    finally:
-                        G.hash_group_ids = real
+                    claims = spy.first(lambda: db.sql(q).rows())[3]
                     if not claims or claims[0]["unresolved"]:
                         raise AssertionError(f"DIST_COUNT: the hash form's claims: {claims}")
                     line.update(settings=settings, hash_claims=claims[0])
@@ -2606,6 +2646,466 @@ def run_distinct_shapes(n: int = 20_000, n_big: int = (1 << 21) + 4096):
 
 
 
+# ---------------------------------------------------------------------------
+# the hash group-by tier; UPDATE / DELETE / CTAS / INSERT ... SELECT / TRUNCATE
+# ---------------------------------------------------------------------------
+
+def _grouped_np(keys, ok, *vals):
+    """{key: (count, sum of each vals...)} over the rows ok; keys an int64
+    array (a packed pair for two keys)."""
+    k = keys[ok]
+    uniq, inv = np.unique(k, return_inverse=True)
+    cnt = np.bincount(inv)
+    sums = [np.bincount(inv, weights=v[ok].astype(np.float64)) for v in vals]
+    return uniq, inv, cnt, sums
+
+
+def expected_hash(name, h):
+    """numpy answer of each HASH_QUERIES query: {key tuple: row tuple}."""
+    if name == "HASH_BIGINT":
+        ok = h["x100"] > 10
+        uniq, inv, cnt, (sv,) = _grouped_np(h["k"], ok, h["v"])
+        mn = _reduce_at(np.minimum, inv, h["x100"][ok], uniq.shape[0],
+                        np.iinfo(np.int32).max)
+        return {(int(k),): (int(c), s, int(m)) for k, c, s, m in zip(uniq, cnt, sv, mn)}
+    if name == "HASH_PAIR":
+        pair = (h["a"].astype(np.int64) << 20) | h["b"]
+        uniq, _, cnt, (sv,) = _grouped_np(pair, np.ones(pair.shape[0], bool), h["v"])
+        return {(int(p >> 20), int(p & 0xFFFFF)): (int(c), s)
+                for p, c, s in zip(uniq, cnt, sv)}
+    raise KeyError(name)
+
+
+# (group-key columns, FLOAT-sum result columns) of each hash cell
+HASH_SHAPES = {"HASH_BIGINT": (1, {2}), "HASH_PAIR": (2, {3})}
+
+
+def run_hash(db, host, counters):
+    """The hsparse table (tools/synthetic.py load_hsparse), then each
+    HASH_QUERIES query with the hash group-by on (its QUERY_SETTINGS) and
+    the launch counters set to 0 before the first: rows against numpy, the
+    tier of each run (the first must be hash), the NDV estimate, the ms of
+    one uncached estimate and the estimates a warm run asks for, the
+    claim-table cap, the retries, the claims (rows left unresolved, the
+    rounds used), warm ms (median of 5), peak device bytes and launches;
+    then the same query with the hash group-by off (the sort tier, its rows
+    checked again) as the yardstick; and BH003 on bench with the flag on,
+    which must stay on the sort tier (its rows / NDV estimate is past 32).
+    Then hsparse again with HASH_KEYS_TRUE keys (25 rows a key), whose
+    estimate the rule refuses, and each query on both tiers with the
+    estimate set to the true key count.  Returns the lines and each
+    kernel's launches in the phase."""
+    from heavydb_tpu_torch.exec.executor import Executor
+    from heavydb_tpu_torch.plan import rel_alg as R
+    from heavydb_tpu_torch.plan.optimizer import optimize
+    from heavydb_tpu_torch.sql.parser import parse_many
+    from heavydb_tpu_torch.tools.synthetic import (HASH_KEYS, HASH_KEYS_TRUE, HASH_QUERIES,
+                                                   HASH_ROWS, load_hsparse, query_settings)
+
+    def load(keys, seed):
+        t0 = time.perf_counter()
+        data = load_hsparse(db, HASH_ROWS, seed, keys)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        h = {c: t.cpu().numpy() for c, t in data.items()}
+        return h, dict(query="load_hsparse", seconds=load_s, rows=HASH_ROWS, keys=keys)
+
+    def agg_node(q):
+        plan = optimize(db._plan_select(parse_many(q)[0]))
+        return next(n for n in R.topo_order(plan)
+                    if isinstance(n, R.Compound) and n.is_aggregate)
+
+    def ndv_cost(q):
+        # the estimate, one uncached estimate's ms (median of 5: the
+        # first fragment's 65,536-row head read and the host count) and
+        # the estimates a warm run asks for (cache hits)
+        node, ex = agg_node(q), db.executor
+        ms = []
+        for _ in range(5):
+            ex._ndv_cache.clear()
+            t0 = time.perf_counter()
+            est = ex._estimate_group_ndv(node)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        real, calls = Executor._estimate_group_ndv, []
+
+        def count(self, node):
+            calls.append(1)
+            return real(self, node)
+
+        Executor._estimate_group_ndv = count
+        try:
+            db.sql_device(q)
+            torch.cuda.synchronize()
+        finally:
+            Executor._estimate_group_ndv = real
+        return dict(ndv_estimate=est, ndv_sample_ms=statistics.median(ms),
+                    ndv_sample_runs_ms=ms, ndv_estimates_per_run=len(calls))
+
+    def cells(h, spy, tag):
+        for name, q in HASH_QUERIES.items():
+            n_keys, f32 = HASH_SHAPES[name]
+            want = expected_hash(name, h)
+            line = dict(query=name + tag)
+            for on in (True, False):
+                with query_settings(db, name) as settings:
+                    db.config.enable_hash_groupby = on
+                    before = [c.launches for c in counters]
+                    rows, first_ms, runs, claims = spy.first(lambda: db.sql(q).rows())
+                    nrows = check_rows(name, rows, want, n_keys, f32)
+                    tier = "hash" if on else "sort"
+                    if not runs or any(r[0] != tier for r in runs):
+                        raise AssertionError(f"{name}{tag}: runs {runs}, expected the {tier} tier")
+                    warm, reps, peak = warm_ms(db, q)
+                    delta = [c.launches - b for c, b in zip(counters, before)]
+                    check_route(name, delta)
+                    part = dict(rows_out=nrows, tier=tier, runs=runs, first_with_decode_ms=first_ms,
+                                warm_ms=warm, warm_runs_ms=reps, peak_device_bytes=peak,
+                                launches=dict(zip(KERNEL_NAMES, delta)))
+                    if on:
+                        ndv = ndv_cost(q) if not tag else dict(ndv_estimate=HASH_KEYS_TRUE)
+                        part.update(settings=settings, **ndv,
+                                    claim_cap=runs[0][1], retries=len(runs) - 1,
+                                    claims=claims, hash_unresolved=[c["unresolved"] for c in claims])
+                        line.update(part)
+                    else:
+                        line["sort_tier"] = part
+            line["hash_over_sort"] = line["warm_ms"] / line["sort_tier"]["warm_ms"]
+            out.append(line)
+
+    h, loaded = load(HASH_KEYS, SEED + 9)
+    out = [loaded]
+    for c in counters:
+        c.launches = 0  # the hash path starts here
+    with _RunSpy() as spy:
+        cells(h, spy, "")
+        # the rule's row cap: bench's sparse key with the flag on
+        db.config.enable_hash_groupby = True
+        try:
+            rs, first_ms, runs, _ = spy.first(lambda: db.sql(QUERIES["BH003"]))
+            est = db.executor._estimate_group_ndv(agg_node(QUERIES["BH003"]))
+        finally:
+            db.config.enable_hash_groupby = False
+        if not runs or any(r[0] != "sort" for r in runs):
+            raise AssertionError(f"BH003 with the hash group-by on: runs {runs}")
+        out.append(dict(query="BH003", enable_hash_groupby=True, runs=runs,
+                        rows_out=check_result("BH003", rs, host),
+                        ndv_estimate=est, first_with_decode_ms=first_ms))
+        # the rule's depth: the estimate of HASH_KEYS_TRUE keys is past
+        # 2^19, so the hash tier runs only with the true count put in
+        db.sql("DROP TABLE hsparse")
+        h, loaded = load(HASH_KEYS_TRUE, SEED + 11)
+        out.append(loaded)
+        est = db.executor._estimate_group_ndv(agg_node(HASH_QUERIES["HASH_BIGINT"]))
+        if est <= 1 << 19:
+            raise AssertionError(f"{HASH_KEYS_TRUE} keys: estimate {est} is within the rule")
+        real = Executor._estimate_group_ndv
+        Executor._estimate_group_ndv = lambda self, node: HASH_KEYS_TRUE
+        try:
+            cells(h, spy, "_TRUE_NDV")
+        finally:
+            Executor._estimate_group_ndv = real
+        out[-1].update(rule_estimate=est)
+        db.sql("DROP TABLE hsparse")
+    return out, [c.launches for c in counters]
+
+
+def _hash_shape_columns(n, rng):
+    """1000 distinct keys of each type over n rows (20 rows a key at
+    20,000 rows: an NDV estimate of ~1000, so a 4096-slot claim table and
+    4 x 4096 = 16384 slots, where B2 counts and sums), each drawn with the
+    edges of its type: NULL, NaN, -0.0, subnormals and +-inf."""
+    i32, i64 = np.iinfo(np.int32).min, np.iinfo(np.int64).min
+
+    def pick(vals):
+        return vals[rng.integers(0, vals.shape[0], n)]
+
+    fedge = np.array([np.nan, -0.0, 0.0, 1e-45, -1e-45, 1.17549435e-38, np.inf, -np.inf],
+                     np.float32)
+    dedge = np.array([np.nan, -0.0, 0.0, 5e-324, -5e-324, 2.2250738585072014e-308,
+                      np.inf, -np.inf])
+    ki = pick(np.append(rng.integers(-2**31 + 1, 2**31 - 1, 999), i32).astype(np.int32))
+    kb = pick(np.append(rng.integers(-2**62, 2**62, 999), i64))
+    kf = pick(np.concatenate([fedge, (rng.random(992) * 1e6).astype(np.float32)]))
+    kd = pick(np.concatenate([dedge, rng.random(992) * 1e12]))
+    pairs = np.stack([rng.integers(-2**20, 2**20, 1000), rng.integers(0, 2**30, 1000)], 1)
+    pairs[rng.random(1000) < 0.05, 0] = i32
+    pairs[rng.random(1000) < 0.05, 1] = i32
+    pq = pairs[rng.integers(0, 1000, n)].astype(np.int32)
+    return {"ki": ki, "kb": kb, "kf": kf, "kd": kd, "p": pq[:, 0], "q": pq[:, 1],
+            "v": rng.integers(-1000, 1000, n).astype(np.int32),
+            "w": np.where(rng.random(n) < 0.05, np.nan, rng.random(n)).astype(np.float32)}
+
+
+HASH_SHAPE_QUERIES = [
+    *[f"SELECT {k}, COUNT(*), SUM(v), SUM(w), MIN(v), MAX(w) FROM hs GROUP BY {k}"
+      for k in ("ki", "kb", "kf", "kd")],
+    "SELECT p, q, COUNT(*), SUM(v), MAX(w) FROM hs GROUP BY p, q",
+    "SELECT kd, COUNT(*) FROM hs WHERE v > 0 GROUP BY kd HAVING COUNT(*) > 8",
+    "SELECT kb, COUNT(*) c FROM hs GROUP BY kb ORDER BY c DESC, kb LIMIT 10",
+]
+
+
+def run_hash_shapes(counters, n: int = 20_000):
+    """HASH_SHAPE_QUERIES (single keys of INT, BIGINT, FLOAT and DOUBLE
+    with NULL, NaN, -0.0, subnormals and +-inf; a range-packed pair with
+    NULLs; HAVING; ORDER BY) with the hash group-by on, on CUDA against the
+    same port on the CPU: the same rows, every run on the hash tier with a
+    4096-slot claim table on both, and B2 launched at 16384 slots; then a
+    claim table made to leave a row unresolved once: the run takes the
+    hash_unresolved rung (cap x 4) and still gives the CPU's rows."""
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.config import Config
+
+    cols = _hash_shape_columns(n, np.random.default_rng(SEED + 10))
+    dbs = [hdt.connect(config=Config(enable_hash_groupby=True)),
+           hdt.connect(device="cpu", config=Config(enable_hash_groupby=True))]
+    for db in dbs:
+        db.sql("CREATE TABLE hs (ki INT, kb BIGINT, kf FLOAT, kd DOUBLE, p INT, q INT, "
+               "v INT, w FLOAT)")
+        db.load_table("hs", cols)
+    rows_out, b2 = [], 0
+    with _RunSpy() as spy:
+        for q in HASH_SHAPE_QUERIES:
+            before = [c.launches for c in counters]
+            (got, _, gruns, _), (want, _, wruns, _) = [
+                spy.first(lambda db=db: db.sql(q).rows()) for db in dbs]
+            delta = dict(zip(KERNEL_NAMES, [c.launches - b for c, b in zip(counters, before)]))
+            if gruns != wruns or [r for r in gruns if r[0] == "hash"] != [("hash", 4096)]:
+                raise AssertionError(f"{q}: runs {gruns} on CUDA, {wruns} on the CPU")
+            if not delta["radix_hist"]:
+                raise AssertionError(f"{q}: B2 did not launch at 16384 slots: {delta}")
+            b2 += delta["radix_hist"]
+            _same_on_both(q, got, want, "SUM(w)" in q)
+            rows_out.append(len(got))
+        # the hash_unresolved rung on CUDA
+        q = HASH_SHAPE_QUERIES[1]
+        want = dbs[1].sql(q).rows()
+        real, forced = spy.G.hash_group_ids, []
+
+        def short(packed, mask, slots, rounds=4):
+            gid, total, unresolved, keys = real(packed, mask, slots, rounds)
+            if not forced:
+                forced.append(slots)
+                unresolved = torch.ones((), dtype=torch.int32, device=gid.device)
+            return gid, total, unresolved, keys
+
+        spy.G.hash_group_ids = short
+        try:
+            got, _, runs, _ = spy.first(lambda: dbs[0].sql(q).rows())
+        finally:
+            spy.G.hash_group_ids = spy.spy_claim
+        if runs != [("hash", 4096), ("hash", 16384)]:
+            raise AssertionError(f"the hash_unresolved rung: runs {runs}")
+        _same_on_both(q, got, want, True)
+    return dict(queries=len(HASH_SHAPE_QUERIES), rows=n, rows_out=rows_out,
+                b2_launches=b2, retry_runs=runs)
+
+
+class _CopySpy:
+    """Counts the bytes the body copies to the host: result batches read
+    back (Batch.to_numpy: the live rows' bucket of each column) and lazy
+    device chunks materialized for a host patch
+    (LazyDeviceChunk._materialize)."""
+
+    def __enter__(self):
+        from heavydb_tpu_torch.exec import batch as B
+        from heavydb_tpu_torch.storage import table as TB
+
+        self.B, self.TB, self.bytes = B, TB, 0
+        self.saved = to_numpy, materialize = B.Batch.to_numpy, TB.LazyDeviceChunk._materialize
+        me = self
+
+        def spy_to_numpy(batch):
+            need = B.bucket(max(batch.nrows, 1))
+            me.bytes += sum(min(c.shape[0], need) * c.element_size()
+                            for c in batch.cols if c is not None)
+            return to_numpy(batch)
+
+        def spy_materialize(chunk):
+            if chunk._np is None:
+                me.bytes += chunk.nbytes
+            return materialize(chunk)
+
+        B.Batch.to_numpy, TB.LazyDeviceChunk._materialize = spy_to_numpy, spy_materialize
+        return self
+
+    def __exit__(self, *exc):
+        self.B.Batch.to_numpy, self.TB.LazyDeviceChunk._materialize = self.saved
+
+
+class _Split:
+    """ms spent in each named method during the body, the card synchronised
+    around each call; a method called inside another is timed in both."""
+
+    def __init__(self):
+        from heavydb_tpu_torch.api import Database
+        from heavydb_tpu_torch.exec.executor import Executor
+        from heavydb_tpu_torch.storage.table import Fragment, LazyDeviceChunk, Table
+
+        self.targets = [(Database, "_matched_rows_and_values"), (Executor, "execute"),
+                        (LazyDeviceChunk, "_materialize"), (Fragment, "compute_stats"),
+                        (Table, "update_rows_at"), (Table, "delete_rows_at"),
+                        (Table, "insert_columns"), (Executor, "patch_cache_update"),
+                        (Executor, "patch_cache_delete")]
+        self.ms = {}
+
+    def __enter__(self):
+        self.saved = [(cls, name, getattr(cls, name)) for cls, name in self.targets]
+        for cls, name, orig in self.saved:
+            def timed_call(*a, _orig=orig, _name=name, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.ms[_name] = self.ms.get(_name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+            setattr(cls, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, orig in self.saved:
+            setattr(cls, name, orig)
+
+
+# host columns of bench the dml phase keeps for its checks
+DML_COLUMNS = ("x10", "x100", "x1k", "x10k", "x10m", "v")
+
+
+def dml_apply(step, h, b3):
+    """The numpy model after each DML_STEPS statement: h (bench's kept
+    columns) and b3 (the CTAS table's columns, or None) as they must be."""
+    if step.startswith("UPDATE bench"):
+        m = h["x1k"] == 5
+        h["v"] = np.where(m, (h["v"].astype(np.float64) + 1.0).astype(np.float32), h["v"])
+        h["x100"] = np.where(m, 0, h["x100"]).astype(np.int32)
+        return h, b3, int(m.sum())
+    if step.startswith("DELETE FROM bench"):
+        keep = h["x10k"] > 10
+        return {c: a[keep] for c, a in h.items()}, b3, int((~keep).sum())
+    if step.startswith("CREATE TABLE b3"):
+        m = h["x10"] <= 3
+        return h, {c: h[c][m] for c in ("x10", "x1k", "x10m", "v")}, int(m.sum())
+    if step.startswith("INSERT INTO b3"):
+        m = h["x10"] == 10
+        return h, {c: np.concatenate([b3[c], h[c][m]]) for c in b3}, int(m.sum())
+    if step.startswith("TRUNCATE"):
+        return h, {c: a[:0] for c, a in b3.items()}, int(b3["x10"].shape[0])
+    raise KeyError(step)
+
+
+def expected_dml(q, h, b3):
+    """numpy answer of each DML_STEPS follow-up: {key tuple: row tuple}."""
+    if q.startswith("SELECT x100, COUNT(*), SUM(v) FROM bench"):
+        ok = h["x10"] > 3
+        k = h["x100"][ok].astype(np.int64)
+        cnt = np.bincount(k, minlength=101)
+        sv = np.bincount(k, weights=h["v"][ok].astype(np.float64), minlength=101)
+        return {(i,): (int(cnt[i]), sv[i]) for i in range(101) if cnt[i]}
+    if q.startswith("SELECT x1k, MIN(x10k)"):
+        k = h["x1k"].astype(np.int64)
+        cnt = np.bincount(k, minlength=1001)
+        mn = _reduce_at(np.minimum, k, h["x10k"], 1001, np.iinfo(np.int32).max)
+        mx = _reduce_at(np.maximum, k, h["v"], 1001, -np.inf)
+        return {(i,): (int(mn[i]), float(mx[i]), int(cnt[i])) for i in range(1001) if cnt[i]}
+    if q == "SELECT COUNT(*), MAX(rowid) FROM bench":
+        n = h["x10"].shape[0]
+        return {(): (n, n - 1)}
+    if q.startswith("SELECT x1k, COUNT(*), SUM(v) FROM b3"):
+        k = b3["x1k"].astype(np.int64)
+        cnt = np.bincount(k, minlength=1001)
+        sv = np.bincount(k, weights=b3["v"].astype(np.float64), minlength=1001)
+        return {(i,): (int(cnt[i]), sv[i]) for i in range(1001) if cnt[i]}
+    if q == "SELECT COUNT(*) FROM b3":
+        return {(): (int(b3["x10"].shape[0]),)}
+    raise KeyError(q)
+
+
+# (group-key columns, FLOAT-sum result columns, kernels the route launches)
+# of each DML_STEPS follow-up: B1 at 101 slots after the UPDATE, B3 + B2 at
+# 1000 slots after the DELETE, B2 over the CTAS table; the counts are keyless
+DML_FOLLOW_UPS = {
+    "SELECT x100": (1, {2}, {"lane_agg"}),
+    "SELECT x1k, MIN(x10k)": (1, set(), {"radix_hist", "groupby_minmax"}),
+    "SELECT COUNT(*), MAX(rowid)": (0, set(), set()),
+    "SELECT x1k, COUNT(*), SUM(v) FROM b3": (1, {2}, {"radix_hist"}),
+    "SELECT COUNT(*) FROM b3": (0, set(), set()),
+}
+
+
+def run_dml(db, host, counters):
+    """DML_STEPS on bench, in order, with the launch counters set to 0
+    before the first.  After each statement: its ms and the ms of its
+    parts (`_Split`: the matched-rows query, the host copies of lazy
+    chunks, chunk stats, the fragment patch, the device move of the scan
+    cache), the rows it matched (or inserted) and the fragments it
+    touched, the bytes it copied to the host (matched rows, lazy chunks
+    materialized for the patch) and to the card, the scan cache's bytes
+    and dropped keys; then each follow-up
+    query: its first run's uploads (none after an UPDATE or a DELETE: the
+    cache was patched), its rows against the numpy model of the table, its
+    warm ms (median of 5) and launches.  Returns the lines and each
+    kernel's launches in the phase."""
+    from heavydb_tpu_torch.tools.synthetic import DML_STEPS
+
+    h = {c: host[c] for c in DML_COLUMNS}
+    b3 = None
+    ex = db.executor
+    for c in counters:
+        c.launches = 0  # the dml path starts here
+    out = []
+    for cell, stmt, follow_ups in DML_STEPS:
+        tname = "b3" if "b3" in stmt else "bench"
+        t = db.catalog.get_table_opt(tname)
+        frags_before = len(t.fragments) if t is not None else 0
+        h2d0, dropped0 = ex.h2d_bytes, ex.cache_keys_dropped
+        db.last_mutation = None
+        with _CopySpy() as d2h, _Split() as split:
+            t0 = time.perf_counter()
+            db.sql(stmt)
+            torch.cuda.synchronize()
+            stmt_ms = (time.perf_counter() - t0) * 1e3
+        h, b3, want_rows = dml_apply(stmt, h, b3)
+        mut = db.last_mutation
+        if mut is not None and mut["rows"] != want_rows:
+            raise AssertionError(f"{cell}: {mut['rows']} rows matched, numpy has {want_rows}")
+        line = dict(cell=cell, statement=stmt, statement_ms=stmt_ms, rows=want_rows,
+                    fragments_touched=mut["fragments"] if mut else None,
+                    fragments=len(db.catalog.get_table(tname).fragments),
+                    fragments_before=frags_before, d2h_bytes=d2h.bytes,
+                    h2d_bytes=ex.h2d_bytes - h2d0, scan_cache_bytes=ex.scan_cache.total_bytes,
+                    cache_keys_dropped=ex.cache_keys_dropped - dropped0,
+                    split_ms=split.ms, follow_ups=[])
+        for q in follow_ups:
+            n_keys, f32, route = next(v for k, v in DML_FOLLOW_UPS.items() if q.startswith(k))
+            before = [c.launches for c in counters]
+            h2d1 = ex.h2d_bytes
+            t0 = time.perf_counter()
+            rows = db.sql(q).rows()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            uploaded = ex.h2d_bytes - h2d1
+            if stmt.split()[0] in ("UPDATE", "DELETE") and uploaded:
+                raise AssertionError(f"{cell}: {q} uploaded {uploaded} B after the "
+                                     "statement; the scan cache was not patched")
+            nrows = check_rows(cell, rows, expected_dml(q, h, b3), n_keys, f32)
+            warm, reps, peak = warm_ms(db, q)
+            delta = [c.launches - b for c, b in zip(counters, before)]
+            for kname, d in zip(KERNEL_NAMES, delta):
+                if (d > 0) != (kname in route):
+                    raise AssertionError(f"{cell}: {q}: {kname} launched {d} times; "
+                                         f"expected {sorted(route) or 'no kernel'}")
+            line["follow_ups"].append(dict(
+                query=q, rows_out=nrows, first_with_decode_ms=first_ms,
+                first_run_h2d_bytes=uploaded,
+                cache="uploaded" if uploaded else
+                "patched" if stmt.split()[0] in ("UPDATE", "DELETE") else "resident",
+                warm_ms=warm, warm_runs_ms=reps, peak_device_bytes=peak,
+                launches=dict(zip(KERNEL_NAMES, delta))))
+        out.append(line)
+    return out, [c.launches for c in counters]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -2679,9 +3179,24 @@ def main() -> None:
     for line in string_lines:
         emit({"phase": "strings", **line})
     emit({"phase": "string_shapes", **run_string_shapes(counters)})
-    # the kernels line counts the launches of the six main-path phases
+    phase_s = {}
+    t0 = time.perf_counter()
+    hash_lines, hash_total = run_hash(db, host, counters)
+    for line in hash_lines:
+        emit({"phase": "hash", **line})
+    phase_s["hash"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit({"phase": "hash_shapes", **run_hash_shapes(counters)})
+    phase_s["hash_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dml_lines, dml_total = run_dml(db, host, counters)
+    for line in dml_lines:
+        emit({"phase": "dml", **line})
+    phase_s["dml"] = time.perf_counter() - t0
+    emit({"phase": "phase_seconds", **phase_s})
+    # the kernels line counts the launches of the eight main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
-                                  distinct_total, string_total)]
+                                  distinct_total, string_total, hash_total, dml_total)]
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db

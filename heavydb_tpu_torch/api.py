@@ -1,7 +1,8 @@
 """Public in-process engine API of the PyTorch port.
 
 Port of heavydb_tpu/api.py for this slice: `connect`, `Database.sql`
-(SELECT, CREATE TABLE, INSERT VALUES, DROP TABLE), `sql_device`,
+(SELECT, CREATE TABLE and CREATE TABLE AS SELECT, INSERT VALUES and INSERT
+... SELECT, UPDATE, DELETE, TRUNCATE, DROP TABLE), `sql_device`,
 `load_table` and `load_table_device`, `register_llm_transform`, plus
 `load_state`, which rebuilds a set of tables from their definitions and
 physical host columns.
@@ -10,6 +11,15 @@ Every Database carries one explicit torch device.  `connect()` takes CUDA
 unless the caller passes `device="cpu"`; without CUDA and without a device
 it raises.  On CUDA it builds and checks the group-by kernels first
 (kernels/gate.py).
+
+UPDATE and DELETE run as the reference runs them: `SELECT rowid, values
+... WHERE cond` through the executor (so chunk-stat fragment skipping
+stays live and only the matched rows reach the host), then a patch of the
+fragments that hold those rows (`Table.update_rows_at` /
+`delete_rows_at`), then a move of the resident device columns to the new
+generation (`Executor.patch_cache_update` / `patch_cache_delete`).  Array
+and geo targets raise NotSupported (they wait for the port of arrays and
+geo).
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.config import Config
-from heavydb_tpu_torch.errors import NotSupported, SqlError, StorageError
+from heavydb_tpu_torch.errors import BinderError, NotSupported, SqlError, StorageError
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec.executor import Executor, _iter_node_exprs
 from heavydb_tpu_torch.exec.result_set import ResultSet, from_batch
@@ -77,6 +87,8 @@ class Database:
         self._next_transient = 0
         # the planner looks table functions up here; none are ported yet
         self._table_functions: Dict[str, object] = {}
+        # the last UPDATE / DELETE: its matched rows and touched fragments
+        self.last_mutation: Optional[dict] = None
 
     # ------------------------------------------------------------------
     # public
@@ -86,6 +98,8 @@ class Database:
         out = None
         for st in parse_many(text):
             out = self._execute_statement(st)
+            if not isinstance(st, A.Select):
+                self.executor.drop_stale()
         return out
 
     def sql_device(self, text: str):
@@ -118,6 +132,7 @@ class Database:
             arrays[cd.col_id] = to_physical(cols[key], cd.type,
                                             t.dicts.get(cd.col_id))
         t.insert_columns(arrays)
+        self.executor.drop_stale()
 
     def load_table_device(self, name: str, data, create: bool = False,
                           dicts=None):
@@ -248,17 +263,161 @@ class Database:
             return self._create_table(st)
         if isinstance(st, A.InsertValues):
             return self._insert_values(st)
+        if isinstance(st, A.InsertSelect):
+            return self._insert_select(st)
+        if isinstance(st, A.Update):
+            return self._update(st)
+        if isinstance(st, A.Delete):
+            return self._delete(st)
+        if isinstance(st, A.TruncateTable):
+            self.catalog.get_table(st.name).delete_all()
+            return None
         if isinstance(st, A.DropTable):
             self.catalog.drop_table(st.name, st.if_exists)
             return None
         raise NotSupported(f"statement {type(st).__name__}")
 
     def _create_table(self, st: A.CreateTable) -> None:
-        if st.as_select is not None:
-            raise NotSupported("CREATE TABLE AS SELECT")
-        defs = [(cd.name, resolve_type_name(cd.type_name)) for cd in st.columns]
-        self.catalog.create_table(st.name, defs, st.options.get("fragment_size"),
-                                  st.if_not_exists, st.temporary)
+        frag_rows = st.options.get("fragment_size")
+        if st.as_select is None:
+            defs = [(cd.name, resolve_type_name(cd.type_name)) for cd in st.columns]
+            self.catalog.create_table(st.name, defs, frag_rows, st.if_not_exists,
+                                      st.temporary)
+            return None
+        # CREATE TABLE AS SELECT: the query's columns, types and rows
+        plan = optimize(self._plan_select(st.as_select))
+        batch = self.executor.execute(plan)
+        defs = list(zip(plan.fields, plan.types))
+        if st.columns:
+            if len(st.columns) != len(defs):
+                raise BinderError("CTAS column count mismatch")
+            defs = [(cd.name, ti) for cd, (_, ti) in zip(st.columns, defs)]
+        if any(ti.is_array or ti.is_geo for _, ti in defs):
+            raise NotSupported("CREATE TABLE AS SELECT of array or geo columns")
+        t = self.catalog.create_table(st.name, defs, frag_rows, st.if_not_exists,
+                                      st.temporary)
+        host = batch.to_numpy()
+        cols = {}
+        for cd, (i, ti) in zip(t.columns, enumerate(plan.types)):
+            arr = host[i]
+            if ti.is_dict_string:
+                src_ref = _node_dict_ref(plan, i)
+                src = self.dict_by_ref(src_ref) if src_ref else None
+                strings = src.get_strings(arr) if src is not None else [None] * len(arr)
+                arr = t.dict_for(cd.col_id).get_or_add_bulk(strings)
+            cols[cd.col_id] = arr
+        if batch.nrows:
+            t.insert_columns(cols)
+        return None
+
+    def _insert_select(self, st: A.InsertSelect) -> None:
+        t = self.catalog.get_table(st.table)
+        plan = optimize(self._plan_select(st.select))
+        batch = self.executor.execute(plan)
+        host = batch.to_numpy()
+        target_cols = ([_col_of(t, c) for c in st.columns] if st.columns
+                       else list(t.columns))
+        if len(target_cols) != plan.arity:
+            raise SqlError("INSERT SELECT column count mismatch")
+        cols = {}
+        for i, cd in enumerate(target_cols):
+            src_ti = plan.types[i]
+            arr = host[i]
+            if cd.type.is_array or cd.type.is_geo:
+                raise NotSupported("INSERT ... SELECT into array or geo columns")
+            if cd.type.is_dict_string:
+                src_ref = _node_dict_ref(plan, i)
+                if src_ref is None:
+                    raise NotSupported("INSERT of computed strings")
+                strings = self.dict_by_ref(src_ref).get_strings(arr)
+                arr = t.dict_for(cd.col_id).get_or_add_bulk(strings)
+            elif src_ti.kind != cd.type.kind or (
+                    cd.type.is_decimal and src_ti.scale != cd.type.scale):
+                arr = _host_cast_array(arr, src_ti, cd.type)
+            cols[cd.col_id] = arr
+        for cd in t.columns:
+            if cd.col_id not in cols:
+                if not cd.type.nullable:
+                    raise SqlError(f"column {cd.name} is NOT NULL")
+                cols[cd.col_id] = to_physical([None] * batch.nrows, cd.type,
+                                              t.dicts.get(cd.col_id))
+        if batch.nrows:
+            t.insert_columns(cols)
+        return None
+
+    # ------------------------------------------------------------------
+    # UPDATE / DELETE: a filtered projection, then fragment-level patches
+    # (the reference's UpdelStorage: the update kernel yields row offsets
+    # and values, the fragmenter applies them in place)
+    # ------------------------------------------------------------------
+    def _matched_rows_and_values(self, t: Table, where, value_exprs):
+        """`SELECT rowid, values ... FROM t WHERE cond` on the executor:
+        the predicate runs as a real filter, so chunk-stat fragment
+        skipping stays live and only the matched rows reach the host.
+        Returns (rowids int64, the values' host columns, the plan)."""
+        proj = [(A.Identifier(("rowid",)), "$r")] + [
+            (e, f"$v{i}") for i, e in enumerate(value_exprs)]
+        sel = A.Select(projections=proj, from_=A.NamedTable(t.name), where=where)
+        plan = optimize(self._plan_select(sel))
+        host = self.executor.execute(plan).to_numpy()
+        return np.asarray(host[0], np.int64), host[1:], plan
+
+    def _update(self, st: A.Update) -> None:
+        t = self.catalog.get_table(st.table)
+        assigned = [(_col_of(t, name), expr) for name, expr in st.assignments]
+        if any(cd.type.is_array or cd.type.is_geo for cd, _ in assigned):
+            raise NotSupported("UPDATE of array or geo columns")
+        rowids, vals, plan = self._matched_rows_and_values(
+            t, st.where, [e for _, e in assigned])
+        self.last_mutation = dict(rows=int(rowids.shape[0]), fragments=[])
+        if rowids.shape[0] == 0:
+            return None
+        new_cols = {}
+        for i, ((cd, _), arr) in enumerate(zip(assigned, vals), start=1):
+            src_ti = plan.types[i]
+            if cd.type.is_dict_string:
+                src_ref = _node_dict_ref(plan, i)
+                arr = arr.astype(np.int32)
+                if src_ref != (t.table_id, cd.col_id):
+                    # values of another dictionary (a literal's transient
+                    # one, a transform's) re-intern into the column's
+                    src = self.dict_by_ref(src_ref) if src_ref else None
+                    if src is None:
+                        raise NotSupported("UPDATE from computed strings")
+                    arr = t.dict_for(cd.col_id).get_or_add_bulk(src.get_strings(arr))
+            elif cd.type.is_none_string:
+                # the plan ran the column as lazy-dictionary ids: store the
+                # strings themselves in the object chunk
+                src_ref = _node_dict_ref(plan, i)
+                src = self.dict_by_ref(src_ref) if src_ref else None
+                if src is None:
+                    raise NotSupported("UPDATE from computed strings")
+                strings = src.get_strings(np.asarray(arr).astype(np.int64))
+                arr = np.empty(len(strings), object)
+                arr[:] = strings
+            elif src_ti.kind != cd.type.kind or (
+                    cd.type.is_decimal and src_ti.scale != cd.type.scale):
+                arr = _host_cast_array(arr, src_ti, cd.type)
+            new_cols[cd.col_id] = arr
+        old_gen = t.generation
+        self.last_mutation["fragments"] = t.update_rows_at(rowids, new_cols)
+        self.executor.patch_cache_update(t, old_gen, rowids, new_cols)
+        return None
+
+    def _delete(self, st: A.Delete) -> None:
+        t = self.catalog.get_table(st.table)
+        if st.where is None:
+            self.last_mutation = dict(rows=t.num_rows,
+                                      fragments=[f.fragment_id for f in t.fragments])
+            t.delete_all()
+            return None
+        rowids, _, _ = self._matched_rows_and_values(t, st.where, [])
+        self.last_mutation = dict(rows=int(rowids.shape[0]), fragments=[])
+        if rowids.shape[0]:
+            old_gen, old_n = t.generation, t.num_rows
+            self.last_mutation["fragments"] = t.delete_rows_at(rowids)
+            self.executor.patch_cache_delete(t, old_gen, old_n, rowids)
+        return None
 
     def _insert_values(self, st: A.InsertValues) -> None:
         t = self.catalog.get_table(st.table)
@@ -330,6 +489,7 @@ def load_state(db: Database, tables, dicts=None, fragment_size=None) -> None:
                 np.asarray(columns[key]).astype(cd.type.np_dtype(), copy=False))
         if arrays and next(iter(arrays.values())).shape[0]:
             t.insert_columns(arrays)
+    db.executor.drop_stale()
 
 
 _DEVICE_COLUMN_TYPES = {
@@ -378,6 +538,24 @@ def _const_value(e: E.Expr, target: T.TypeInfo):
             return str(e.value)
         return _const_cast(e.value, e.type, target)
     raise NotSupported("INSERT VALUES requires constant expressions")
+
+
+def _host_cast_array(arr: np.ndarray, src: T.TypeInfo, dst: T.TypeInfo) -> np.ndarray:
+    """A host column from src's physical representation to dst's, NULLs
+    kept (DECIMAL scaled; an integer target truncates)."""
+    nulls = np.isnan(arr) if arr.dtype.kind == "f" else arr == src.null_sentinel()
+    real = arr.astype(np.float64)
+    if src.is_decimal:
+        real = real / 10**src.scale
+    dt = dst.np_dtype()
+    if dst.is_decimal:
+        out = np.round(real * 10**dst.scale).astype(np.int64)
+    elif dt.kind == "f":
+        out = real.astype(dt)
+    else:
+        out = np.trunc(real).astype(dt)
+    out[nulls] = np.nan if dt.kind == "f" else dst.null_sentinel()
+    return out
 
 
 def _iter_all_exprs(node):

@@ -1,8 +1,8 @@
 """Compound work-unit kernel builder.
 
 Port of heavydb_tpu/exec/compound_kernel.py: join builds and probes ->
-filter mask -> projection, or -> keyless / perfect-hash / radix / sort
-group-by with aggregates -> HAVING -> compaction.  The reference traces one
+filter mask -> projection, or -> keyless / perfect-hash / radix / hash /
+sort group-by with aggregates -> HAVING -> compaction.  The reference traces one
 closure per Compound into a single XLA program; torch runs the same
 closure eagerly, op by op, with the group-by aggregates in the
 hand-written kernels (ops/groupby.py, kernels/radix_groupby.py) and the
@@ -14,10 +14,10 @@ slot (`idx`, None = the identity over input 0) and a matched flag (False
 capacity, or keeps it when the build's keys are unique.  The closure
 returns a dict with the output columns, the exact row count, the group
 count, each join level's exact needed capacity, duplicate-build and
-hash-miss flags, the radix tier's overflow bits and the error flags; the
-control scalars also ride packed in one int64 tensor ('ctrl_vec') that the
-executor reads with a single host copy.  The geo join and the hash
-group-by strategy raise NotSupported.
+hash-miss flags, the radix tier's overflow bits, the hash tier's
+unresolved rows and the error flags; the control scalars also ride packed
+in one int64 tensor ('ctrl_vec') that the executor reads with a single
+host copy.
 """
 
 from __future__ import annotations
@@ -28,7 +28,6 @@ from typing import Dict, Optional
 import torch
 
 from heavydb_tpu_torch import types as T
-from heavydb_tpu_torch.errors import NotSupported
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler, and_valid
 from heavydb_tpu_torch.kernels import radix_groupby as RG
@@ -76,7 +75,8 @@ def ctrl_keys(d) -> list:
     """Control scalars the executor reads after every kernel run, in
     deterministic order; they also ride packed in one int64 tensor
     ('ctrl_vec') so the host reads them with one copy."""
-    return sorted(k for k in d if k in ("n_out", "num_groups", "radix_overflow")
+    return sorted(k for k in d if k in ("n_out", "num_groups", "radix_overflow",
+                                         "hash_unresolved")
                   or k.startswith(("join_needed_", "join_hash_miss_", "join_dup_",
                                    "err_")))
 
@@ -209,9 +209,6 @@ def build_compound_kernel(node, batches, plan, device):
 
     strategy = plan.group_strategy
     cap = plan.group_cap
-    if node.is_aggregate and strategy[0] not in ("perfect", "keyless",
-                                                 "radix", "sort"):
-        raise NotSupported(f"the {strategy[0]} group-by strategy")
     n_inputs = len(batches)
     offsets = list(plan.offsets)
     batch_cols = [(bi, [ci for ci, c in enumerate(b.cols) if c is not None])
@@ -566,6 +563,20 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
             else:
                 kbuf = (coord + mn).to(dt)
             key_out_tvs.append((kbuf, (coord < extent) if has_nulls else None))
+    elif kind == "hash":
+        # sparse keys: slot claiming over the packed keys (the reference's
+        # GroupByBaselineHash open addressing); the keys come straight from
+        # the claim tables, with no segment-min scan
+        spec = strategy[1]
+        packed = G.pack_group_keys(key_tvs, spec)
+        gid, slots, unresolved, slot_keys = G.hash_group_ids(packed, mask, cap)
+        res["hash_unresolved"] = unresolved
+        # an unresolved row holds the id `slots`: out of every aggregate
+        # (the run is discarded and retried with a larger table)
+        agg_gid, agg_mask = gid, mask & (gid < slots)
+        num_groups = torch.tensor(slots, dtype=torch.int32)
+        key_out_tvs = G.unpack_group_keys(slot_keys, spec,
+                                          [g.type for g in node.group_exprs])
     elif kind == "keyless":
         slots = 1
         agg_gid = torch.where(mask, 0, 1).to(torch.int32)
@@ -631,7 +642,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
     if partials is None:
         partials, present_counts = AGG.accumulate_all(
             lowered, agg_kc, agg_gid, agg_mask, slots,
-            want_present=kind == "perfect", segs=segs)
+            want_present=kind in ("perfect", "hash"), segs=segs)
     if segs is not None:
         # one compaction materializes every deferred per-group array
         segs.flush()
@@ -641,7 +652,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
                         else None) for a, b in key_out_tvs]
     merge_masked_flags(aflags, mask)
     agg_tvs = [la.finalize(p, kc.aux) for la, p in zip(lowered, partials)]
-    if kind == "perfect":
+    if kind in ("perfect", "hash"):
         present = present_counts > 0
     elif kind == "keyless":
         present = torch.ones(1, dtype=torch.bool, device=device)

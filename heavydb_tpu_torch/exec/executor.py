@@ -9,7 +9,7 @@ capacity and the radix tier's overflow), the join planning of
 `_plan_compound` (filter push-down, key packing, perfect / hash / sorted
 builds, the CROSS watchdog, outer-join nullability of group keys) with the
 runtime join reorder and its selectivity probe, the group-by strategy
-choice (keyless, perfect hash, radix, sort), fragment-wave streaming of
+choice (keyless, perfect hash, radix, hash, sort), fragment-wave streaming of
 decomposable aggregates (`_stream_plan`, `_exec_compound_streamed`), the
 kernel cache and `_postprocess`; ORDER BY, LIMIT and OFFSET (`_exec_sort`:
 the keyless slice, the full sort, the single-key and packed composite-key
@@ -21,15 +21,19 @@ ENCODING NONE columns as ids of their table's lazy dictionary.  Torch
 runs eagerly, so there is no jit and no artifact cache; the control
 scalars of each Compound run still reach the host in one read, and a Sort
 node reads nothing back.  Before a join Compound launches, its bytes are
-held to the card's free memory (`_check_join_memory`).
+held to the card's free memory (`_check_join_memory`).  After an UPDATE
+or a DELETE the resident full-table columns move to the table's new
+generation on the device (`patch_cache_update`, `patch_cache_delete`), and
+every statement that changes a table drops what no query can read again
+(`drop_stale`).
 
 Uncorrelated subqueries run first and become constants in place
 (`_substitute_subqueries`, `_eval_subquery`: scalar, EXISTS, IN / NOT IN);
 UNION ALL concatenates its inputs (`_exec_union`), and UNION DISTINCT,
 INTERSECT / EXCEPT and GROUPING SETS / ROLLUP / CUBE are Compounds over it.
 Every tensor lives on the executor's one explicit device.  Window,
-Unnest, the geo join, a subquery left after substitution and the hash
-group-by tier raise NotSupported.
+Unnest, the geo join and a subquery left after substitution raise
+NotSupported.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch import types as T
-from heavydb_tpu_torch.errors import (DeviceMemoryExceeded, DivisionByZero,
+from heavydb_tpu_torch.errors import (CatalogError, DeviceMemoryExceeded, DivisionByZero,
                                       ExecutionError, NotSupported, WatchdogException)
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import radix_tier as RT
@@ -57,6 +61,7 @@ from heavydb_tpu_torch.plan import rel_alg as R
 from heavydb_tpu_torch.plan.builder import _const_cast
 from heavydb_tpu_torch.plan.select_planner import _node_dict_ref
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
+from heavydb_tpu_torch.storage.table import torch_to_np_dtype
 from heavydb_tpu_torch.utils.timer import NullTimer
 
 # capacity retries of one Compound: a sort-tier or radix cap miss converges
@@ -159,6 +164,13 @@ class Executor:
         self._sel_cache: Dict[tuple, int] = {}
         # each join Compound the last execute() ran: its builds, caps, retries
         self.join_runs: List[JoinRun] = []
+        # host-to-device bytes of scanned columns, aux tables and cache
+        # patches; scan-cache keys a mutation dropped rather than moved
+        self.h2d_bytes = 0
+        self.cache_keys_dropped = 0
+        # the hash tier's NDV estimates by (table, generation, key fields),
+        # pruned by drop_stale
+        self._ndv_cache: Dict[tuple, Optional[int]] = {}
 
     # ------------------------------------------------------------------
     # entry
@@ -279,10 +291,110 @@ class Executor:
         memo[node.id] = out
         return out
 
+    # ---- scan-cache moves for UPDATE / DELETE / TRUNCATE ----
+    # A mutation bumps the table's generation, which is part of every scan
+    # cache key.  Instead of an O(table) upload at the next query, the
+    # resident full-table columns move to the new generation on the device:
+    # a scatter of the new values for an UPDATE, a gather of the kept rows
+    # for a DELETE.  Both make new tensors, so a tensor the caller gave
+    # `load_table_device` (which the cache may hold itself) is never written.
+    # A fragment-subset entry, or a TEXT ENCODING NONE column (its lazy
+    # dictionary re-interns in the new generation), is dropped and counted.
+    def _old_entries(self, t, old_gen: int):
+        """The (key, tensor) entries of t's generation old_gen, removed
+        from the cache, full-table ones only; the others are dropped."""
+        out = []
+        for key, arr in list(self.scan_cache.items()):
+            if key[0] != t.table_id or key[1] != old_gen:
+                continue
+            self.scan_cache.pop(key)
+            cd = t.column_by_id(key[2])
+            if key[4] is not None or cd.type.is_none_string:
+                self.cache_keys_dropped += 1
+                continue
+            out.append((key, arr))
+        return out
+
+    def patch_cache_update(self, t, old_gen: int, rowids: np.ndarray,
+                           new_cols: Dict[int, np.ndarray]) -> None:
+        """Move t's resident columns from old_gen to its generation; each
+        updated column gets the new values (aligned with rowids, the
+        global row positions) by a device scatter."""
+        rid = None
+        for (tid, _, cid, size, _), arr in self._old_entries(t, old_gen):
+            if cid in new_cols:
+                if rid is None:
+                    rid = self._to_device(np.asarray(rowids, np.int64))
+                vals = np.asarray(new_cols[cid]).astype(
+                    torch_to_np_dtype(arr.dtype), copy=False)
+                arr = arr.index_put((rid,), self._to_device(vals))
+            self.scan_cache[(tid, t.generation, cid, size, None)] = arr
+
+    def patch_cache_delete(self, t, old_gen: int, old_num_rows: int,
+                           rowids: np.ndarray) -> None:
+        """Move t's resident columns from old_gen to its generation by a
+        device gather of the rows that stay (rowids: the deleted rows'
+        global positions), null-padded to the new row bucket."""
+        new_n = t.num_rows
+        new_size = B.bucket(new_n)
+        keep = None
+        for (tid, _, cid, _, _), arr in self._old_entries(t, old_gen):
+            if keep is None:
+                gone = torch.zeros(old_num_rows, dtype=torch.bool, device=self.device)
+                gone[self._to_device(np.asarray(rowids, np.int64))] = True
+                keep = torch.nonzero(~gone).squeeze(1)
+            comp = arr[keep]
+            if new_size > new_n:
+                comp = torch.cat([comp, torch.full(
+                    (new_size - new_n,), t.column_by_id(cid).type.null_sentinel(),
+                    dtype=arr.dtype, device=arr.device)])
+            self.scan_cache[(tid, t.generation, cid, new_size, None)] = comp
+
+    def drop_stale(self) -> None:
+        """Drop, and count, every scan-cache entry of a table that is gone
+        or has changed its generation since: none can be read again (an
+        UPDATE's or a DELETE's columns were moved first).  NDV estimates of
+        such tables go too."""
+        def live(key):
+            try:
+                return self.db.catalog.get_table_by_id(key[0]).generation == key[1]
+            except CatalogError:
+                return False
+
+        for key in [k for k, _ in self.scan_cache.items()]:
+            if not live(key):
+                self.scan_cache.pop(key)
+                self.cache_keys_dropped += 1
+        for key in [k for k in self._ndv_cache if not live(k)]:
+            del self._ndv_cache[key]
+
     # ---- Scan ----
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        """One host-to-device copy, counted in h2d_bytes."""
+        host = np.ascontiguousarray(host)
+        self.h2d_bytes += host.nbytes
+        return torch.from_numpy(host).to(self.device)
+
     def _put(self, host: np.ndarray, size: int, ti) -> torch.Tensor:
-        return torch.from_numpy(
-            np.ascontiguousarray(B.pad_to(host, size, ti))).to(self.device)
+        return self._to_device(B.pad_to(host, size, ti))
+
+    def _rowids(self, t, frag_ids, n: int, size: int) -> torch.Tensor:
+        """The virtual rowid of the scanned fragments (all, or frag_ids):
+        each row's global physical position, made on the device, padded
+        with the BIGINT null."""
+        dev = self.device
+        rid = torch.full((size,), T.bigint().null_sentinel(), dtype=torch.int64, device=dev)
+        if frag_ids is None:
+            rid[:n] = torch.arange(n, dtype=torch.int64, device=dev)
+            return rid
+        gstart = np.cumsum([0] + [f.num_rows for f in t.fragments])
+        lens = [t.fragments[f].num_rows for f in frag_ids]
+        local = np.cumsum([0] + lens[:-1])
+        shift = torch.tensor([int(gstart[f] - lo) for f, lo in zip(frag_ids, local)],
+                             dtype=torch.int64, device=dev)
+        rid[:n] = torch.arange(n, dtype=torch.int64, device=dev) + torch.repeat_interleave(
+            shift, torch.tensor(lens, device=dev), output_size=n)
+        return rid
 
     def _exec_scan(self, node: R.Scan, needed, frag_ids=None) -> B.Batch:
         """Device columns of the table's fragments (all, or frag_ids),
@@ -308,11 +420,7 @@ class Executor:
             if i >= len(t.columns):
                 # virtual rowid field: GLOBAL physical row position, stable
                 # under fragment skipping (reference: Catalog's virtual rowid)
-                use = range(len(t.fragments)) if frags is None else frag_ids
-                host = np.concatenate(
-                    [np.arange(gstart[f], gstart[f + 1], dtype=np.int64)
-                     for f in use] + [np.empty(0, np.int64)])
-                cols.append(self._put(host, size, T.bigint(nullable=False)))
+                cols.append(self._rowids(t, frag_ids, n, size))
                 continue
             cd = t.columns[i]
             if cd.type.is_array or cd.type.is_geo:
@@ -702,7 +810,7 @@ class Executor:
                 d += prev
             total += d * per_slot
         if node.is_aggregate:
-            total += d * self._tier_row_bytes(node)
+            total += d * self._tier_row_bytes(node, d)
         return total
 
     def _check_join_memory(self, node: R.Compound, batches, plan) -> None:
@@ -739,7 +847,7 @@ class Executor:
             # the merge of a streamed Compound's partial rows: held to the
             # free memory, never streamed
             work_row = (sum(ti.np_dtype().itemsize for ti in inp.types)
-                        + self._tier_row_bytes(node))
+                        + self._tier_row_bytes(node, inp.num_rows))
             free = free_device_bytes(self.device, inp.num_rows * work_row)
             if free is not None and inp.num_rows * work_row > free:
                 raise DeviceMemoryExceeded(
@@ -761,7 +869,7 @@ class Executor:
         if frag_ids is None:
             frag_ids = [f.fragment_id for f in t.fragments]
         rows = [t.fragments[f].num_rows for f in frag_ids]
-        work_row = row_bytes + self._tier_row_bytes(node)
+        work_row = row_bytes + self._tier_row_bytes(node, sum(rows))
         free = free_device_bytes(self.device, sum(rows) * work_row)
         by_memory = free is not None and sum(rows) * work_row > free
         thr = self.config.stream_threshold_bytes
@@ -826,13 +934,22 @@ class Executor:
         merge_node = make_merge_node(node, wave_aggs, fin, td)
         return self._exec(merge_node, {}, set(range(merge_node.arity)))
 
-    def _tier_row_bytes(self, node: R.Compound) -> int:
+    def _tier_row_bytes(self, node: R.Compound, nrows: Optional[int] = None) -> int:
         """Device bytes a row of the Compound's group-by holds beside its
-        scanned columns, on the tier `_plan_compound` would pick, from the
-        SQL types (s: the aggregates' streams, a bool contribution mask and
-        the value each, as exec/radix_tier.py `row_bytes` counts them):
+        scanned columns, on the tier `_plan_compound` would pick for nrows
+        input rows (`_group_tier`), from the SQL types (s: the aggregates'
+        streams, a bool contribution mask and the value each, as
+        exec/radix_tier.py `row_bytes` counts them):
           keyless  1 + s        the row mask
           perfect  5 + s        the row mask and the int32 slot id
+          hash     71 + s       the row mask and the int32 slot id (5), the
+                                packed key and its hash's base (16), the
+                                unresolved and aggregate masks (2), one
+                                claim round's slot, claim and gathered
+                                claim (24), the rounds x cap claim tables
+                                (8: cap <= rows / 4), the unpacked keys and
+                                presence counts of the rounds x cap slots
+                                (16)
           radix    20 + 2s + r  gid, B5's hb, B6's stage hb and length (4 +
                                 4 + 4 + 8), the streams and B5's partitioned
                                 copy of them (2s), B6's stage records (r)
@@ -849,11 +966,13 @@ class Executor:
                                 8-byte masked copy and prefix sum of each
                                 partial (16a)"""
         s, r = RT.row_bytes(node.aggs)
-        tier = self._group_tier(node)[0]
+        tier = self._group_tier(node, nrows)[0]
         if tier == "keyless":
             return 1 + s
         if tier == "perfect":
             return 5 + s
+        if tier == "hash":
+            return 71 + s
         if tier == "radix":
             return 20 + 2 * s + r
         k = 1 + sum(np.dtype(g.type.np_dtype()).itemsize + g.type.nullable
@@ -863,23 +982,28 @@ class Executor:
                 else 3 if ag.kind in (A.STDDEV, A.VARIANCE) else 2 for ag in node.aggs)
         return 58 + k + 2 * s + 16 * a
 
-    def _group_tier(self, node: R.Compound):
-        """(tier, ranges, slots) of an aggregate Compound's group-by, known
-        before its scan: keyless; perfect or radix or sort when every key
-        has a dense range within baseline_groupby_threshold slots (slots
-        their product); else the sort tier, slots None (a query the
-        reference would run on its hash tier raises in `_plan_compound`)."""
+    def _group_tier(self, node: R.Compound, nrows: Optional[int] = None):
+        """(tier, ranges, slots) of an aggregate Compound's group-by over
+        nrows input rows (None: a Scan input's table rows), known before
+        its scan: keyless; perfect or radix or sort when every key has a
+        dense range within baseline_groupby_threshold slots (slots their
+        product); else hash where `_hash_ndv` takes it (slots its NDV
+        estimate), or sort (slots None)."""
         cfg = self.config
         if not node.group_exprs:
             return "keyless", [], 1
         ranges = _group_ranges(node)
         slots = 1
         for r in ranges:
-            if r is None or r.extent <= 0 or r.extent > cfg.baseline_groupby_threshold:
-                return "sort", ranges, None
+            if r is None or r.extent <= 0 or r.extent > cfg.baseline_groupby_threshold \
+                    or slots * (r.extent + (1 if r.has_nulls else 0)) \
+                    > cfg.baseline_groupby_threshold:
+                if nrows is None and len(node.inputs) == 1 \
+                        and isinstance(node.inputs[0], R.Scan):
+                    nrows = node.inputs[0].table.num_rows
+                ndv = self._hash_ndv(node, ranges, nrows) if nrows is not None else None
+                return ("hash", ranges, ndv) if ndv else ("sort", ranges, None)
             slots *= r.extent + (1 if r.has_nulls else 0)
-            if slots > cfg.baseline_groupby_threshold:
-                return "sort", ranges, None
         if slots <= cfg.sortagg_min_slots:
             return "perfect", ranges, slots
         return ("radix" if RT.eligible(node, ranges, slots, cfg) else "sort"), ranges, slots
@@ -1095,29 +1219,27 @@ class Executor:
             if jp.translate is not None:
                 plan.aux_specs.setdefault(jp.translate, ("translate", jp.translate))
         if node.is_aggregate and node.group_exprs:
-            tier, ranges, slots = self._group_tier(node)
+            tier, ranges, slots = self._group_tier(node, batches[0].nrows)
             padded = max(batches[0].padded, 8)
-            spec = tuple((r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges) \
-                if slots is not None else None
-            if tier == "perfect":
-                plan.group_strategy = ("perfect", spec)
-                plan.group_cap = slots
+            if tier == "hash":
+                # the hash tier, where the reference takes it: a claim
+                # table of 4 x NDV (slots) a round, at most a quarter of
+                # the rows, clamped to [4096, 2^21]
+                plan.group_strategy = ("hash", _hash_pack_spec(node.group_exprs, ranges))
+                cap = min(batches[0].padded // 4, 4 * slots)
+                plan.group_cap = B.bucket(min(max(cap, 4096), 1 << 21))
             elif slots is not None:
-                # huge dense key spaces: the radix tier when the aggregates
-                # fit its stream budget, else the sort tier; neither
-                # allocates [slots]-sized buffers
-                plan.group_strategy = ("radix", spec) if tier == "radix" else ("sort", None)
-                plan.group_cap = B.bucket(min(slots, padded))
+                spec = tuple((r.lo, r.extent, r.has_nulls, r.bucket) for r in ranges)
+                if tier == "perfect":
+                    plan.group_strategy = ("perfect", spec)
+                    plan.group_cap = slots
+                else:
+                    # huge dense key spaces: the radix tier when the
+                    # aggregates fit its stream budget, else the sort
+                    # tier; neither allocates [slots]-sized buffers
+                    plan.group_strategy = ("radix", spec) if tier == "radix" else ("sort", None)
+                    plan.group_cap = B.bucket(min(slots, padded))
             else:
-                # the reference's hash tier, where it would take it: keys
-                # that pack, a known NDV, and both a low collision depth
-                # (rows / NDV) and a small claim table; else the sort tier
-                if cfg.enable_hash_groupby \
-                        and _hash_pack_spec(node.group_exprs, ranges) is not _NO_PACK:
-                    ndv = self._estimate_group_ndv(node)
-                    if ndv is not None and max(batches[0].nrows, 1) // max(ndv, 1) <= 32 \
-                            and ndv <= (1 << 19):
-                        raise NotSupported("hash group-by")
                 plan.group_strategy = ("sort", None)
                 plan.group_cap = B.bucket(
                     min(cfg.baseline_groupby_initial_entries, padded))
@@ -1207,6 +1329,20 @@ class Executor:
         return _JoinPlan(kind=kind, probe_keys=probe_exprs, build_keys=build_exprs,
                          residual=list(residual) + recheck, pack="hash")
 
+    def _hash_ndv(self, node, ranges, nrows: int) -> Optional[int]:
+        """The estimated NDV of the group keys where the reference's rule
+        takes the hash tier, else None: the hash group-by enabled, keys
+        that pack (`_hash_pack_spec`), a known NDV, at most 32 rows a key
+        (the claims' collision depth) and at most 2^19 keys (the claim
+        table's size)."""
+        if not self.config.enable_hash_groupby \
+                or _hash_pack_spec(node.group_exprs, ranges) is _NO_PACK:
+            return None
+        ndv = self._estimate_group_ndv(node)
+        if ndv is None or max(nrows, 1) // max(ndv, 1) > 32 or ndv > (1 << 19):
+            return None
+        return ndv
+
     def _estimate_group_ndv(self, node) -> Optional[int]:
         """Chao1 distinct estimate from a host sample of the group key
         columns (the reference's `_estimate_group_ndv`, which stands in for
@@ -1224,6 +1360,14 @@ class Executor:
             if not isinstance(e, E.InputRef):
                 return None
             idxs.append(e.field_idx)
+        key = (t.table_id, t.generation, tuple(idxs))
+        if key not in self._ndv_cache:
+            self._ndv_cache[key] = self._sample_ndv(t, idxs)
+        return self._ndv_cache[key]
+
+    @staticmethod
+    def _sample_ndv(t, idxs) -> Optional[int]:
+        """`_estimate_group_ndv` over the key fields idxs of table t."""
         cols = []
         for i in idxs:
             if i >= len(t.columns):  # virtual rowid field: no chunk stats
@@ -1343,9 +1487,9 @@ class Executor:
         if hit is None:
             host = make()
             if isinstance(host, tuple):
-                hit = tuple(torch.from_numpy(h).to(self.device) for h in host)
+                hit = tuple(self._to_device(h) for h in host)
             else:
-                hit = torch.from_numpy(host).to(self.device)
+                hit = self._to_device(host)
             self.aux_cache[key] = hit
         return hit
 
@@ -1496,7 +1640,13 @@ class Executor:
                 plan.caps[li] = B.bucket(needed)
                 retry = True
         strategy = plan.group_strategy[0] if plan.group_strategy else None
-        if strategy == "sort":
+        if strategy == "hash":
+            if int(host["hash_unresolved"]) > 0:
+                # a key found no free slot in any claim round: a table four
+                # times as large
+                plan.group_cap *= 4
+                retry = True
+        elif strategy == "sort":
             ng = int(host["num_groups"])
             if ng > plan.group_cap:
                 plan.group_cap = B.bucket(ng)
@@ -1572,7 +1722,8 @@ class _CompoundPlan:
     # expansion capacity per join level (0: identity domain)
     caps: List[int] = dataclasses.field(default_factory=list)
     # ("perfect" | "radix", ((min, extent, has_nulls, bucket), ...)) |
-    # ("sort", None) | ("keyless", None)
+    # ("hash", pack spec of _hash_pack_spec) | ("sort", None) |
+    # ("keyless", None)
     group_strategy: Optional[tuple] = None
     group_cap: int = 0
     aux_specs: dict = dataclasses.field(default_factory=dict)

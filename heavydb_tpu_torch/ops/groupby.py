@@ -4,7 +4,8 @@ strategies.
 Port of heavydb_tpu/ops/groupby.py: `perfect_group_ids`, the segment
 reductions `segment_count` / `segment_sum` / `segment_minmax`,
 `_shared_scan`, the dispatcher to the group-by kernels, the sort tier
-(`sort_group_rows`, `SortedSegments`), `hash_group_ids`, and the
+(`sort_group_rows`, `SortedSegments`), the hash tier's
+`pack_group_keys`, `hash_group_ids` and `unpack_group_keys`, and the
 aggregates over distinct values, quantiles, modes and HyperLogLog
 registers (`distinct_count_per_group`, `distinct_sum_per_group`,
 `quantile_per_group`, `mode_per_group`, `hll_registers`,
@@ -512,6 +513,63 @@ def hash_group_ids(packed, mask, slots: int, rounds: int = 4):
         unresolved = unresolved & ~won
         tables.append(buf)
     return gid, total, unresolved.sum(dtype=torch.int32), torch.cat(tables)
+
+
+def pack_group_keys(key_tvs: Sequence[TV], spec):
+    """One int64 a row for the hash group-by tier's claims.
+
+    spec None: one key of any scalar type, packed as itself.  NULLs ride
+    in-band as the value dtype's sentinel, so narrowing on unpack gives it
+    back.  A FLOAT / DOUBLE key takes NaN as the NULL group and -0.0 and
+    subnormals as +0.0 (the reference compares with subnormals flushed),
+    then its bits.
+    spec ((lo, span), ...): the key tuple range-packed, each key as 1 +
+    (value - lo) clamped to [1, span + 1] with 0 for NULL, in base span + 2
+    (the planner checks that the product fits 63 bits)."""
+    if spec is None:
+        val, valid = key_tvs[0]
+        v = torch.as_tensor(val)
+        if v.is_floating_point():
+            isnull = torch.isnan(v) if valid is None else torch.isnan(v) | ~valid
+            canon = torch.where(isnull, float("nan"), _flush_subnormals(v))
+            if canon.dtype == torch.float64:
+                return canon.view(torch.int64)
+            return canon.to(torch.float32).view(torch.int32).to(torch.int64)
+        p = v.to(torch.int64)
+        if valid is not None:
+            p = torch.where(valid, p, torch.iinfo(v.dtype).min)
+        return p
+    packed = None
+    for (val, valid), (lo, span) in zip(key_tvs, spec):
+        iv = (torch.as_tensor(val).to(torch.int64) - lo + 1).clamp(1, span + 1)
+        if valid is not None:
+            iv = torch.where(valid, iv, 0)
+        packed = iv if packed is None else packed * (span + 2) + iv
+    return packed
+
+
+def unpack_group_keys(slot_keys, spec, group_types):
+    """The inverse of `pack_group_keys` over the claim table's key of each
+    slot: one (values, valid) a group key, valid None for a NOT NULL key.
+    A slot no key took holds garbage; group presence filters it out."""
+    if spec is None:
+        ti = group_types[0]
+        dt = torch_dtype(ti.np_dtype())
+        if dt.is_floating_point:
+            kv = slot_keys.view(torch.float64) if dt == torch.float64 \
+                else slot_keys.to(torch.int32).view(torch.float32)
+            return [(kv, ~torch.isnan(kv) if ti.nullable else None)]
+        kv = slot_keys.to(dt)
+        return [(kv, kv != torch.iinfo(dt).min if ti.nullable else None)]
+    rem = slot_keys
+    parts = []
+    for _, span in reversed(spec):
+        parts.append(rem % (span + 2))
+        rem = rem // (span + 2)
+    parts.reverse()
+    return [((iv - 1 + lo).to(torch_dtype(ti.np_dtype())),
+             iv != 0 if ti.nullable else None)
+            for ti, iv, (lo, span) in zip(group_types, parts, spec)]
 
 
 def distinct_count_per_group(gid, val_tv: TV, mask, num_slots: int,

@@ -8,9 +8,12 @@ columns x10 .. x10m, sparse BIGINT columns x10k_s10k and x1m_s10k, a FLOAT
 column v, random from a seed) on the CUDA device, runs each
 query (the group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP
 BY JOIN_QUERIES, the dictionary-string STRING_QUERIES, the subquery and
-set-operation SUBQ_QUERIES and the DISTINCT_QUERIES of tools/synthetic.py,
-whose dimension tables `load_dims` and whose `lstr` table `load_strings`
-add when one of them runs; each under its QUERY_SETTINGS) warm under
+set-operation SUBQ_QUERIES, the DISTINCT_QUERIES and the hash group-by
+tier's HASH_QUERIES of tools/synthetic.py, whose dimension tables
+`load_dims`, whose `lstr` table `load_strings` and whose `hsparse` table
+`load_hsparse` (HASH_ROWS rows) add when one of them runs; each under its QUERY_SETTINGS,
+and a HASH_QUERIES query also with the hash group-by off, on the sort
+tier) warm under
 torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
@@ -31,12 +34,13 @@ import torch
 
 from heavydb_tpu_torch.config import Config
 from heavydb_tpu_torch.tools.synthetic import (DISTINCT_QUERIES, FRAGMENT_ROWS,
-                                               JOIN_QUERIES, QUERIES, SORT_QUERIES,
-                                               STRING_QUERIES, SUBQ_QUERIES, load_bench,
-                                               load_dims, load_strings, query_settings)
+                                               HASH_QUERIES, HASH_ROWS, JOIN_QUERIES,
+                                               QUERIES, SORT_QUERIES, STRING_QUERIES,
+                                               SUBQ_QUERIES, load_bench, load_dims,
+                                               load_hsparse, load_strings, query_settings)
 
 ALL_QUERIES = {**QUERIES, **SORT_QUERIES, **JOIN_QUERIES, **STRING_QUERIES,
-               **SUBQ_QUERIES, **DISTINCT_QUERIES}
+               **SUBQ_QUERIES, **DISTINCT_QUERIES, **HASH_QUERIES}
 # the queries that read load_dims' tables
 DIM_QUERIES = set(JOIN_QUERIES) | {"SUBQ_IN", "SUBQ_NOT_IN"}
 
@@ -105,17 +109,26 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: needs a CUDA device")
     db = hdt.connect(config=Config(stream_threshold_bytes=args.stream_threshold))
-    load_bench(db, args.rows, args.seed, args.fragment_rows)
+    if set(args.queries) - set(HASH_QUERIES):
+        load_bench(db, args.rows, args.seed, args.fragment_rows)
     if set(args.queries) & DIM_QUERIES:
         load_dims(db, args.seed + 1)
     if set(args.queries) & set(STRING_QUERIES):
         load_strings(db, args.rows, args.seed + 4, args.fragment_rows)
+    if set(args.queries) & set(HASH_QUERIES):
+        load_hsparse(db, HASH_ROWS, args.seed + 9)
     card = torch.cuda.get_device_name(0)
     for name in args.queries:
+        rows = HASH_ROWS if name in HASH_QUERIES else args.rows
         with query_settings(db, name) as settings:
             line = profile_query(db, ALL_QUERIES[name])
-        print(json.dumps({"query": name, "rows": args.rows, "card": card, **settings,
+        print(json.dumps({"query": name, "rows": rows, "card": card, **settings,
                           **line}), flush=True)
+        if name in HASH_QUERIES:
+            # the yardstick: the same query with the hash group-by off
+            line = profile_query(db, ALL_QUERIES[name])
+            print(json.dumps({"query": name, "rows": rows, "card": card,
+                              "enable_hash_groupby": False, **line}), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,11 @@
 the synthetic benchmark's schema, the SELECTs of the port's slices (the
 group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP BY
 JOIN_QUERIES, the dictionary-string STRING_QUERIES, the subquery and set
-operation SUBQ_QUERIES and the DISTINCT-family DISTINCT_QUERIES, with the
-settings some of them run under, QUERY_SETTINGS) and the loaders that build
-the tables on the device.
+operation SUBQ_QUERIES, the DISTINCT-family DISTINCT_QUERIES and the hash
+group-by tier's HASH_QUERIES, with the settings some of them run under,
+QUERY_SETTINGS), the UPDATE / DELETE / CTAS / INSERT ... SELECT /
+TRUNCATE statements of DML_STEPS, and the loaders that build the tables on
+the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
@@ -26,6 +28,21 @@ l_shipinstruct values), `ptype` (the 150 p_type values, 6 x 5 x 5
 syllables), `cname` (`Customer#%09d`, the c_name form, 10^6 entries); each
 TEXT column uniform over its vocabulary with 1 % NULL; `x10`, `x100`,
 `x1k` INT uniform as in `bench`; `v FLOAT`.
+
+The hash tier's table (`load_hsparse`): `hsparse (k BIGINT, a INT, b INT,
+x100 INT, v FLOAT)`, 10^7 rows; k one of HASH_KEYS distinct values drawn
+once from [1, 10^10], (a, b) one of HASH_KEYS distinct pairs over
+[0, 2^20)^2, each row picking its key and its pair uniformly; x100 and v
+as in `bench`.  The reference's rule takes the hash tier only when its
+NDV estimate (`Executor._estimate_group_ndv`: the 65,536-row sample's
+distinct count plus its share of singletons times the rows not sampled)
+is at most 2^19 and at least a 32nd of the rows.  At 10^7 rows that
+holds for 20,000 uniform keys (25 rows a key by the estimate, 500 in
+truth: the estimate is ~20 x too high, so the claim table is ~80 x the
+keys) but not for 17,000 or 24,000, and HASH_KEYS_TRUE = 400,000 keys
+(25 rows a key in truth, the depth the rule is meant for) estimate past
+2^19 and run on the sort tier (tests/test_torch_hash_groupby.py
+`test_rule_window_at_ten_million_rows`).
 """
 
 from __future__ import annotations
@@ -173,9 +190,45 @@ DISTINCT_QUERIES = {
     "MODE": "SELECT x10, MODE(x100) FROM bench GROUP BY x10",
 }
 
+# the hash group-by tier over `hsparse` (load_hsparse), under QUERY_SETTINGS
+HASH_QUERIES = {
+    # one BIGINT key packed as itself; x100 > 10 masks 10 % of the rows
+    "HASH_BIGINT": "SELECT k, COUNT(*), SUM(v), MIN(x100) FROM hsparse WHERE x100 > 10 "
+                   "GROUP BY k",
+    # an (a, b) pair range-packed into one int64: 2^40 slots, past the
+    # perfect and radix tiers
+    "HASH_PAIR": "SELECT a, b, COUNT(*), SUM(v) FROM hsparse GROUP BY a, b",
+}
+HASH_KEYS = 20_000
+HASH_ROWS = 10_000_000
+# 25 rows a key at HASH_ROWS, the depth the rule (rows / NDV <= 32) is meant
+# for; its estimate is past 2^19, so the rule leaves it to the sort tier, and
+# chip_smoke.py times both tiers at it with the estimate set to the true count
+HASH_KEYS_TRUE = 400_000
+
 # Config fields a query runs under, set on the connection around it:
-# COUNT(DISTINCT) takes its hash form only with the hash group-by enabled
-QUERY_SETTINGS = {"DIST_COUNT": {"enable_hash_groupby": True}}
+# COUNT(DISTINCT) takes its hash form, and a GROUP BY the hash tier, only
+# with the hash group-by enabled
+QUERY_SETTINGS = {"DIST_COUNT": {"enable_hash_groupby": True},
+                  **{name: {"enable_hash_groupby": True} for name in HASH_QUERIES}}
+
+# UPDATE / DELETE / CREATE TABLE AS SELECT / INSERT ... SELECT / TRUNCATE on
+# `bench`, in order: (cell, statement, the follow-up queries run after it)
+DML_STEPS = [
+    # ~10^5 rows in every fragment; the follow-up runs B1 over 101 slots
+    ("DML_UPDATE", "UPDATE bench SET v = v + 1.0, x100 = 0 WHERE x1k = 5",
+     ["SELECT x100, COUNT(*), SUM(v) FROM bench WHERE x10 > 3 GROUP BY x100"]),
+    # ~10^5 rows; B3 + B2 at 1000 slots, and rowid after the compaction
+    ("DML_DELETE", "DELETE FROM bench WHERE x10k <= 10",
+     ["SELECT x1k, MIN(x10k), MAX(v), COUNT(*) FROM bench GROUP BY x1k",
+      "SELECT COUNT(*), MAX(rowid) FROM bench"]),
+    # ~3 x 10^7 rows, then ~10^7 more; B2 at 1000 slots over the new table
+    ("CTAS_INSERT", "CREATE TABLE b3 AS SELECT x10, x1k, x10m, v FROM bench WHERE x10 <= 3",
+     ["SELECT COUNT(*) FROM b3"]),
+    ("CTAS_INSERT", "INSERT INTO b3 SELECT x10, x1k, x10m, v FROM bench WHERE x10 = 10",
+     ["SELECT x1k, COUNT(*), SUM(v) FROM b3 GROUP BY x1k"]),
+    ("CTAS_INSERT", "TRUNCATE TABLE b3", ["SELECT COUNT(*) FROM b3"]),
+]
 
 
 @contextlib.contextmanager
@@ -289,3 +342,36 @@ def load_dims(db, seed: int) -> Dict[str, Dict[str, torch.Tensor]]:
         db.sql(f"CREATE TABLE {name} ({decl})")
         db.load_table_device(name, data)
     return {name: data for name, (_, data) in tables.items()}
+
+
+def load_hsparse(db, n: int, seed: int, keys: int = HASH_KEYS) -> Dict[str, torch.Tensor]:
+    """CREATE TABLE hsparse and load `n` random rows made on db's device
+    from `seed` (the module docstring's schema, with `keys` distinct keys
+    and pairs); returns the device columns."""
+    gen = torch.Generator(device=db.device)
+    gen.manual_seed(seed)
+    dev = db.device
+
+    def distinct(lo, hi):
+        # `keys` distinct values of [lo, hi), in random order
+        while True:
+            v = torch.unique(torch.randint(lo, hi, (keys + keys // 8,), dtype=torch.int64,
+                                           device=dev, generator=gen))
+            if v.shape[0] >= keys:
+                pick = torch.randperm(v.shape[0], device=dev, generator=gen)[:keys]
+                return v[pick]
+
+    def rows():
+        return torch.randint(0, keys, (n,), device=dev, generator=gen)
+
+    kvals = distinct(1, 10**10 + 1)
+    pairs = distinct(0, 1 << 40)
+    pr = pairs[rows()]
+    data = {"k": kvals[rows()], "a": (pr >> 20).to(torch.int32),
+            "b": (pr & ((1 << 20) - 1)).to(torch.int32),
+            "x100": torch.randint(1, 101, (n,), dtype=torch.int32, device=dev, generator=gen),
+            "v": torch.rand(n, dtype=torch.float32, device=dev, generator=gen)}
+    db.sql("CREATE TABLE hsparse (k BIGINT, a INT, b INT, x100 INT, v FLOAT) "
+           f"WITH (fragment_size={FRAGMENT_ROWS})")
+    db.load_table_device("hsparse", data)
+    return data
