@@ -129,12 +129,37 @@ printing JSON lines:
            its follow-up queries against a numpy model of the tables (no
            upload after an UPDATE or a DELETE: the cache was patched on the
            card), with warm ms and launches
+  geo      load_geo's tables made from the seed (tools/synthetic.py: 10^7
+           GEOINT32 pickups over the NYC box, 263 jittered grid zones of 64
+           vertices, some with a hole, 2000 stations; the load's seconds on
+           a line of its own), then GEO_QUERIES: an ST_DWithin filter, the
+           zone join (poly_build grid join, the CONTAINS_SEG ray cast, B2
+           over 263 slots) and the station join (dwithin grid join); each
+           equal to rows independent of the engine (numpy for the filter,
+           a brute force of every point against every zone or station in
+           plain torch float64 on the card for the joins), with its first
+           and warm ms, join builds, caps and retries, peak device bytes,
+           launches (counted from 0 for this phase), the ray cast's ms
+           apart, and a torch.profiler breakdown (busy, idle share, the ray
+           cast's device ms and launches)
+  geo_shapes  every ST_* of the reference's geo suites, the three grid-join
+           kinds (poly_probe included), holes, multipolygons, NULL and
+           GEOINT32 geometries on small tables: the same rows on CUDA as on
+           the CPU
+  arrays   load_arrays' arr (10^7 rows of 0-8 INT elements) and
+           ARRAY_QUERIES (UNNEST under GROUP BY, ANY with a subscript),
+           measured as the geo cells against numpy over the generator's
+           elements
+  array_shapes  every ArrayFn op, UNNEST in the projection, under GROUP BY,
+           after a filter and over TEXT[], CTAS, INSERT ... SELECT and
+           DELETE with arrays: the same rows on CUDA as on the CPU
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
 Then each new phase's seconds, the script's wall time, the kernel summary
 line (its launches are those of the e2e, sort, join, subq, distinct,
-strings, hash and dml phases), the card line, and the final {"ok": true,
+strings, hash, dml, geo, geo_shapes, arrays and array_shapes phases), the
+card line, and the final {"ok": true,
 "device": ...} line.  Any failure exits non-zero.
 """
 
@@ -1144,6 +1169,11 @@ ROUTES = {
     # the hash phase: the hash tier aggregates over 4 x ~1.8M claim slots,
     # past every kernel (plain scatters); the sort tier is plain torch
     "HASH_BIGINT": set(), "HASH_PAIR": set(),
+    # the geo and arrays phases: the aux tables are host numpy, the grid
+    # join and the ray cast plain torch; GEO_ZONE_JOIN's group-by over the
+    # 263 zones is B2; an UNNEST column has no key range (the sort tier)
+    "GEO_DWITHIN": set(), "GEO_ZONE_JOIN": {"radix_hist"}, "GEO_NEAR_JOIN": set(),
+    "ARR_UNNEST_GROUP": set(), "ARR_ANY_SUBSCRIPT": set(),
 }
 def check_route(name, delta) -> None:
     """Raise unless the query launched exactly the kernels ROUTES names
@@ -1990,7 +2020,7 @@ def run_strings(db, counters, n: int = STRING_ROWS):
                         launches=dict(zip(KERNEL_NAMES, delta)))
             if name == "STR_LIKE_1M":
                 plan = optimize(db._plan_select(parse_many(q)[0]))
-                specs = X._string_aux_specs(
+                specs = X._expr_aux_specs(
                     e for node in R.topo_order(plan) for e in X._iter_node_exprs(node))
                 cached = [k for k in ex.aux_cache if k[0] == "strpred"
                           and any(k[3] == sk for sk in specs)]
@@ -2935,18 +2965,20 @@ class _CopySpy:
 
 class _Split:
     """ms spent in each named method during the body, the card synchronised
-    around each call; a method called inside another is timed in both."""
+    around each call; a method called inside another is timed in both.
+    targets: (class or module, name) pairs, by default the DML path's."""
 
-    def __init__(self):
+    def __init__(self, targets=None):
         from heavydb_tpu_torch.api import Database
         from heavydb_tpu_torch.exec.executor import Executor
         from heavydb_tpu_torch.storage.table import Fragment, LazyDeviceChunk, Table
 
-        self.targets = [(Database, "_matched_rows_and_values"), (Executor, "execute"),
-                        (LazyDeviceChunk, "_materialize"), (Fragment, "compute_stats"),
-                        (Table, "update_rows_at"), (Table, "delete_rows_at"),
-                        (Table, "insert_columns"), (Executor, "patch_cache_update"),
-                        (Executor, "patch_cache_delete")]
+        self.targets = targets or [
+            (Database, "_matched_rows_and_values"), (Executor, "execute"),
+            (LazyDeviceChunk, "_materialize"), (Fragment, "compute_stats"),
+            (Table, "update_rows_at"), (Table, "delete_rows_at"),
+            (Table, "insert_columns"), (Executor, "patch_cache_update"),
+            (Executor, "patch_cache_delete")]
         self.ms = {}
 
     def __enter__(self):
@@ -3106,6 +3138,426 @@ def run_dml(db, host, counters):
     return out, [c.launches for c in counters]
 
 
+# ---------------------------------------------------------------------------
+# geo and arrays phases
+# ---------------------------------------------------------------------------
+
+# GEOINT32's published decode constants (the reference's
+# Geospatial/CompressionRuntime.h): degrees = int32 x constant
+GEOINT32_DX = 8.3819031754424345e-08
+GEOINT32_DY = 4.1909515877212172e-08
+INT32_NULL = int(np.iinfo(np.int32).min)
+# the join residual's ray cast over a chunk of this many points x every
+# zone segment (float64 temporaries of ~1.2 GB each)
+BRUTE_POINTS = 8192
+BRUTE_NEAR_POINTS = 1 << 16
+
+
+def decoded(xy: np.ndarray):
+    """float64 lon, lat of [n, 2] GEOINT32 coordinates."""
+    return xy[:, 0] * GEOINT32_DX, xy[:, 1] * GEOINT32_DY
+
+
+def zone_segments(zones):
+    """float64 [Z, S] x1, y1, x2, y2 of every ring segment of each zone
+    (its wrap edge included), decoded from the stored int32 payloads
+    ([rings, +-coords a ring, coords...]); a zone with fewer segments is
+    padded with ones at y = inf, which no ray crosses."""
+    rows = []
+    for _, row in zones:
+        nr = int(row[0])
+        off, parts = 1 + nr, []
+        for sz in row[1:1 + nr].tolist():
+            c = row[off:off + abs(sz)]
+            off += abs(sz)
+            x, y = c[0::2] * GEOINT32_DX, c[1::2] * GEOINT32_DY
+            parts.append((x, y, np.roll(x, -1), np.roll(y, -1)))
+        rows.append([np.concatenate(p) for p in zip(*parts)])
+    width = max(r[0].shape[0] for r in rows)
+    out = np.zeros((4, len(rows), width))
+    out[1, :, :] = out[3, :, :] = np.inf
+    for z, r in enumerate(rows):
+        for k in range(4):
+            out[k, z, :r[k].shape[0]] = r[k]
+    return out
+
+
+def expected_geo(name, g):
+    """{key: row} of a GEO_QUERIES cell, independent of the engine: numpy
+    over the generator's coordinates for the filter; for the joins, every
+    point against every zone (the even-odd crossing expression of the
+    reference's CONTAINS_SEG, term for term) or every station (its
+    distance expression), in plain torch float64 on the card, in chunks of
+    points."""
+    x, y = decoded(g["trips_xy"])
+    live = ~g["trips_null"]
+    if name == "GEO_DWITHIN":
+        dx, dy = x - -73.9857, y - 40.7484
+        return {(): (int((live & (np.sqrt(dx * dx + dy * dy) <= 0.01)).sum()),)}
+    dev = torch.device("cuda")
+    tx, ty = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    tlive = torch.from_numpy(live).to(dev)
+    if name == "GEO_NEAR_JOIN":
+        sx, sy = (torch.from_numpy(c).to(dev)[None, :] for c in decoded(g["stations_xy"]))
+        total = 0
+        for a in range(0, tx.shape[0], BRUTE_NEAR_POINTS):
+            dx = tx[a:a + BRUTE_NEAR_POINTS, None] - sx
+            dy = ty[a:a + BRUTE_NEAR_POINTS, None] - sy
+            hit = (torch.sqrt(dx * dx + dy * dy) <= 0.002) & tlive[a:a + BRUTE_NEAR_POINTS, None]
+            total += int(hit.sum())
+        return {(): (total,)}
+    x1, y1, x2, y2 = (torch.from_numpy(s).to(dev)[None] for s in zone_segments(g["zones"]))
+    fare = torch.from_numpy(g["fare"]).to(dev)
+    Z = x1.shape[1]
+    cnt, fsum = tx.new_zeros(Z, dtype=torch.int64), tx.new_zeros(Z)
+    for a in range(0, tx.shape[0], BRUTE_POINTS):
+        px = tx[a:a + BRUTE_POINTS, None, None]
+        py = ty[a:a + BRUTE_POINTS, None, None]
+        cr = ((y1 > py) != (y2 > py)) & (
+            px < (x2 - x1) * (py - y1) / torch.where(y2 == y1, 1e-300, y2 - y1) + x1)
+        inside = (cr.sum(-1) % 2 == 1) & tlive[a:a + BRUTE_POINTS, None]
+        cnt += inside.sum(0)
+        fsum += (inside * fare[a:a + BRUTE_POINTS, None]).sum(0)
+    cnt, fsum = cnt.cpu().numpy(), fsum.cpu().numpy()
+    return {(int(zid),): (int(cnt[z]), float(fsum[z] / cnt[z]))
+            for z, (zid, _) in enumerate(g["zones"]) if cnt[z]}
+
+
+def expected_array_cells(name, a):
+    """{key: row} of an ARRAY_QUERIES cell: numpy over the generator's flat
+    elements (INT32_MIN a NULL element) and row offsets."""
+    flat, offs = a["flat"], a["offsets"]
+    ok = flat != INT32_NULL
+    if name == "ARR_UNNEST_GROUP":
+        counts = np.bincount(flat[ok], minlength=1)
+        want = {(int(v),): (int(c),) for v, c in enumerate(counts) if c}
+        if (~ok).any():
+            want[(None,)] = (int((~ok).sum()),)
+        return want
+    n = offs.shape[0] - 1
+    lengths = np.diff(offs)
+    row_of = np.repeat(np.arange(n), lengths)
+    has7 = np.bincount(row_of[flat == 7], minlength=n) > 0
+    first = flat[np.minimum(offs[:-1], max(flat.shape[0] - 1, 0))]
+    hit = has7 & ~a["null"] & (lengths > 0) & (first != INT32_NULL) & (first < 500)
+    return {(): (int(hit.sum()), float(a["w"][hit].sum()))}
+
+
+def _cell(db, name, q, want, n_keys, counters, spy):
+    """One geo or array cell: the first run (its aux tables built, checked
+    against want), the join runs, five warm runs with their peak device
+    bytes, the tier of each Compound, the launches of the cell
+    (against ROUTES), a run with the ray cast timed apart, and a
+    torch.profiler breakdown (tools/profile_queries.py)."""
+    from heavydb_tpu_torch.exec import expr_compiler as XC
+    from heavydb_tpu_torch.tools.profile_queries import profile_query
+
+    before = [c.launches for c in counters]
+    del spy.runs[:]
+    t0 = time.perf_counter()
+    rows = db.sql(q).rows()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    tiers = [r[0] for r in spy.runs]
+    nrows = check_rows(name, rows, want, n_keys, ())
+    joins = [dict(builds=r.builds, caps=r.caps, retries=r.retries)
+             for r in db.executor.join_runs]
+    warm, reps, peak = warm_ms(db, q)
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route(name, delta)
+    with _Split([(XC, "ray_cast")]) as split:
+        t0 = time.perf_counter()
+        db.sql_device(q)
+        torch.cuda.synchronize()
+        split_ms = (time.perf_counter() - t0) * 1e3
+    prof = profile_query(db, q)
+    return dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms,
+                warm_ms=warm, warm_runs_ms=reps, tiers=tiers, joins=joins,
+                peak_device_bytes=peak, launches=dict(zip(KERNEL_NAMES, delta)),
+                ray_cast_ms=split.ms.get("ray_cast"),
+                run_with_ray_cast_synced_ms=split_ms, profile=prof)
+
+
+def run_geo(db, counters):
+    """load_geo's trips (10^7 points), zones and stations, then each
+    GEO_QUERIES cell with the launch counters set to 0 before the first
+    (`_cell`), against the engine-independent expected rows.  Returns the
+    lines (the load's seconds first) and each kernel's launches in the
+    phase."""
+    from heavydb_tpu_torch.tools.synthetic import GEO_QUERIES, TRIPS_ROWS, load_geo
+
+    t0 = time.perf_counter()
+    g = load_geo(db, SEED + 11)
+    load_s = time.perf_counter() - t0
+    out = [dict(query="load_geo", make_and_load_s=load_s,
+                rows=dict(trips=TRIPS_ROWS, zones=len(g["zones"]),
+                          stations=int(g["stations_xy"].shape[0])))]
+    for c in counters:
+        c.launches = 0  # the geo path starts here
+    with _RunSpy() as spy:
+        for name, q in GEO_QUERIES.items():
+            t0 = time.perf_counter()
+            want = expected_geo(name, g)
+            expected_s = time.perf_counter() - t0
+            line = _cell(db, name, q, want, 1 if name == "GEO_ZONE_JOIN" else 0,
+                         counters, spy)
+            line["expected_s"] = expected_s
+            out.append(line)
+    # each table's first use: the first run of the first cell that reads it
+    # (its aux tables built on the host and copied to the card)
+    first = {ln["query"]: ln["first_with_decode_ms"] / 1e3 for ln in out[1:]}
+    out[0]["first_use_s"] = dict(trips=first["GEO_DWITHIN"], zones=first["GEO_ZONE_JOIN"],
+                                 stations=first["GEO_NEAR_JOIN"])
+    out.append(ray_cast_gathers(g))
+    return out, [c.launches for c in counters]
+
+
+def ray_cast_gathers(g, n: int = 1 << 24) -> dict:
+    """One pass's segment gathers of the ray cast at its chunk of n pair
+    rows over the zones' segments: four 1-D gathers (expr_compiler.ray_cast)
+    beside one row gather of the same [segments, 4] table."""
+    x1, y1, x2, y2 = zone_segments(g["zones"]).reshape(4, -1)
+    real = np.isfinite(y1)  # not a padding segment
+    segs = [torch.from_numpy(np.ascontiguousarray(a[real])).to("cuda")
+            for a in (x1, y1, x2, y2)]
+    seg4 = torch.stack(segs, 1)
+    j = torch.from_numpy(np.random.default_rng(SEED + 15).integers(0, seg4.shape[0], n)).to(
+        "cuda")
+    return dict(query="ray_cast_gathers", rows=n, segments=int(seg4.shape[0]),
+                gathers_1d_ms=timed(lambda: [s[j] for s in segs], 10),
+                row_gather_ms=timed(lambda: seg4[j], 10))
+
+
+def run_arrays(db, counters):
+    """load_arrays' arr (10^7 rows), then each ARRAY_QUERIES cell as
+    run_geo's, against numpy over the generator's elements."""
+    from heavydb_tpu_torch.tools.synthetic import ARRAY_QUERIES, ARRAY_ROWS, load_arrays
+
+    t0 = time.perf_counter()
+    a = load_arrays(db, ARRAY_ROWS, SEED + 12)
+    load_s = time.perf_counter() - t0
+    out = [dict(query="load_arrays", make_and_load_s=load_s, rows=ARRAY_ROWS,
+                elements=int(a["flat"].shape[0]))]
+    for c in counters:
+        c.launches = 0  # the arrays path starts here
+    with _RunSpy() as spy:
+        for name, q in ARRAY_QUERIES.items():
+            want = expected_array_cells(name, a)
+            out.append(_cell(db, name, q, want, 1 if name == "ARR_UNNEST_GROUP" else 0,
+                             counters, spy))
+    out[0]["first_use_s"] = dict(arr=out[1]["first_with_decode_ms"] / 1e3)
+    return out, [c.launches for c in counters]
+
+
+# small geo tables: every ST_* of the reference's geo suites, the three
+# grid-join kinds, holes, multipolygons, NULL geometries, GEOINT32 and
+# uncompressed columns, on CUDA against the same port on the CPU
+GEO_SHAPE_TABLES = [
+    "CREATE TABLE geo (id INT, p POINT, zone GEOMETRY(POLYGON, 4326))",
+    "INSERT INTO geo VALUES (1, 'POINT(1 1)', 'POLYGON((0 0, 4 0, 4 4, 0 4, 0 0))'), "
+    "(2, 'POINT(10 10)', 'POLYGON((0 0, 2 0, 2 2, 0 2, 0 0))'), (3, NULL, NULL)",
+    "CREATE TABLE pts2 (a POINT, b POINT)",
+    "INSERT INTO pts2 VALUES ('POINT(0 0)', 'POINT(3 4)')",
+    "CREATE TABLE ln (path LINESTRING)",
+    "INSERT INTO ln VALUES ('LINESTRING(0 0, 3 4, 3 8)')",
+    "CREATE TABLE mr (poly POLYGON, mp MULTIPOLYGON)",
+    "INSERT INTO mr VALUES ('POLYGON((0 0, 10 0, 10 10, 0 10), (4 4, 6 4, 6 6, 4 6))', "
+    "'MULTIPOLYGON(((0 0, 2 0, 2 2, 0 2)), ((5 5, 7 5, 7 7, 5 7)))')",
+    "CREATE TABLE si (poly POLYGON, ln LINESTRING, p POINT)",
+    "INSERT INTO si VALUES ('POLYGON((0 0, 4 0, 4 4, 0 4))', 'LINESTRING(-1 -1, 5 5)', "
+    "'POINT(2 2)'), ('POLYGON((10 10, 12 10, 12 12, 10 12))', 'LINESTRING(20 20, 21 21)', "
+    "'POINT(30 30)')",
+    "CREATE TABLE cz (id INT, z POLYGON, p POINT)",
+    "INSERT INTO cz VALUES (1, 'POLYGON((0 0, 4 0, 4 4, 0 4, 0 0),(2 1, 3 1, 3 2, 2 2, 2 1))', "
+    "'POINT(3 7)'), (2, 'POLYGON((0 0, 2 0, 2 6, 0 6, 0 0))', 'POINT(1 1)'), (3, NULL, NULL)",
+    "CREATE TABLE g (a GEOMETRY(POINT, 4326), b GEOMETRY(POINT, 4326) ENCODING NONE, c POINT)",
+    "INSERT INTO g VALUES ('POINT(1.5 2.5)', 'POINT(1.5 2.5)', 'POINT(1.5 2.5)'), "
+    "('POINT(-122.4194 37.7749)', NULL, 'POINT(-73.9857 40.7484)')",
+    "CREATE TABLE gb (id INT, z POLYGON, l LINESTRING)",
+    "INSERT INTO gb VALUES (1, 'POLYGON((1 2, 5 2, 5 8, 1 8, 1 2))', "
+    "'LINESTRING(0 0, 3 4, -2 1)'), (2, NULL, NULL)",
+    "CREATE TABLE cpts (g GEOMETRY(POINT))",
+    "INSERT INTO cpts VALUES ('POINT (10 20)')",
+    "CREATE TABLE ply (g GEOMETRY(POLYGON))",
+    "INSERT INTO ply VALUES ('POLYGON ((0 0, 4 0, 4 4, 0 4))')",
+    "CREATE TABLE th (g GEOMETRY(POLYGON))",
+    "INSERT INTO th VALUES ('POLYGON ((0 0, 4 0, 4 4, 0 4), (1 1, 3 1, 3 3, 1 3))')",
+    "CREATE TABLE tu (a GEOMETRY(POLYGON), b GEOMETRY(POLYGON))",
+    "INSERT INTO tu VALUES ('POLYGON ((0 0, 1 0, 1 1, 0 1))', 'POLYGON ((5 5, 7 5, 7 7, 5 7))')",
+]
+GEO_SHAPE_QUERIES = [
+    "SELECT id, p, zone, ST_X(p), ST_Y(p), ST_Distance(p, 'POINT(0 0)') FROM geo ORDER BY id",
+    "SELECT id FROM geo WHERE ST_DWithin(p, 'POINT(0 0)', 2.0)",
+    "SELECT ST_Distance(a, b) FROM pts2",
+    "SELECT id, ST_Contains(zone, p), ST_Contains(zone, ST_GeomFromText('POINT(1 1)')), "
+    "ST_Within(p, zone) FROM geo ORDER BY id",
+    "SELECT id FROM geo WHERE ST_Contains('POLYGON((0 0, 5 0, 5 5, 0 5, 0 0))', p)",
+    "SELECT ST_Area(zone), ST_Perimeter(zone), ST_NPoints(zone), ST_NRings(zone), "
+    "ST_SRID(zone) FROM geo ORDER BY id",
+    "SELECT ST_Length(path), ST_NPoints(path), path FROM ln",
+    "SELECT ST_AREA(poly), ST_AREA(mp), ST_NPOINTS(mp), ST_PERIMETER(poly), mp, "
+    "ST_CONTAINS(poly, 'POINT(5 5)'), ST_CONTAINS(mp, 'POINT(6 6)') FROM mr",
+    "SELECT ST_INTERSECTS(poly, 'POLYGON((3 3, 6 3, 6 6, 3 6))'), "
+    "ST_INTERSECTS(ln, 'POLYGON((0 0, 4 0, 4 4, 0 4))'), ST_INTERSECTS(poly, p) FROM si",
+    "SELECT id, ST_X(ST_Centroid(z)), ST_Y(ST_Centroid(z)), ST_X(ST_Centroid(p)) FROM cz "
+    "ORDER BY id",
+    "SELECT ST_X(a), ST_X(b), ST_X(c), a, b, c FROM g",
+    "SELECT ST_XMin(z), ST_XMax(z), ST_YMin(z), ST_YMax(z), ST_XMin(l), ST_YMax(l) FROM gb "
+    "ORDER BY id",
+    "SELECT ST_X(ST_Transform(a, 900913)), ST_Y(ST_Transform(a, 900913)) FROM g",
+    "SELECT ST_AREA(ST_BUFFER(g, 2.0)), ST_ASTEXT(ST_BUFFER(g, 2.0)) FROM cpts",
+    "SELECT ST_AREA(ST_INTERSECTION(g, 'POLYGON ((0 0, 2 0, 2 4, 0 4))')) FROM th",
+    "SELECT ST_AREA(ST_DIFFERENCE(g, 'POLYGON ((3 1, 6 1, 6 3, 3 3))')), "
+    "ST_NRINGS(ST_DIFFERENCE(g, 'POLYGON ((1 1, 2 1, 2 2, 1 2))')) FROM ply",
+    "SELECT ST_AREA(ST_UNION(a, b)), ST_ASTEXT(ST_UNION(a, b)) FROM tu",
+    # the grid joins: dwithin, poly_build (a hole, a NULL zone), poly_probe
+    "SELECT a.id, b.id FROM gpa a, gpb b WHERE ST_DWITHIN(a.p, b.p, 0.3)",
+    "SELECT z.zid, COUNT(*), AVG(ST_X(p.p)) FROM gpa p, gz z WHERE ST_CONTAINS(z.zone, p.p) "
+    "GROUP BY z.zid",
+    "SELECT z.zid, p.id FROM gzbig z, gpb p WHERE ST_CONTAINS(z.zone, p.p)",
+    "SELECT COUNT(*) FROM gpa p JOIN gz z ON ST_INTERSECTS(p.p, z.zone)",
+]
+# the build form each grid join of GEO_SHAPE_QUERIES must take
+GEO_SHAPE_JOINS = {"geo dwithin x9", "geo poly_build x4", "geo poly_probe x4"}
+
+
+def _geo_shape_rows(rng, n, lo, hi, nulls):
+    pts = rng.uniform(lo, hi, (n, 2))
+    return [f"({i}, NULL)" if i in nulls else f"({i}, 'POINT({x!r} {y!r})')"
+            for i, (x, y) in enumerate(pts.tolist())]
+
+
+def _geo_shape_zones(rng, n):
+    out = []
+    for i in range(n):
+        cx, cy = rng.uniform(0, 18, 2).tolist()
+        w, h = rng.uniform(0.5, 3.0, 2).tolist()
+        if i % 4 == 0:
+            out.append(f"({i}, NULL)")
+        elif i % 3 == 0:
+            out.append(f"({i}, 'POLYGON(({cx} {cy}, {cx+w} {cy}, {cx+w} {cy+h}, {cx} {cy+h}),"
+                       f"({cx+w*.4} {cy+h*.4}, {cx+w*.6} {cy+h*.4}, {cx+w*.6} {cy+h*.6}, "
+                       f"{cx+w*.4} {cy+h*.6}))')")
+        else:
+            out.append(f"({i}, 'POLYGON(({cx} {cy}, {cx+w} {cy}, {cx+w*.5} {cy+h}))')")
+    return out
+
+
+def run_geo_shapes(counters):
+    """GEO_SHAPE_QUERIES on CUDA against the same port on the CPU (whose
+    rows tests/test_torch_geo*.py hold to the JAX package's): the same
+    rows, each grid-join kind taken on CUDA.  Returns the line and each
+    kernel's launches in the phase."""
+    rng = np.random.default_rng(SEED + 13)
+    tables = GEO_SHAPE_TABLES + [
+        "CREATE TABLE gpa (id INT, p POINT)",
+        "INSERT INTO gpa VALUES " + ", ".join(_geo_shape_rows(rng, 600, 0, 20, {3, 9})),
+        "CREATE TABLE gpb (id INT, p POINT)",
+        "INSERT INTO gpb VALUES " + ", ".join(_geo_shape_rows(rng, 80, 0, 20, {0})),
+        "CREATE TABLE gz (zid INT, zone GEOMETRY(POLYGON, 4326))",
+        "INSERT INTO gz VALUES " + ", ".join(_geo_shape_zones(rng, 30)),
+        "CREATE TABLE gzbig (zid INT, zone MULTIPOLYGON)",
+        "INSERT INTO gzbig VALUES " + ", ".join(
+            r.replace("'POLYGON(", "'MULTIPOLYGON((").replace("))')", ")))')")
+            for r in _geo_shape_zones(rng, 300)),
+    ]
+    dbs = _twin_dbs()
+    for db in dbs:
+        for st in tables:
+            db.sql(st)
+    for c in counters:
+        c.launches = 0  # the geo_shapes path starts here
+    rows_out, builds = [], set()
+    for q in GEO_SHAPE_QUERIES:
+        got, want = (db.sql(q).rows() for db in dbs)
+        builds |= {" ".join(b.split()[:3]) for r in dbs[0].executor.join_runs
+                   for b in r.builds}
+        _same_on_both(q, got, want, False)
+        rows_out.append(len(got))
+    if builds != GEO_SHAPE_JOINS:
+        raise AssertionError(f"geo_shapes: grid joins {builds}, expected {GEO_SHAPE_JOINS}")
+    return dict(queries=len(GEO_SHAPE_QUERIES), rows_out=rows_out,
+                joins=sorted(builds)), [c.launches for c in counters]
+
+
+ARRAY_SHAPE_TABLES = [
+    "CREATE TABLE t (id INT, tags TEXT[], vals INT[], w DOUBLE, d DOUBLE[])",
+    "INSERT INTO t VALUES (1, {'a','b'}, {1,2,3}, 1.5, {0.5, NULL}), "
+    "(2, {'b','c','d'}, {4}, 2.5, NULL), (3, NULL, {}, 3.5, {}), "
+    "(4, {'a'}, {7, NULL, 9}, 4.5, {2.25})",
+    "CREATE TABLE aeq (a INT[], b INT[], s TEXT[], s2 TEXT[])",
+    "INSERT INTO aeq VALUES ({1,2,3}, {1,2,3}, {'x','y'}, {'x','y'}), "
+    "({4,5}, {4,6}, {'a'}, {'b'}), (NULL, {1}, NULL, {'z'})",
+]
+ARRAY_SHAPE_QUERIES = [
+    "SELECT id, tags, vals, d FROM t ORDER BY id",
+    "SELECT id, CARDINALITY(tags), CARDINALITY(vals), vals[1], vals[2], vals[9], tags[1], "
+    "d[2] FROM t ORDER BY id",
+    "SELECT id FROM t WHERE 'a' = ANY tags OR 5 < ANY vals ORDER BY id",
+    "SELECT id FROM t WHERE 'z' <> ALL tags AND 2 >= ALL vals ORDER BY id",
+    "SELECT id FROM t WHERE NULL = ANY vals OR 1.5 < ALL d ORDER BY id",
+    "SELECT a = b, s = s2 FROM aeq",
+    "SELECT id, UNNEST(tags) FROM t ORDER BY id",
+    "SELECT UNNEST(tags) tag, COUNT(*) FROM t GROUP BY tag",
+    "SELECT id, UNNEST(vals) v FROM t WHERE id > 1",
+    "SELECT SUM(UNNEST(vals)), COUNT(*) FROM t",
+    "SELECT UNNEST(vals) v, COUNT(*), SUM(w) FROM t GROUP BY v",
+    "SELECT id, vals, tags[2] FROM big WHERE id >= 15000 AND 3 = ANY vals",
+    "SELECT UNNEST(tags) s, COUNT(*), SUM(w) FROM big WHERE CARDINALITY(vals) > 2 GROUP BY s",
+    "SELECT UNNEST(vals) v, COUNT(*) FROM big GROUP BY v",
+    "SELECT id, tags FROM t2 ORDER BY id",
+    "SELECT COUNT(*), SUM(CARDINALITY(vals)), MAX(vals[1]) FROM t3",
+    "SELECT id, UNNEST(vals), tags[1] FROM big WHERE id < 300",
+]
+# statements between the queries of ARRAY_SHAPE_QUERIES that read t2 / t3
+ARRAY_SHAPE_DML = [
+    "CREATE TABLE t2 AS SELECT id, tags FROM t WHERE id <= 2",
+    "INSERT INTO t2 SELECT id, tags FROM t WHERE id = 4",
+    "CREATE TABLE t3 AS SELECT id, vals, tags FROM big WHERE id < 5000",
+    "DELETE FROM t3 WHERE id % 3 = 0",
+    "DELETE FROM big WHERE id % 7 = 1",
+]
+
+
+def run_array_shapes(counters, n: int = 20_000):
+    """Every ArrayFn op, UNNEST in the projection, under GROUP BY, after a
+    filter and over TEXT[], and CTAS, INSERT ... SELECT and DELETE of
+    tables with arrays, on small tables (one of n rows in 4096-row
+    fragments): the same rows on CUDA as on the CPU.  Returns the line and
+    each kernel's launches in the phase."""
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.config import Config
+
+    rng = np.random.default_rng(SEED + 14)
+    words = np.array(["p", "q", "r", "s", "t"], object)
+    vals, tags = [], []
+    for i in range(n):
+        k = int(rng.integers(0, 6))
+        vals.append(None if i % 50 == 7 else
+                    [None if rng.random() < 0.05 else int(v) for v in rng.integers(0, 20, k)])
+        tags.append(None if i % 40 == 3 else list(words[rng.integers(0, 5, k % 3)]))
+    big = {"id": np.arange(n, dtype=np.int32), "vals": vals, "tags": tags, "w": rng.random(n)}
+    dbs = [hdt.connect(config=Config(default_fragment_rows=4096)),
+           hdt.connect(device="cpu", config=Config(default_fragment_rows=4096))]
+    for db in dbs:
+        for st in ARRAY_SHAPE_TABLES:
+            db.sql(st)
+        db.sql("CREATE TABLE big (id INT, vals INT[], tags TEXT[], w DOUBLE)")
+        db.load_table("big", big)
+    for c in counters:
+        c.launches = 0  # the array_shapes path starts here
+    rows_out = []
+    for q in ARRAY_SHAPE_QUERIES:
+        if q.endswith(("FROM t2 ORDER BY id",)):
+            for db in dbs:
+                for st in ARRAY_SHAPE_DML:
+                    db.sql(st)
+        got, want = (db.sql(q).rows() for db in dbs)
+        _same_on_both(q, got, want, False)
+        rows_out.append(len(got))
+    return dict(queries=len(ARRAY_SHAPE_QUERIES), statements=len(ARRAY_SHAPE_DML), rows=n,
+                rows_out=rows_out), [c.launches for c in counters]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -3193,10 +3645,31 @@ def main() -> None:
     for line in dml_lines:
         emit({"phase": "dml", **line})
     phase_s["dml"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geo_lines, geo_total = run_geo(db, counters)
+    for line in geo_lines:
+        emit({"phase": "geo", **line})
+    phase_s["geo"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line, geo_shape_total = run_geo_shapes(counters)
+    emit({"phase": "geo_shapes", **line})
+    phase_s["geo_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    arr_lines, arr_total = run_arrays(db, counters)
+    for line in arr_lines:
+        emit({"phase": "arrays", **line})
+    phase_s["arrays"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line, arr_shape_total = run_array_shapes(counters)
+    emit({"phase": "array_shapes", **line})
+    phase_s["array_shapes"] = time.perf_counter() - t0
     emit({"phase": "phase_seconds", **phase_s})
-    # the kernels line counts the launches of the eight main-path phases
+    # the kernels line counts the launches of the main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
-                                  distinct_total, string_total, hash_total, dml_total)]
+                                  distinct_total, string_total, hash_total, dml_total,
+                                  geo_total, geo_shape_total, arr_total, arr_shape_total)]
+    if dict(zip(KERNEL_NAMES, geo_total))["radix_hist"] < 1:
+        raise AssertionError("B2 did not launch in the geo phase (GEO_ZONE_JOIN)")
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db

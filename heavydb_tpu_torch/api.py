@@ -17,9 +17,13 @@ UPDATE and DELETE run as the reference runs them: `SELECT rowid, values
 stays live and only the matched rows reach the host), then a patch of the
 fragments that hold those rows (`Table.update_rows_at` /
 `delete_rows_at`), then a move of the resident device columns to the new
-generation (`Executor.patch_cache_update` / `patch_cache_delete`).  Array
-and geo targets raise NotSupported (they wait for the port of arrays and
-geo).
+generation (`Executor.patch_cache_update` / `patch_cache_delete`).
+
+Array and geo columns take literals in INSERT VALUES ({...}, ARRAY[...],
+WKT), per-row lists in `load_table`, and the rows of a query in CTAS and
+INSERT ... SELECT; a result's array or geo column comes back as its
+rows' host payloads (`_fix_array_cols`).  UPDATE of an array or geo
+column raises NotSupported, as in the reference.
 """
 
 from __future__ import annotations
@@ -44,7 +48,8 @@ from heavydb_tpu_torch.plan.select_planner import SelectPlanner, _node_dict_ref
 from heavydb_tpu_torch.sql import ast as A
 from heavydb_tpu_torch.sql.parser import parse_many
 from heavydb_tpu_torch.storage.catalog import Catalog
-from heavydb_tpu_torch.storage.table import ChunkStats, LazyDeviceChunk, Table, to_physical
+from heavydb_tpu_torch.storage.table import (ChunkStats, LazyDeviceChunk, Table, from_physical,
+                                             to_physical)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -112,8 +117,8 @@ class Database:
         batch = self.executor.execute(plan)
 
         def decode() -> ResultSet:
-            return from_batch(batch, plan.fields, plan.types,
-                              self._result_dicts(plan))
+            return self._fix_array_cols(from_batch(batch, plan.fields, plan.types,
+                                                   self._result_dicts(plan)), plan)
 
         return batch, decode
 
@@ -247,8 +252,52 @@ class Database:
         dicts = []
         for i in range(plan.arity):
             ref = _node_dict_ref(plan, i)
-            dicts.append(self.dict_by_ref(ref) if ref else None)
+            dicts.append(self.dict_by_ref(ref) if ref and not plan.types[i].is_array
+                         else None)
         return dicts
+
+    # ------------------------------------------------------------------
+    # array and geo columns: device rowid handles <-> host payload rows
+    # ------------------------------------------------------------------
+    def _rowids_to_object(self, ref, rowids: np.ndarray):
+        """An array column's rowid handles -> an object ndarray of its
+        rows' element arrays (None: NULL or out of range), and the
+        column's dictionary."""
+        tid, cid = ref[:2]
+        t = self.catalog.get_table_by_id(tid)
+        payload = self.executor._geo_xform_rows(t, cid, ref)
+        out = np.empty(len(rowids), object)
+        np_len = len(payload)
+        for j, rid in enumerate(rowids.tolist()):
+            out[j] = payload[rid] if 0 <= rid < np_len else None
+        return out, t.dicts.get(cid)
+
+    def _fix_array_cols(self, rs: ResultSet, plan) -> ResultSet:
+        """A result's array columns: rowid handles replaced by their host
+        payloads before the ResultSet reaches the caller."""
+        if not any(ti.is_array for ti in plan.types):
+            return rs  # scalar results stay lazy
+        cols = rs._materialize()
+        for i, ti in enumerate(plan.types):
+            if not ti.is_array:
+                continue
+            ref = _node_dict_ref(plan, i)
+            if ref is None:
+                raise NotSupported("SELECT of computed arrays")
+            cols[i], rs._dicts[i] = self._rowids_to_object(ref, cols[i])
+        return rs
+
+    def _array_col_for_insert(self, plan, i, rowids, t, cd):
+        """An array column flowing into a table: its rows' payloads; TEXT[]
+        elements re-interned into the target column's dictionary."""
+        ref = _node_dict_ref(plan, i)
+        if ref is None:
+            raise NotSupported("INSERT of computed arrays")
+        objs, sd = self._rowids_to_object(ref, rowids)
+        if cd.type.elem_type().is_dict_string and ref != (t.table_id, cd.col_id):
+            return to_physical(from_physical(objs, cd.type, sd), cd.type,
+                               t.dicts.get(cd.col_id))
+        return objs
 
     # ------------------------------------------------------------------
     # statement dispatch
@@ -257,8 +306,8 @@ class Database:
         if isinstance(st, A.Select):
             plan = optimize(self._plan_select(st))
             batch = self.executor.execute(plan)
-            return from_batch(batch, plan.fields, plan.types,
-                              self._result_dicts(plan))
+            return self._fix_array_cols(from_batch(batch, plan.fields, plan.types,
+                                                   self._result_dicts(plan)), plan)
         if isinstance(st, A.CreateTable):
             return self._create_table(st)
         if isinstance(st, A.InsertValues):
@@ -292,15 +341,15 @@ class Database:
             if len(st.columns) != len(defs):
                 raise BinderError("CTAS column count mismatch")
             defs = [(cd.name, ti) for cd, (_, ti) in zip(st.columns, defs)]
-        if any(ti.is_array or ti.is_geo for _, ti in defs):
-            raise NotSupported("CREATE TABLE AS SELECT of array or geo columns")
         t = self.catalog.create_table(st.name, defs, frag_rows, st.if_not_exists,
                                       st.temporary)
         host = batch.to_numpy()
         cols = {}
         for cd, (i, ti) in zip(t.columns, enumerate(plan.types)):
             arr = host[i]
-            if ti.is_dict_string:
+            if ti.is_array:
+                arr = self._array_col_for_insert(plan, i, arr, t, cd)
+            elif ti.is_dict_string:
                 src_ref = _node_dict_ref(plan, i)
                 src = self.dict_by_ref(src_ref) if src_ref else None
                 strings = src.get_strings(arr) if src is not None else [None] * len(arr)
@@ -323,9 +372,11 @@ class Database:
         for i, cd in enumerate(target_cols):
             src_ti = plan.types[i]
             arr = host[i]
-            if cd.type.is_array or cd.type.is_geo:
-                raise NotSupported("INSERT ... SELECT into array or geo columns")
-            if cd.type.is_dict_string:
+            if cd.type.is_array:
+                if not src_ti.is_array:
+                    raise SqlError(f"cannot insert {src_ti} into array column")
+                arr = self._array_col_for_insert(plan, i, arr, t, cd)
+            elif cd.type.is_dict_string:
                 src_ref = _node_dict_ref(plan, i)
                 if src_ref is None:
                     raise NotSupported("INSERT of computed strings")
@@ -431,7 +482,8 @@ class Database:
             provided = {}
             for cd, expr_ast in zip(target_cols, row):
                 if cd.type.is_array:
-                    raise NotSupported("array columns")
+                    provided[cd.col_id] = _array_literal_value(expr_ast, cd, binder)
+                    continue
                 provided[cd.col_id] = _const_value(binder.bind(expr_ast), cd.type)
             for cd in t.columns:
                 if cd.col_id in provided:
@@ -445,7 +497,9 @@ class Database:
         arrays = {}
         for cd in t.columns:
             vals = by_col[cd.col_id]
-            if cd.type.is_dict_string:
+            if cd.type.is_array:
+                arrays[cd.col_id] = to_physical(vals, cd.type, t.dicts.get(cd.col_id))
+            elif cd.type.is_dict_string:
                 arrays[cd.col_id] = t.dict_for(cd.col_id).get_or_add_bulk(vals)
             elif cd.type.is_none_string:
                 arrays[cd.col_id] = to_physical(vals, cd.type, None)
@@ -540,6 +594,34 @@ def _const_value(e: E.Expr, target: T.TypeInfo):
     raise NotSupported("INSERT VALUES requires constant expressions")
 
 
+def _array_literal_value(expr_ast, cd, binder):
+    """An array column's value in INSERT VALUES: {...} / ARRAY[...] -> a
+    list of element values, a WKT string (or ST_GeomFromText of one) for a
+    geo column, NULL -> None (the reference's Importer addArray)."""
+    if isinstance(expr_ast, A.Literal) and expr_ast.kind == "null":
+        return None
+    if cd.type.is_geo:
+        if isinstance(expr_ast, A.FuncCall) and expr_ast.name in (
+                "ST_GEOMFROMTEXT", "ST_GEOGFROMTEXT"):
+            expr_ast = expr_ast.args[0]
+        if isinstance(expr_ast, A.Literal) and expr_ast.kind == "string":
+            return expr_ast.value  # WKT; to_physical parses it
+        raise SqlError(f"column {cd.name} expects a WKT literal")
+    if not isinstance(expr_ast, A.ArrayLiteral):
+        raise SqlError(f"column {cd.name} expects an array literal")
+    eti = cd.type.elem_type()
+    out = []
+    for item in expr_ast.items:
+        e = binder.bind(item)
+        if eti.is_dict_string:
+            if not isinstance(e, E.Constant):
+                raise SqlError("array literal elements must be constant")
+            out.append(None if e.value is None else str(e.value))
+        else:
+            out.append(_const_value(e, eti))
+    return out
+
+
 def _host_cast_array(arr: np.ndarray, src: T.TypeInfo, dst: T.TypeInfo) -> np.ndarray:
     """A host column from src's physical representation to dst's, NULLs
     kept (DECIMAL scaled; an integer target truncates)."""
@@ -580,7 +662,18 @@ def _normalize_tabular(data) -> Dict[str, np.ndarray]:
     except ImportError:
         pass
     if isinstance(data, dict):
-        return {k: np.asarray(v) for k, v in data.items()}
+        out = {}
+        for k, v in data.items():
+            if isinstance(v, list) and any(isinstance(x, (list, tuple, np.ndarray))
+                                           for x in v):
+                # a ragged list of lists (an array column): object rows
+                a = np.empty(len(v), object)
+                for i, x in enumerate(v):
+                    a[i] = x
+                out[k] = a
+            else:
+                out[k] = np.asarray(v)
+        return out
     raise StorageError(f"cannot load {type(data)}")
 
 

@@ -61,6 +61,21 @@ def _join_hash_slots(build_padded: int) -> int:
     return 1 << max(int(build_padded * 2 - 1).bit_length(), 12)
 
 
+def _cellify(x, y, cell):
+    """Coordinates -> their int64 grid cell, floor(coordinate / cell) in
+    float64 clipped to +-2^30 (exec/geo_join.py: clipping merges far-out
+    cells, so it adds candidates and never loses one)."""
+    def axis(v):
+        return torch.floor(v.to(torch.float64) / cell).clamp(-(2.0 ** 30), 2.0 ** 30) \
+            .to(torch.int64)
+
+    return axis(x), axis(y)
+
+
+def _pack_cells(ci, cj):
+    return (ci << 32) | (cj & 0xFFFFFFFF)
+
+
 def _sentinelize(val, valid, ti: T.TypeInfo):
     """Apply in-band null sentinel for storage/output."""
     dt = G.torch_dtype(ti.np_dtype())
@@ -313,13 +328,18 @@ def _build_keys(dom: _Domain, jp, bi: int, pb: int, filters):
         tvs = [(torch.where((bval >= 0) & (bval < tbl.shape[0]), tbl[safe], -1),
                 bvalid)]
     bkey, bvalid = _pack_keys(tvs, jp, pb)
+    return bkey, _filtered(dom, bi, pb, filters, bvalid)
+
+
+def _filtered(dom: _Domain, bi: int, pb: int, filters, bvalid):
+    """A build input's validity with its pushed-down filters ANDed in."""
     for c in filters:
         val, valid = dom.build_side_tv(c, bi, pb)
         keep = val.to(torch.bool)
         if valid is not None:
             keep = keep & valid
         bvalid = keep if bvalid is None else bvalid & keep
-    return bkey, bvalid
+    return bvalid
 
 
 def _probe_keys(dom: _Domain, jp):
@@ -340,6 +360,51 @@ def _sorted_or_hash(jp, li, bkey, bvalid, nrows_b, pb, pkey, pvalid_m, out):
         out[f"join_hash_miss_{li}"] = table.unresolved
         lo, cnt = J.probe_counts_hash(table, pkey, pvalid_m)
     return lo, cnt, build.rows_sorted
+
+
+def _geo_candidates(dom: _Domain, li: int, jp, pb: int, filters, out):
+    """The grid-bucket spatial join's candidates (exec/geo_join.py): each
+    probe row keys on its own cell, each build row registers under
+    len(offsets) neighbouring cells (a replicated build of the existing
+    sorted or hash form); a (probe, build) pair meets under exactly one
+    cell, the probe's.  The exact geo predicate stays in jp.residual.
+    Returns (lo, cnt, build rows in match order) over the domain."""
+    gs = jp.geo
+    bi = li + 1
+    dev = dom.device
+    cell = gs.cell if gs.cell is not None else dom.aux[gs.bbox_key][2][0]
+
+    def bbox_corner(rid, ridv):
+        # a polygon's key point: its bounding box's min corner
+        xmin_a, ymin_a, _ = dom.aux[gs.bbox_key]
+        ridc = rid.to(torch.int64).clamp(0, xmin_a.shape[0] - 1)
+        x, y = xmin_a[ridc], ymin_a[ridc]
+        return x, y, and_valid(~torch.isnan(x), ridv)
+
+    pc = dom.compiler(jp.probe_keys)
+    if gs.kind == "poly_probe":
+        px, py, pvalid = bbox_corner(*pc.compile(jp.probe_keys[0]))
+    else:
+        (px, pxv), (py, pyv) = pc.compile(jp.probe_keys[0]), pc.compile(jp.probe_keys[1])
+        pvalid = and_valid(pxv, pyv)
+    pkey = _pack_cells(*_cellify(_broadcast(px, dom.size), _broadcast(py, dom.size), cell))
+    pvalid_m = dom.mask if pvalid is None else dom.mask & pvalid
+    if gs.kind == "poly_build":
+        bx, by, bvalid = bbox_corner(*dom.build_side_tv(jp.build_keys[0], bi, pb))
+    else:
+        (bx, bxv), (by, byv) = (dom.build_side_tv(e, bi, pb) for e in jp.build_keys)
+        bvalid = and_valid(bxv, byv)
+    bvalid = _filtered(dom, bi, pb, filters, bvalid)
+    bci, bcj = _cellify(bx, by, cell)
+    reps = len(gs.offsets)
+    bkeys = torch.cat([_pack_cells(bci + di, bcj + dj) for di, dj in gs.offsets])
+    bok = _iota(pb, dev) < dom.nrows[bi]
+    if bvalid is not None:
+        bok = bok & bvalid
+    lo, cnt, rows = _sorted_or_hash(jp, li, bkeys, bok.repeat(reps), reps * pb, reps * pb,
+                                    pkey, pvalid_m, out)
+    # a replicated key's payload index -> its build row
+    return lo, cnt, rows % pb
 
 
 def _surviving_per_row(eff, ok, cap: int):
@@ -410,6 +475,10 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
         lo = torch.zeros(dom.size, dtype=torch.int32, device=dev)
         cnt = torch.where(dom.mask, dom.nrows[bi], 0).to(torch.int32)
         rows_by_slot = _iota(pb, dev)
+        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+            lo, cnt, rows_by_slot, dom.mask, cap, False)
+    elif jp.geo is not None:
+        lo, cnt, rows_by_slot = _geo_candidates(dom, li, jp, pb, filters, out)
         pidx, bidx, out_mask, m_new, needed = J.expand_matches(
             lo, cnt, rows_by_slot, dom.mask, cap, False)
     else:

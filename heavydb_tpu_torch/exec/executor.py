@@ -31,9 +31,17 @@ Uncorrelated subqueries run first and become constants in place
 (`_substitute_subqueries`, `_eval_subquery`: scalar, EXISTS, IN / NOT IN);
 UNION ALL concatenates its inputs (`_exec_union`), and UNION DISTINCT,
 INTERSECT / EXCEPT and GROUPING SETS / ROLLUP / CUBE are Compounds over it.
-Every tensor lives on the executor's one explicit device.  Window,
-Unnest, the geo join and a subquery left after substitution raise
-NotSupported.
+
+Array and geo columns scan as int32 global rowids (`_array_handles`);
+each ArrayFn reads tables built on the host over the column's payload
+rows (`_array_aux`, `_geo_host`, `_geobbox_aux`; a geometry-transform
+chain applies first, `_geo_xform_rows`), cached by table generation and
+pruned by `drop_stale`.  UNNEST expands rows into their elements
+(`_exec_unnest`), and a join level with no equality runs as the
+grid-bucket spatial join when its residual holds a distance or
+polygon-containment test (exec/geo_join.py, planned in `_plan_compound`).
+Every tensor lives on the executor's one explicit device.  Window and a
+subquery left after substitution raise NotSupported.
 """
 
 from __future__ import annotations
@@ -49,12 +57,14 @@ from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import (CatalogError, DeviceMemoryExceeded, DivisionByZero,
                                       ExecutionError, NotSupported, WatchdogException)
 from heavydb_tpu_torch.exec import batch as B
+from heavydb_tpu_torch.exec import geo_join as GEO
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec import ranges as RNG
 from heavydb_tpu_torch.exec.compound_kernel import (build_compound_kernel, ctrl_keys,
                                                     derive_valid, input_of_field)
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
 from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
+from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.ops import sort as S
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
@@ -286,6 +296,8 @@ class Executor:
                 out = self._exec_compound(node, memo)
             elif isinstance(node, R.Union):
                 out = self._exec_union(node, memo)
+            elif isinstance(node, R.Unnest):
+                out = self._exec_unnest(node, memo)
             else:
                 raise NotSupported(f"cannot execute node {type(node).__name__}")
         memo[node.id] = out
@@ -339,6 +351,11 @@ class Executor:
         new_size = B.bucket(new_n)
         keep = None
         for (tid, _, cid, _, _), arr in self._old_entries(t, old_gen):
+            if t.column_by_id(cid).type.is_array:
+                # array handles are global rowids: renumbered, not moved
+                self.scan_cache[(tid, t.generation, cid, new_size, None)] = \
+                    self._array_handles(t, None, new_n, new_size)
+                continue
             if keep is None:
                 gone = torch.zeros(old_num_rows, dtype=torch.bool, device=self.device)
                 gone[self._to_device(np.asarray(rowids, np.int64))] = True
@@ -353,8 +370,8 @@ class Executor:
     def drop_stale(self) -> None:
         """Drop, and count, every scan-cache entry of a table that is gone
         or has changed its generation since: none can be read again (an
-        UPDATE's or a DELETE's columns were moved first).  NDV estimates of
-        such tables go too."""
+        UPDATE's or a DELETE's columns were moved first).  NDV estimates and
+        the array and geo aux tables of such tables go too."""
         def live(key):
             try:
                 return self.db.catalog.get_table_by_id(key[0]).generation == key[1]
@@ -367,6 +384,9 @@ class Executor:
                 self.cache_keys_dropped += 1
         for key in [k for k in self._ndv_cache if not live(k)]:
             del self._ndv_cache[key]
+        for key in [k for k in self.aux_cache
+                    if k[0] in ("array", "geobbox") and not live(k[1:3])]:
+            del self.aux_cache[key]
 
     # ---- Scan ----
     def _to_device(self, host: np.ndarray) -> torch.Tensor:
@@ -396,6 +416,14 @@ class Executor:
             shift, torch.tensor(lens, device=dev), output_size=n)
         return rid
 
+    def _array_handles(self, t, frag_ids, n: int, size: int) -> torch.Tensor:
+        """The device handle of an array or geo column over the scanned
+        fragments: each row's int32 global rowid (the index of its host
+        payload row; its lengths, offsets and elements ride as aux tables,
+        `_array_aux`), -1 past the n rows."""
+        rid = self._rowids(t, frag_ids, n, size)
+        return torch.where(rid >= 0, rid, -1).to(torch.int32)
+
     def _exec_scan(self, node: R.Scan, needed, frag_ids=None) -> B.Batch:
         """Device columns of the table's fragments (all, or frag_ids),
         concatenated and null-padded to the row bucket.  Full columns are
@@ -423,10 +451,11 @@ class Executor:
                 cols.append(self._rowids(t, frag_ids, n, size))
                 continue
             cd = t.columns[i]
-            if cd.type.is_array or cd.type.is_geo:
-                raise NotSupported(f"scan of {cd.type.sql_name()} column {cd.name}")
             key = (t.table_id, t.generation, cd.col_id, size, fkey)
             arr = self.scan_cache.get(key)
+            if arr is None and cd.type.is_array:
+                arr = self._array_handles(t, frag_ids, n, size)
+                self.scan_cache[key] = arr
             if arr is None and fkey is not None:
                 full = self.scan_cache.get(
                     (t.table_id, t.generation, cd.col_id, B.bucket(t.num_rows), None))
@@ -486,6 +515,26 @@ class Executor:
         out = B.concat_batches(parts)
         out.types = list(node.types)
         return out
+
+    # ---- Unnest ----
+    def _exec_unnest(self, node: R.Unnest, memo) -> B.Batch:
+        """One output row an array element (the reference's
+        `_exec_unnest`): the join expansion (ops/join.expand_matches) of
+        each live row into its elements, over the flat element payload.
+        Its capacity is the flat size, so it never retries.  The element
+        column comes last; a NULL element keeps its sentinel."""
+        child = node.inputs[0]
+        inp = self._exec(child, memo, set(range(child.arity)))
+        lengths, offsets, flat = self._array_aux(node.afn)
+        rid = inp.cols[node.afn.rowid.field_idx].to(torch.int64)
+        live = self._in_domain(inp.padded, inp.nrows) & (rid >= 0)
+        ridc = rid.clamp(0, lengths.shape[0] - 1)
+        cnt = torch.where(live, lengths[ridc].clamp(min=0), 0)
+        pidx, elem, out_mask, _, needed = J.expand_matches(
+            offsets[ridc], cnt, flat, None, int(flat.shape[0]), False)
+        pidx = torch.where(out_mask, pidx, 0)
+        cols = [None if c is None else c[pidx] for c in inp.cols] + [elem]
+        return B.Batch(cols, int(needed), list(node.types))
 
     # ---- Sort ----
     def _in_domain(self, padded: int, nrows: int) -> torch.Tensor:
@@ -790,8 +839,11 @@ class Executor:
         domain 4 B of row index and 1 B of matched flag, 1 B of mask, the
         input columns gathered into the domain, and 24 B of expansion
         temporaries: marks, prefix sum, slot, ordinal, build position and
-        two flags); and the group tier's working bytes a row
-        (`_tier_row_bytes`) over the last domain."""
+        two flags); a grid join's replicated build keys (offsets x the
+        build's padded rows, each with its packed key, validity, sorted key
+        and row, and two hash slots of key, start and count: 57 B); and
+        the group tier's working bytes a row (`_tier_row_bytes`) over the
+        last domain."""
         col_bytes = [sum(c.element_size() for c in b.cols if c is not None)
                      for b in batches]
         total = sum(b.padded * cb for b, cb in zip(batches, col_bytes))
@@ -802,6 +854,8 @@ class Executor:
             if jp.kind in ("SEMI", "ANTI"):
                 total += (cap if jp.residual else 0) * per_slot
                 continue
+            if jp.geo is not None:
+                total += len(jp.geo.offsets) * batches[li + 1].padded * 57
             prev = d
             d = d if jp.unique_build else cap
             if jp.kind == "FULL":
@@ -1096,7 +1150,7 @@ class Executor:
             if any(isinstance(s, (E.SubqueryExpr, E.Agg, E.WindowFunc))
                    for s in E.walk(c)):
                 return None
-        specs = _string_aux_specs(conjs)
+        specs = _expr_aux_specs(conjs)
         fields = sorted({r.field_idx for c in conjs for r in E.collect_input_refs(c)})
         cdict = {}
         for f in fields:
@@ -1200,9 +1254,21 @@ class Executor:
                 plan.caps.append(B.bucket(max(probe.nrows * max(build_rows, 1), 1)))
                 continue
             if not equis:
-                # the reference takes a level with no equality only as its
-                # grid-bucket spatial join (exec/geo_join.py), not ported yet
-                raise NotSupported("geo join: a join level without an equality")
+                # spatial predicates: the grid-bucket candidate join (the
+                # reference's BoundingBoxIntersectJoinHashTable); the geo
+                # conjunct stays in the residual as the exact test
+                gj = GEO.plan_geo_join(residual, lo, lo + node.inputs[bi].arity)
+                if gj is None or kind != "INNER":
+                    raise NotSupported("non-equi join conditions require ≥1 equality")
+                probe_keys, build_keys, spec, extra_aux = gj
+                for k_, s_ in extra_aux:
+                    plan.aux_specs.setdefault(k_, s_)
+                jp = _JoinPlan(kind="INNER", probe_keys=probe_keys, build_keys=build_keys,
+                               residual=residual, pack="geo", geo=spec)
+                plan.joins.append(jp)
+                jp.fallback_cap = B.bucket(max(probe.nrows, build_rows, 1) * 4)
+                plan.caps.append(jp.fallback_cap)
+                continue
             if kind == "FULL" and residual:
                 # build-side matched flags do not see residual kills
                 raise NotSupported("FULL JOIN with non-equi residual conditions")
@@ -1246,7 +1312,7 @@ class Executor:
         elif node.is_aggregate:
             plan.group_strategy = ("keyless", None)
             plan.group_cap = 1
-        plan.aux_specs.update(_string_aux_specs(_iter_node_exprs(node)))
+        plan.aux_specs.update(_expr_aux_specs(_iter_node_exprs(node)))
         return plan
 
     def _split_filter(self, node: R.Compound, offsets, plan) -> None:
@@ -1417,7 +1483,7 @@ class Executor:
         key = (node.plan_key(), shapes, tuple(plan.caps), plan.group_strategy,
                plan.group_cap, plan.distinct_force_sort,
                tuple((jp.kind, jp.pack, jp.pack_spans, jp.key_min, jp.key_range,
-                      jp.translate, jp.unique_build, jp.hash_fallback)
+                      jp.translate, jp.unique_build, jp.hash_fallback, jp.geo)
                      for jp in plan.joins),
                tuple(sorted(plan.aux_specs, key=repr)))
         hit = self.kernel_cache.get(key)
@@ -1467,7 +1533,11 @@ class Executor:
                         both sides' (transformed) entries
           dictrank      id -> lexicographic rank; dictorder: rank -> id
           translate     a join key's build dictionary id -> probe
-                        dictionary id (-1 for a string the probe lacks)"""
+                        dictionary id (-1 for a string the probe lacks)
+          array         an ArrayFn's tables over its column's payload rows
+                        (`_array_aux`), by table generation
+          geobbox       a geo column's bounding-box corners and grid cell
+                        (`_geobbox_aux`), by table generation"""
         kind, payload = spec
         build = {"strpred": self._strpred_table,
                  "strtransform": self._transform_table,
@@ -1475,19 +1545,23 @@ class Executor:
                  "pairrank": self._pair_rank_tables,
                  "dictrank": self._dict_rank_table,
                  "dictorder": self._dict_order_table,
-                 "translate": self._translate_table}.get(kind)
+                 "translate": self._translate_table,
+                 "array": self._array_aux,
+                 "geobbox": self._geobbox_aux}.get(kind)
         if build is None:
             raise NotSupported(f"aux {kind}")
         return build(payload)
 
     def _cached(self, key, make):
         """aux_cache[key], made on the host by make() and copied to the
-        device (a tuple of tables copies each) on a miss."""
+        device (a tuple of tables copies each table and keeps any other
+        item as it is) on a miss."""
         hit = self.aux_cache.get(key)
         if hit is None:
             host = make()
             if isinstance(host, tuple):
-                hit = tuple(self._to_device(h) for h in host)
+                hit = tuple(self._to_device(h) if isinstance(h, np.ndarray) else h
+                            for h in host)
             else:
                 hit = self._to_device(host)
             self.aux_cache[key] = hit
@@ -1598,6 +1672,466 @@ class Executor:
 
         return self._cached(("translate", from_ref, to_ref, fd.size, td.size), make)
 
+    # ---- array and geo aux tables (the reference's `_array_aux`) ----
+    def _geo_xform_rows(self, t, cid, arr_ref):
+        """Column payload rows, with the dict_ref[2] geometry-transform
+        chain applied (the GEOS runtime's role, ops/geo_construct.py)."""
+        rows = t.column_values(cid)
+        if len(arr_ref) > 2 and arr_ref[2]:
+            from heavydb_tpu_torch.ops.geo_construct import apply_steps
+
+            kind = t.column_by_id(cid).type.kind
+            rows = apply_steps(
+                rows, kind, arr_ref[2],
+                lambda rt, rc: self.db.catalog.get_table_by_id(rt).column_values(rc))
+        return rows
+
+    def _geobbox_aux(self, arr_ref):
+        """(xmin[n], ymin[n], [cell]) of a geo column for the grid join:
+        each row's bounding-box min corner and the grid's cell size, the
+        largest bounding-box extent, so that every box spans at most 2
+        cells an axis (the reference's BoundingBoxIntersectJoinHashTable
+        bucket sizing)."""
+        tid, cid = arr_ref[:2]
+        t = self.db.catalog.get_table_by_id(tid)
+        key = ("geobbox", tid, t.generation, cid,
+               arr_ref[2] if len(arr_ref) > 2 else None)
+        return self._cached(key, lambda: self._geobbox_host(t, cid, arr_ref))
+
+    def _geobbox_host(self, t, cid, arr_ref):
+        from heavydb_tpu_torch.storage.table import geo_rings
+
+        kind = t.column_by_id(cid).type.kind
+        if len(arr_ref) > 2 and arr_ref[2]:
+            from heavydb_tpu_torch.ops.geo_construct import result_kind
+
+            kind = result_kind(kind, arr_ref[2])
+        rows = self._geo_xform_rows(t, cid, arr_ref)
+        n = len(rows)
+        xmin = np.full(n, np.nan)
+        ymin = np.full(n, np.nan)
+        cell = 0.0
+        for i, r in enumerate(rows):
+            if r is None:
+                continue
+            xs, ys = [], []
+            for c, _ in geo_rings(r, kind):
+                if len(c) >= 2:
+                    xs.append(c[0::2])
+                    ys.append(c[1::2])
+            if not xs:
+                continue
+            x = np.concatenate(xs)
+            y = np.concatenate(ys)
+            xmin[i], ymin[i] = x.min(), y.min()
+            cell = max(cell, float(x.max() - x.min()), float(y.max() - y.min()))
+        cell = max(cell, 1e-9)
+        pad = B.bucket(max(n, 1))
+        return (B.pad_to(xmin, pad, T.double(True)), B.pad_to(ymin, pad, T.double(True)),
+                np.asarray([cell], np.float64))
+
+    def _array_aux(self, afn):
+        """The aux tables of an ArrayFn over a base-table array or geo
+        column, built on the host over its payload rows, bit for bit as
+        the reference builds them, and copied to the device once per
+        (table generation, ArrayFn):
+          CARDINALITY, SUBSCRIPT, UNNEST
+                  (lengths[n] int32, -1 = a NULL array; offsets[n + 1]
+                  int32; the flat elements, GEOINT32 points decoded)
+          ANY, ALL, ARR_EQ, CONTAINS, CONTAINS_LITPOLY, INTERSECTS_LIT
+                  (int8[n]: 1 true, 0 false, -1 NULL)
+          AREA, PERIMETER, XMIN .. YMAX, CENTROID_X / _Y
+                  (f64[n], NaN = NULL)
+          NPOINTS, NRINGS
+                  (int32[n], -1 = NULL)
+          CONTAINS_SEG
+                  (segment offsets[n + 1], segment counts[n], x1, y1, x2,
+                  y2 of every ring segment in f64, the longest polygon's
+                  segment count: the ray cast's trip count)
+        The reference's ArrayIR.cpp codegenArrayAt and the kANY / kALL
+        lowering of Analyzer::BinOper; GeoOps for the geo scalars."""
+        tid, cid = afn.arr_ref[:2]
+        t = self.db.catalog.get_table_by_id(tid)
+        if afn.op in ("CARDINALITY", "SUBSCRIPT", "UNNEST"):
+            # one payload table a column (and transform chain) serves every
+            # such ArrayFn over it: ST_X and ST_Y, vals[1] and UNNEST(vals)
+            key = ("array", tid, t.generation, cid, "payload", afn.arr_ref)
+        else:
+            key = ("array", tid, t.generation, cid, afn.op, afn.key())
+        return self._cached(key, lambda: self._array_host(afn, t, cid))
+
+    def _array_host(self, afn, t, cid):
+        eti = afn.elem
+        rows = self._geo_xform_rows(t, cid, afn.arr_ref)
+        n = len(rows)
+        lengths = np.array([-1 if r is None else len(r) for r in rows], np.int32)
+        clamped = np.maximum(lengths, 0)
+        offsets = np.zeros(n + 1, np.int64)
+        np.cumsum(clamped, out=offsets[1:])
+        parts = [r for r in rows if r is not None and r.size]
+        flat = np.concatenate(parts) if parts else np.empty(0, eti.np_dtype())
+        cd_t = t.column_by_id(cid).type
+        if cd_t.is_geo_compressed and flat.dtype.kind in "iu" \
+                and cd_t.kind in (T.SQLTypeKind.GEO_POINT, T.SQLTypeKind.GEO_LINESTRING):
+            # a headerless GEOINT32 payload: decoded for the flat-element
+            # ops (SUBSCRIPT -> ST_X / ST_Y); ring payloads decode in
+            # geo_rings
+            from heavydb_tpu_torch.storage.table import geoint_decompress
+
+            flat = geoint_decompress(flat, cd_t.kind)
+        if flat.dtype.kind == "f":
+            validf = ~np.isnan(flat)
+        else:
+            validf = flat != eti.null_sentinel()
+        padn = B.bucket(max(n, 1))
+        if afn.op in ("AREA", "PERIMETER", "CONTAINS", "CONTAINS_LITPOLY",
+                      "NPOINTS", "INTERSECTS_LIT", "CONTAINS_SEG",
+                      "XMIN", "XMAX", "YMIN", "YMAX",
+                      "NRINGS", "CENTROID_X", "CENTROID_Y"):
+            return self._geo_host(afn, t, rows)
+        if afn.op == "ARR_EQ":
+            # whole-array equality a row; TEXT[] columns hold ids of their
+            # own dictionaries, compared as strings
+            other_cid = afn.args[0].dict_ref[1]
+            rows_b = t.column_values(other_cid)
+            da = t.dicts.get(cid)
+            db_ = t.dicts.get(other_cid)
+            out = np.full(n, -1, np.int8)
+            for i in range(n):
+                ra, rb = rows[i], rows_b[i]
+                if ra is None or rb is None:
+                    continue
+                if len(ra) != len(rb):
+                    out[i] = 0
+                    continue
+                if da is not None and db_ is not None and da is not db_:
+                    sa = [da.get_string(int(x)) if x >= 0 else None for x in ra]
+                    sb = [db_.get_string(int(x)) if x >= 0 else None for x in rb]
+                    out[i] = 1 if sa == sb else 0
+                else:
+                    out[i] = 1 if bool((np.asarray(ra) == np.asarray(rb)).all()) else 0
+            return (B.pad_to(out, padn, T.tinyint(False)),)
+        if afn.op in ("CARDINALITY", "SUBSCRIPT", "UNNEST"):
+            return (B.pad_to(lengths, padn, T.integer(False)),
+                    np.concatenate([offsets.astype(np.int32),
+                                    np.full(B.bucket(n + 1) - (n + 1), offsets[-1],
+                                            np.int32)]),
+                    B.pad_to(flat, B.bucket(max(len(flat), 1)), eti))
+        # ANY / ALL with a constant left-hand side
+        lit = afn.args[0]
+        litval = lit.value
+        flat_rowid = np.repeat(np.arange(n), clamped)
+        if litval is None:
+            out = np.where(clamped == 0, np.int8(0 if afn.op == "ANY" else 1),
+                           np.int8(-1)).astype(np.int8)
+        else:
+            if eti.is_dict_string:
+                d = t.dict_for(cid)
+                # compare_ids evaluates `entry <op> pattern`; the
+                # quantified comparison is `lit <op> elem`: flip the op
+                flip = {"<": ">", "<=": ">=", ">": "<", ">=": "<=", "=": "=", "<>": "<>"}
+                match_ids = d.compare_ids(flip[afn.cmp_op], str(litval))
+                table = np.zeros(max(d.size, 1) + 1, bool)
+                table[match_ids] = True
+                cmpf = table[np.where(validf, flat, d.size)]
+            else:
+                litv = litval / 10**lit.type.scale if lit.type.is_decimal else litval
+                ops = {"=": np.equal, "<>": np.not_equal, "<": np.less,
+                       "<=": np.less_equal, ">": np.greater, ">=": np.greater_equal}
+                vals = flat / 10**eti.scale if eti.is_decimal else flat
+                with np.errstate(invalid="ignore"):
+                    cmpf = ops[afn.cmp_op](litv, vals)
+
+            def per_row(w):
+                return np.bincount(flat_rowid, weights=w, minlength=n)[:n] if n \
+                    else np.zeros(0)
+
+            n_true = per_row(cmpf & validf)
+            n_nullel = per_row(~validf)
+            n_false = per_row(~cmpf & validf)
+            if afn.op == "ANY":
+                out = np.where(n_true > 0, 1, np.where(n_nullel > 0, -1, 0)).astype(np.int8)
+            else:
+                out = np.where(n_false > 0, 0, np.where(n_nullel > 0, -1, 1)).astype(np.int8)
+            out = np.where(lengths < 0, np.int8(-1), out)
+        return (B.pad_to(out, padn, T.tinyint(False)),)
+
+    def _geo_host(self, afn, t, rows):
+        """The geo scalars of `_array_aux`, a table row each, on the host
+        (the reference's `_geo_aux`; ST_Contains is the even-odd ray cast
+        of its point-in-polygon runtime function)."""
+        from heavydb_tpu_torch.storage.table import geo_rings, wkt_to_coords
+
+        n = len(rows)
+        padn = B.bucket(max(n, 1))
+        K = T.SQLTypeKind
+        kind = afn.elem.kind
+
+        def shoelace(c):
+            x, y = c[0::2], c[1::2]
+            return 0.5 * abs(
+                np.dot(x, np.roll(y, -1)) - np.dot(y, np.roll(x, -1))
+            )
+
+        if afn.op in ("XMIN", "XMAX", "YMIN", "YMAX"):
+            # bbox corner per geometry (reference ST_XMin/... —
+            # ExtensionFunctionsGeo.hpp over the coord stream)
+            out = np.full(n, np.nan)
+            off = 0 if afn.op[0] == "X" else 1
+            red = np.min if afn.op.endswith("MIN") else np.max
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                vals = [red(c[off::2]) for c, _ in geo_rings(r, kind)
+                        if len(c) >= 2]
+                if vals:
+                    out[i] = red(vals)
+            return (B.pad_to(out, padn, T.double(True)),)
+        if afn.op == "AREA":
+            out = np.full(n, np.nan)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                a = 0.0
+                for c, outer in geo_rings(r, kind):
+                    if len(c) >= 6:
+                        a += shoelace(c) if outer else -shoelace(c)
+                out[i] = max(a, 0.0)
+            return (B.pad_to(out, padn, T.double(True)),)
+        if afn.op == "CONTAINS_SEG":
+            # per-row segment CSR for the IN-KERNEL even-odd ray cast
+            # (cross-table geo joins can't precompute per-row results —
+            # candidate pairs are data-dependent).  Same ring filter as
+            # point_in below: rings with ≥ 3 points, wrap edge included.
+            seg_cnt = np.full(n, -1, np.int32)
+            xs1, ys1, xs2, ys2 = [], [], [], []
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                cnt = 0
+                for c, _ in geo_rings(r, kind):
+                    if len(c) < 6:
+                        continue
+                    x, y = c[0::2], c[1::2]
+                    xs1.append(x)
+                    ys1.append(y)
+                    xs2.append(np.roll(x, -1))
+                    ys2.append(np.roll(y, -1))
+                    cnt += len(x)
+                seg_cnt[i] = cnt
+            total = int(np.maximum(seg_cnt, 0).sum())
+            seg_off = np.zeros(n + 1, np.int32)
+            np.cumsum(np.maximum(seg_cnt, 0), out=seg_off[1:])
+            maxseg = int(np.maximum(seg_cnt, 0).max()) if n else 0
+
+            def flat_f64(parts):
+                return (np.concatenate(parts) if parts
+                        else np.empty(0, np.float64)).astype(np.float64)
+
+            padt = B.bucket(max(total, 1))
+            return (np.concatenate([seg_off, np.full(B.bucket(n + 1) - (n + 1), total,
+                                                     np.int32)]),
+                    B.pad_to(seg_cnt, padn, T.integer(False)),
+                    B.pad_to(flat_f64(xs1), padt, T.double(False)),
+                    B.pad_to(flat_f64(ys1), padt, T.double(False)),
+                    B.pad_to(flat_f64(xs2), padt, T.double(False)),
+                    B.pad_to(flat_f64(ys2), padt, T.double(False)),
+                    maxseg)
+        if afn.op == "PERIMETER":
+            out = np.full(n, np.nan)
+            closed = kind != K.GEO_LINESTRING
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                p = 0.0
+                any_ring = False
+                for c, _ in geo_rings(r, kind):
+                    if len(c) < 4:
+                        continue
+                    any_ring = True
+                    x, y = c[0::2], c[1::2]
+                    if closed:
+                        x = np.append(x, x[0])
+                        y = np.append(y, y[0])
+                    p += np.sqrt(np.diff(x) ** 2 + np.diff(y) ** 2).sum()
+                if any_ring:
+                    out[i] = p
+            return (B.pad_to(out, padn, T.double(True)),)
+        if afn.op == "NPOINTS":
+            out = np.full(n, -1, np.int32)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                out[i] = sum(
+                    len(c) // 2 for c, _ in geo_rings(r, kind)
+                )
+            return (B.pad_to(out, padn, T.integer(False)),)
+        if afn.op == "NRINGS":
+            # reference ST_NRings: ring count incl. holes
+            out = np.full(n, -1, np.int32)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                out[i] = sum(1 for _c, _ in geo_rings(r, kind))
+            return (B.pad_to(out, padn, T.integer(False)),)
+        if afn.op in ("CENTROID_X", "CENTROID_Y"):
+            # reference ST_Centroid: polygons area-weighted over rings
+            # (holes subtract), linestrings vertex mean, points identity
+            out = np.full(n, np.nan)
+            off = 0 if afn.op.endswith("X") else 1
+            poly = kind in (K.GEO_POLYGON, K.GEO_MULTIPOLYGON)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                if poly:
+                    num = 0.0
+                    den = 0.0
+                    for c, outer in geo_rings(r, kind):
+                        if len(c) < 6:
+                            continue
+                        x, y = c[0::2], c[1::2]
+                        x2, y2 = np.roll(x, -1), np.roll(y, -1)
+                        cross = x * y2 - x2 * y
+                        a = cross.sum() / 2.0
+                        coord = (x + x2) if off == 0 else (y + y2)
+                        cm = (coord * cross).sum() / 6.0
+                        sgn = 1.0 if outer else -1.0
+                        num += sgn * abs(a) * (cm / a if a != 0 else 0.0)
+                        den += sgn * abs(a)
+                    if den != 0:
+                        out[i] = num / den
+                else:
+                    vals = [c[off::2] for c, _ in geo_rings(r, kind)
+                            if len(c) >= 2]
+                    if vals:
+                        allv = np.concatenate(vals)
+                        out[i] = float(allv.mean())
+            return (B.pad_to(out, padn, T.double(True)),)
+
+        def point_in(px, py, rings):
+            """Even-odd point-in-polygon across ALL rings (outer rings and
+            holes alike — parity handles holes; reference point-in-poly
+            runtime function semantics)."""
+            crossings = 0
+            for c, _ in rings:
+                if len(c) < 6:
+                    continue
+                x, y = c[0::2], c[1::2]
+                x2, y2 = np.roll(x, -1), np.roll(y, -1)
+                cr = ((y > py) != (y2 > py)) & (
+                    px < (x2 - x) * (py - y)
+                    / np.where(y2 == y, 1e-300, y2 - y) + x
+                )
+                crossings += int(cr.sum())
+            return crossings % 2 == 1
+
+        def segs(rings, close=True):
+            for c, _ in rings:
+                if len(c) < 4:
+                    continue
+                x, y = c[0::2], c[1::2]
+                x2 = np.roll(x, -1) if close else x[1:]
+                y2 = np.roll(y, -1) if close else y[1:]
+                if not close:
+                    x, y = x[:-1], y[:-1]
+                yield x, y, x2, y2
+
+        def seg_intersect(a, b):
+            """Any segment of ring-set a intersects any segment of b."""
+            B_ = list(segs(b))
+            for ax, ay, ax2, ay2 in segs(a):
+                for bx, by, bx2, by2 in B_:
+                    d1x, d1y = ax2 - ax, ay2 - ay
+                    # orientation cross products, vectorized over a-segs
+                    for j in range(len(bx)):
+                        o1 = d1x * (by[j] - ay) - d1y * (bx[j] - ax)
+                        o2 = d1x * (by2[j] - ay) - d1y * (bx2[j] - ax)
+                        d2x, d2y = bx2[j] - bx[j], by2[j] - by[j]
+                        o3 = d2x * (ay - by[j]) - d2y * (ax - bx[j])
+                        o4 = d2x * (ay2 - by[j]) - d2y * (ax2 - bx[j])
+                        hit = ((np.sign(o1) != np.sign(o2))
+                               & (np.sign(o3) != np.sign(o4)))
+                        if bool(hit.any()):
+                            return True
+            return False
+
+        def geoms_intersect(ra, ka, rb, kb):
+            """Exact-ish intersection: bbox prefilter, then segment
+            crossing or containment either way."""
+            poly_kinds = (K.GEO_POLYGON, K.GEO_MULTIPOLYGON)
+            flat_a = np.concatenate([c for c, _ in ra]) if ra else np.empty(0)
+            flat_b = np.concatenate([c for c, _ in rb]) if rb else np.empty(0)
+            if flat_a.size < 2 or flat_b.size < 2:
+                return False
+            if (flat_a[0::2].min() > flat_b[0::2].max()
+                    or flat_a[0::2].max() < flat_b[0::2].min()
+                    or flat_a[1::2].min() > flat_b[1::2].max()
+                    or flat_a[1::2].max() < flat_b[1::2].min()):
+                return False
+            if ka == K.GEO_POINT:
+                if kb in poly_kinds:
+                    return point_in(flat_a[0], flat_a[1], rb)
+                if kb == K.GEO_POINT:
+                    return bool(flat_a[0] == flat_b[0]
+                                and flat_a[1] == flat_b[1])
+            if kb == K.GEO_POINT:
+                return geoms_intersect(rb, kb, ra, ka)
+            if seg_intersect(ra, rb):
+                return True
+            if ka in poly_kinds and point_in(flat_b[0], flat_b[1], ra):
+                return True
+            if kb in poly_kinds and point_in(flat_a[0], flat_a[1], rb):
+                return True
+            return False
+
+        out = np.full(n, -1, np.int8)
+        if afn.op == "CONTAINS_LITPOLY":
+            lit_rings = geo_rings(
+                wkt_to_coords(afn.args[0].value, K.GEO_POLYGON),
+                K.GEO_POLYGON,
+            )
+            for i, r in enumerate(rows):
+                if r is None or len(r) < 2:
+                    continue
+                out[i] = 1 if point_in(r[0], r[1], lit_rings) else 0
+        elif afn.op == "INTERSECTS_LIT":
+            wkt = str(afn.args[0].value)
+            tag = wkt.strip().split("(")[0].strip().upper()
+            lk = {
+                "POINT": K.GEO_POINT, "LINESTRING": K.GEO_LINESTRING,
+                "POLYGON": K.GEO_POLYGON,
+                "MULTIPOLYGON": K.GEO_MULTIPOLYGON,
+            }[tag]
+            lit_rings = geo_rings(wkt_to_coords(wkt, lk), lk)
+            for i, r in enumerate(rows):
+                if r is None:
+                    continue
+                out[i] = 1 if geoms_intersect(
+                    geo_rings(r, kind), kind, lit_rings, lk
+                ) else 0
+        else:  # CONTAINS: per-row polygon, point column or literal point
+            pt = afn.args[0]
+            if isinstance(pt, E.Constant):
+                c = wkt_to_coords(pt.value, K.GEO_POINT)
+                pxs = np.full(n, c[0])
+                pys = np.full(n, c[1])
+                pok = np.ones(n, bool)
+            else:
+                prows = t.column_values(pt.dict_ref[1])
+                pxs = np.full(n, np.nan)
+                pys = np.full(n, np.nan)
+                for i, pr in enumerate(prows):
+                    if pr is not None and len(pr) >= 2:
+                        pxs[i], pys[i] = pr[0], pr[1]
+                pok = ~np.isnan(pxs)
+            for i, r in enumerate(rows):
+                if r is None or not pok[i]:
+                    continue
+                out[i] = 1 if point_in(
+                    pxs[i], pys[i], geo_rings(r, kind)
+                ) else 0
+        return (B.pad_to(out, padn, T.tinyint(False)),)
+
     def _postprocess(self, node, plan, outs) -> Optional[B.Batch]:
         d = outs
         # keyless aggregate with no join and no error flags has a STATIC
@@ -1702,7 +2236,7 @@ class _JoinPlan:
     build_keys: list = None
     residual: list = None
     translate: Optional[tuple] = None  # (from_dict_ref, to_dict_ref)
-    pack: str = "single"  # single | range | hash
+    pack: str = "single"  # single | range | hash | geo
     pack_spans: tuple = ()
     # dense-range perfect build (reference PerfectJoinHashTable)
     key_min: Optional[int] = None
@@ -1713,6 +2247,8 @@ class _JoinPlan:
     fallback_cap: int = 0
     # a hash-table build left a key without a slot: probe sorted instead
     hash_fallback: bool = False
+    # the grid-bucket spatial join (exec/geo_join.py GeoJoinSpec; pack "geo")
+    geo: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -1798,11 +2334,12 @@ _MAX_JOIN_DOMAIN = (1 << 31) - 1
 _I32_MIN = int(np.iinfo(np.int32).min)
 
 
-def _string_aux_specs(exprs) -> dict:
-    """aux key -> spec of every dictionary-string table the expressions
-    read (the reference's `_plan_compound` aux specs): a predicate's table,
-    a transform's, a pair concat's, a pair comparison's rank tables, and
-    the rank and order tables of a MIN / MAX over a dictionary string."""
+def _expr_aux_specs(exprs) -> dict:
+    """aux key -> spec of every aux table the expressions read (the
+    reference's `_plan_compound` aux specs): a dictionary predicate's
+    table, a transform's, a pair concat's, a pair comparison's rank
+    tables, the rank and order tables of a MIN / MAX over a dictionary
+    string, and an ArrayFn's tables (UNNEST's are its node's own)."""
     specs = {}
     kinds = ((E.DictStrPredicate, "strpred"), (E.StringTransform, "strtransform"),
              (E.StringPairConcat, "pairconcat"), (E.DictPairCompare, "pairrank"))
@@ -1817,6 +2354,8 @@ def _string_aux_specs(exprs) -> dict:
                 if ref is not None:
                     specs.setdefault(("dictrank", ref), ("dictrank", ref))
                     specs.setdefault(("dictorder", ref), ("dictorder", ref))
+            if isinstance(sub, E.ArrayFn) and sub.op != "UNNEST":
+                specs.setdefault(sub.key(), ("array", sub))
     return specs
 
 
@@ -1899,12 +2438,18 @@ def _try_cast_host(pred: E.DictStrPredicate, d, padded: int) -> np.ndarray:
 
 def _build_form(jp: _JoinPlan, build_padded: int) -> str:
     """How a level builds and probes: cross, perfect-unique, perfect, hash
-    or sorted (as the kernel picks it)."""
+    or sorted (as the kernel picks it); a grid join names its kind, its
+    registrations a build row and its probe."""
     from heavydb_tpu_torch.exec.compound_kernel import (_JOIN_HASH_MAX_SLOTS,
                                                         _join_hash_slots)
 
     if jp.kind == "CROSS":
         return "cross"
+    if jp.geo is not None:
+        reps = len(jp.geo.offsets)
+        probe = "sorted" if jp.hash_fallback or \
+            _join_hash_slots(reps * build_padded) > _JOIN_HASH_MAX_SLOTS else "hash"
+        return f"geo {jp.geo.kind} x{reps} {probe}"
     if jp.key_min is not None:
         return "perfect-unique" if jp.unique_build else "perfect"
     if jp.hash_fallback or _join_hash_slots(build_padded) > _JOIN_HASH_MAX_SLOTS:

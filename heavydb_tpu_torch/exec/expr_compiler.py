@@ -11,7 +11,13 @@ Value representation: TV = (val, valid) where
 Null storage is in-band sentinels; three-valued AND/OR matches SQL.
 
 Dispatch is on `_c_<ExprType>`; a type without a method raises
-NotSupported.  The geo, array and subquery constructs are left out.
+NotSupported.
+
+An array or geo column's device value is its row's int32 global rowid;
+ArrayFn gathers the tables the executor builds over the column's host
+payload (exec/executor.py `_array_aux`) through it, and CONTAINS_SEG runs
+the even-odd ray cast of a point against a polygon's segments over the
+domain (`ray_cast`).
 
 Dictionary strings are int32 ids on the device.  Their predicates,
 transforms, pairwise concatenations and pairwise comparisons read tables
@@ -37,6 +43,10 @@ TV = Tuple[object, Optional[object]]  # (val, valid)
 # a dictionary id that is NULL: a transform's NULL result, a missing pair
 _I32_MIN = int(np.iinfo(np.int32).min)
 
+# domain rows a pass of the ray cast takes: bounds its temporaries (each
+# iteration holds ~8 domain-sized ones) on a join's pair domain
+RAY_CAST_CHUNK = 1 << 24
+
 
 def and_valid(a, b):
     if a is None:
@@ -44,6 +54,40 @@ def and_valid(a, b):
     if b is None:
         return a
     return a & b
+
+
+def _broadcast1(x, n: int):
+    return x.expand(n) if x.dim() == 0 else x
+
+
+def ray_cast(off, cnt, px, py, segs, maxseg: int):
+    """int32 crossings of the ray from each point (px, py), float64, to
+    +x with the cnt[i] segments of its polygon that start at off[i] of
+    the flat segment tables segs = (x1, y1, x2, y2): the reference's
+    CONTAINS_SEG loop, `maxseg` passes of its crossing test term for term
+    (one elementwise op each, so nothing fuses into a multiply-add), run
+    over the domain in chunks of RAY_CAST_CHUNK rows."""
+    n = px.shape[0]
+    crossings = torch.zeros(n, dtype=torch.int32, device=px.device)
+    if n == 0 or maxseg == 0:
+        return crossings
+    sx1, sy1, sx2, sy2 = segs
+    last = sx1.shape[0] - 1
+    with torch.profiler.record_function("contains_seg_ray_cast"):
+        for a in range(0, n, RAY_CAST_CHUNK):
+            b = min(a + RAY_CAST_CHUNK, n)
+            o, c, x, y = off[a:b].to(torch.int64), cnt[a:b], px[a:b], py[a:b]
+            acc = crossings[a:b]
+            for s in range(maxseg):
+                # four 1-D gathers: one row gather of a [segments, 4]
+                # table is many times slower on an H100 (chip_smoke.py
+                # ray_cast_gathers, PERF.md §6)
+                j = (o + s).clamp_(0, last)
+                x1, y1, x2, y2 = sx1[j], sy1[j], sx2[j], sy2[j]
+                den = torch.where(y2 == y1, 1e-300, y2 - y1)
+                cr = ((y1 > y) != (y2 > y)) & (x < (x2 - x1) * (y - y1) / den + x1)
+                acc += (cr & (c > s)).to(torch.int32)
+    return crossings
 
 
 def fdiv(a, b):
@@ -127,6 +171,60 @@ class ExprCompiler:
         if isinstance(e.value, str):
             raise NotSupported("string constants outside dictionary predicates")
         return self._t(e.value, e.type.np_dtype()), None
+
+    def _c_ArrayFn(self, e: E.ArrayFn) -> TV:
+        """Array and geo ops over the rowid handle: the aux tables of
+        `_array_aux` gathered at the row (the reference's ArrayIR.cpp)."""
+        if e.op == "UNNEST":
+            raise NotSupported("UNNEST is only allowed in the SELECT list")
+        rid, ridv = self.compile(e.rowid)
+        aux = self.aux[e.key()]
+        rid = self._t(rid, torch.int64)
+        ridc = rid.clamp(0, aux[0].shape[0] - 1)
+        okrid = and_valid(rid >= 0, ridv)
+        if e.op == "CARDINALITY":
+            ln = aux[0][ridc]
+            return ln, okrid & (ln >= 0)
+        if e.op == "CONTAINS_SEG":
+            # the even-odd ray cast against a polygon column's segments,
+            # over any domain: the exact test of a cross-table geo join
+            seg_off, seg_cnt, sx1, sy1, sx2, sy2, maxseg = aux
+            ridp = rid.clamp(0, seg_cnt.shape[0] - 1)
+            px, pxv = self.compile(e.args[0])
+            py, pyv = self.compile(e.args[1])
+            n = max(t.numel() for t in (ridp, px, py))
+            cnt = _broadcast1(seg_cnt[ridp], n)
+            crossings = ray_cast(_broadcast1(seg_off[ridp], n), cnt,
+                                 _broadcast1(self._t(px, torch.float64), n),
+                                 _broadcast1(self._t(py, torch.float64), n),
+                                 (sx1, sy1, sx2, sy2), maxseg)
+            ok = and_valid(and_valid(okrid & (cnt >= 0), pxv), pyv)
+            return (crossings % 2) == 1, ok
+        if e.op in ("ANY", "ALL", "CONTAINS", "CONTAINS_LITPOLY", "INTERSECTS_LIT",
+                    "ARR_EQ"):
+            r = aux[0][ridc]
+            return r == 1, okrid & (r != -1)
+        if e.op in ("AREA", "PERIMETER", "XMIN", "XMAX", "YMIN", "YMAX",
+                    "CENTROID_X", "CENTROID_Y"):
+            v = aux[0][ridc]
+            return v, okrid & ~torch.isnan(v)
+        if e.op in ("NPOINTS", "NRINGS"):
+            v = aux[0][ridc]
+            return v, okrid & (v >= 0)
+        # SUBSCRIPT: 1-based; out of range or a NULL element gives NULL
+        lengths, offsets, flat = aux
+        k, kvalid = self.compile(e.args[0])
+        k = self._t(k, torch.int64)
+        ln = lengths[ridc]
+        pos = (offsets[ridc] + k - 1).clamp(0, flat.shape[0] - 1)
+        v = flat[pos]
+        ok = and_valid(okrid & (k >= 1) & (k <= ln.clamp(min=0)), kvalid)
+        if e.elem.nullable:
+            if v.is_floating_point():
+                ok = ok & ~torch.isnan(v)
+            else:
+                ok = ok & (v != e.elem.null_sentinel())
+        return v, ok
 
     # ---- operators ----
     def _c_BinOp(self, e: E.BinOp) -> TV:

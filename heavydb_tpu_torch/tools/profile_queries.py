@@ -13,12 +13,15 @@ tier's HASH_QUERIES of tools/synthetic.py, whose dimension tables
 `load_dims`, whose `lstr` table `load_strings` and whose `hsparse` table
 `load_hsparse` (HASH_ROWS rows) add when one of them runs; each under its QUERY_SETTINGS,
 and a HASH_QUERIES query also with the hash group-by off, on the sort
-tier) warm under
+tier; the geo GEO_QUERIES over `load_geo`'s trips, zones and stations and
+the ARRAY_QUERIES over `load_arrays`' arr, loaded when one of them runs) warm under
 torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
-profiled run, the device's idle share (1 - busy / median wall), and the
-kernels that took the most time, and the fragment waves a run took
+profiled run, the device's idle share (1 - busy / median wall), the
+kernels that took the most time, the device time and kernel launches
+under each named range of the run (RANGES: the CONTAINS_SEG ray cast of
+a geo join), and the fragment waves a run took
 (`--stream-threshold` sets the config's stream_threshold_bytes, so a
 small one runs every query in waves).  Needs a CUDA card.
 """
@@ -33,16 +36,45 @@ import time
 import torch
 
 from heavydb_tpu_torch.config import Config
-from heavydb_tpu_torch.tools.synthetic import (DISTINCT_QUERIES, FRAGMENT_ROWS,
-                                               HASH_QUERIES, HASH_ROWS, JOIN_QUERIES,
-                                               QUERIES, SORT_QUERIES, STRING_QUERIES,
-                                               SUBQ_QUERIES, load_bench, load_dims,
-                                               load_hsparse, load_strings, query_settings)
+from heavydb_tpu_torch.tools.synthetic import (ARRAY_QUERIES, ARRAY_ROWS, DISTINCT_QUERIES,
+                                               FRAGMENT_ROWS, GEO_QUERIES, HASH_QUERIES,
+                                               HASH_ROWS, JOIN_QUERIES, QUERIES,
+                                               SORT_QUERIES, STRING_QUERIES, SUBQ_QUERIES,
+                                               TRIPS_ROWS, load_arrays, load_bench,
+                                               load_dims, load_geo, load_hsparse,
+                                               load_strings, query_settings)
 
 ALL_QUERIES = {**QUERIES, **SORT_QUERIES, **JOIN_QUERIES, **STRING_QUERIES,
-               **SUBQ_QUERIES, **DISTINCT_QUERIES, **HASH_QUERIES}
+               **SUBQ_QUERIES, **DISTINCT_QUERIES, **HASH_QUERIES, **GEO_QUERIES,
+               **ARRAY_QUERIES}
 # the queries that read load_dims' tables
 DIM_QUERIES = set(JOIN_QUERIES) | {"SUBQ_IN", "SUBQ_NOT_IN"}
+# the queries on tables of their own, and those tables' rows
+OWN_ROWS = {**{q: HASH_ROWS for q in HASH_QUERIES}, **{q: TRIPS_ROWS for q in GEO_QUERIES},
+            **{q: ARRAY_ROWS for q in ARRAY_QUERIES}}
+# record_function ranges of the port whose device time and launches a
+# profile reports apart
+RANGES = ("contains_seg_ray_cast",)
+# device-side profiler entries that are not kernels, copies or sets
+NOT_KERNELS = {"Activity Buffer Request", "Command Buffer Full", *RANGES}
+
+
+def range_stats(prof, name: str) -> dict:
+    """Device ms and launches of the kernels, copies and sets that ran
+    inside the record_function range `name` of a torch.profiler run: those
+    within the device-side spans of the range (every occurrence)."""
+    from torch.autograd import DeviceType
+
+    evts = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in evts
+             if e.name == name and e.device_type == DeviceType.CUDA]
+    us, launches = 0.0, 0
+    for e in evts:
+        if e.device_type == DeviceType.CUDA and e.name not in NOT_KERNELS and any(
+                a <= e.time_range.start and e.time_range.end <= b for a, b in spans):
+            us += e.time_range.elapsed_us()
+            launches += 1
+    return dict(device_ms=us / 1e3, launches=launches)
 
 
 def _device_us(evt) -> float:
@@ -74,10 +106,11 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, memcpy, memset): the aten ops that
-    # launched them carry the same time again
+    # launched them carry the same time again, a named range (RANGES) spans
+    # its kernels, and the runtime's waits on a full launch queue are no work
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-               and e.key != "Activity Buffer Request"]
+               and e.key not in NOT_KERNELS]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     # the profiler stretches the host clock, so the idle share is taken
     # against the median unprofiled wall time; one stream runs one kernel
@@ -87,11 +120,13 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
         raise RuntimeError(f"device busy {busy_ms:.3f} ms exceeds the "
                            f"{wall:.3f} ms wall clock of the query")
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
+    ranges = {name: range_stats(prof, name) for name in RANGES}
     return dict(
         wall_ms=wall, profiled_wall_ms=wall_ms,
         device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall, waves=waves,
         top=[dict(name=e.key[:80], ms=_device_us(e) / 1e3, calls=e.count)
-             for e in top])
+             for e in top],
+        ranges={k: v for k, v in ranges.items() if v["launches"]})
 
 
 def main(argv=None) -> None:
@@ -109,7 +144,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: needs a CUDA device")
     db = hdt.connect(config=Config(stream_threshold_bytes=args.stream_threshold))
-    if set(args.queries) - set(HASH_QUERIES):
+    if set(args.queries) - set(OWN_ROWS):
         load_bench(db, args.rows, args.seed, args.fragment_rows)
     if set(args.queries) & DIM_QUERIES:
         load_dims(db, args.seed + 1)
@@ -117,9 +152,13 @@ def main(argv=None) -> None:
         load_strings(db, args.rows, args.seed + 4, args.fragment_rows)
     if set(args.queries) & set(HASH_QUERIES):
         load_hsparse(db, HASH_ROWS, args.seed + 9)
+    if set(args.queries) & set(GEO_QUERIES):
+        load_geo(db, args.seed + 11)
+    if set(args.queries) & set(ARRAY_QUERIES):
+        load_arrays(db, ARRAY_ROWS, args.seed + 12)
     card = torch.cuda.get_device_name(0)
     for name in args.queries:
-        rows = HASH_ROWS if name in HASH_QUERIES else args.rows
+        rows = OWN_ROWS.get(name, args.rows)
         with query_settings(db, name) as settings:
             line = profile_query(db, ALL_QUERIES[name])
         print(json.dumps({"query": name, "rows": rows, "card": card, **settings,

@@ -43,6 +43,24 @@ keys) but not for 17,000 or 24,000, and HASH_KEYS_TRUE = 400,000 keys
 (25 rows a key in truth, the depth the rule is meant for) estimate past
 2^19 and run on the sort tier (tests/test_torch_hash_groupby.py
 `test_rule_window_at_ten_million_rows`).
+
+The geo tables (`load_geo`), cut from the NYC taxi demos of HeavyDB:
+`trips (p GEOMETRY(POINT, 4326), fare DOUBLE, pax SMALLINT)`, TRIPS_ROWS
+pickups uniform over NYC_BOX (1 % NULL), fare uniform in [2.5, 80], pax
+in 1..6; `zones (zid INT, zone GEOMETRY(POLYGON, 4326))`, ZONES polygons
+(the NYC TLC taxi zones' count): the tiles of a jittered ZONE_GRID grid
+of shared vertices over the same box, ZONES_DROPPED tiles left out (their
+pickups fall in no zone), each tile edge cut into ZONE_EDGE_SEGMENTS
+straight segments (64 vertices a ring), every ZONE_HOLE_EVERY-th zone
+with a square hole; `stations (sid INT, s GEOMETRY(POINT, 4326))`,
+STATIONS points (about Citi Bike's count) uniform over the box.  SRID
+4326 columns store GEOINT32 (int32 lon / lat, the reference's default);
+the loader makes each coordinate as the codec does (storage/table.py
+geoint_compress) and inserts the physical rows.
+
+The array table (`load_arrays`): `arr (vals INT[], w DOUBLE)`, ARRAY_ROWS
+rows of 0 .. ARRAY_MAX_LEN elements uniform in [0, ARRAY_VALUES), 2 %
+NULL arrays and 1 % NULL elements; w uniform in [0, 1).
 """
 
 from __future__ import annotations
@@ -50,6 +68,7 @@ from __future__ import annotations
 import contextlib
 from typing import Dict
 
+import numpy as np
 import torch
 
 FRAGMENT_ROWS = 33_554_432
@@ -205,6 +224,42 @@ HASH_ROWS = 10_000_000
 # for; its estimate is past 2^19, so the rule leaves it to the sort tier, and
 # chip_smoke.py times both tiers at it with the estimate set to the true count
 HASH_KEYS_TRUE = 400_000
+
+# geo expressions and the grid-bucket spatial join over `load_geo`'s tables
+GEO_QUERIES = {
+    # keyless; ST_X / ST_Y are SUBSCRIPT gathers of the decoded payload
+    "GEO_DWITHIN": "SELECT COUNT(*) FROM trips WHERE ST_DWithin(p, "
+                   "ST_GeomFromText('POINT(-73.9857 40.7484)', 4326), 0.01)",
+    # the poly_build grid join, the CONTAINS_SEG ray cast over its pairs,
+    # then B2 over the 263 zones' perfect slots
+    "GEO_ZONE_JOIN": "SELECT z.zid, COUNT(*), AVG(t.fare) FROM trips t JOIN zones z "
+                     "ON ST_Contains(z.zone, t.p) GROUP BY z.zid",
+    # the dwithin grid join: 9 registrations a station
+    "GEO_NEAR_JOIN": "SELECT COUNT(*) FROM trips t, stations s "
+                     "WHERE ST_DWithin(t.p, s.s, 0.002)",
+}
+# array expressions over `load_arrays`' table
+ARRAY_QUERIES = {
+    # UNNEST of ~4 x 10^7 elements, then the group-by tier the port picks
+    "ARR_UNNEST_GROUP": "SELECT UNNEST(vals) v, COUNT(*) FROM arr GROUP BY v",
+    # the int8 ANY table and a SUBSCRIPT gather
+    "ARR_ANY_SUBSCRIPT": "SELECT COUNT(*), SUM(w) FROM arr WHERE 7 = ANY(vals) "
+                         "AND vals[1] < 500",
+}
+TRIPS_ROWS = 10_000_000
+NYC_BOX = (-74.26, -73.70, 40.49, 40.92)  # lon min, lon max, lat min, lat max
+POINT_NULL_SHARE = 0.01
+ZONES = 263
+ZONE_GRID = (17, 16)  # tiles across, tiles up
+ZONES_DROPPED = ZONE_GRID[0] * ZONE_GRID[1] - ZONES
+ZONE_EDGE_SEGMENTS = 16
+ZONE_HOLE_EVERY = 5
+STATIONS = 2_000
+ARRAY_ROWS = 10_000_000
+ARRAY_MAX_LEN = 8
+ARRAY_VALUES = 1000
+ARRAY_NULL_SHARE = 0.02
+ELEMENT_NULL_SHARE = 0.01
 
 # Config fields a query runs under, set on the connection around it:
 # COUNT(DISTINCT) takes its hash form, and a GROUP BY the hash tier, only
@@ -375,3 +430,139 @@ def load_hsparse(db, n: int, seed: int, keys: int = HASH_KEYS) -> Dict[str, torc
            f"WITH (fragment_size={FRAGMENT_ROWS})")
     db.load_table_device("hsparse", data)
     return data
+
+
+def _object_rows(parts, null) -> np.ndarray:
+    """An array column's physical rows: an object array of the per-row
+    element arrays, None where `null`."""
+    out = np.empty(len(parts), object)
+    for i, (row, isnull) in enumerate(zip(parts, null.tolist())):
+        out[i] = None if isnull else row
+    return out
+
+
+def _insert(db, name: str, cols: Dict[str, np.ndarray]) -> None:
+    """Append physical host columns (null sentinels in place; array and
+    geo columns as object rows) to table `name`."""
+    t = db.catalog.get_table(name)
+    t.insert_columns({cd.col_id: cols[cd.name] for cd in t.columns})
+    db.executor.drop_stale()
+
+
+def _geoint(x, y) -> np.ndarray:
+    """[n, 2] int32 GEOINT32 lon / lat of float64 coordinates."""
+    from heavydb_tpu_torch import types as T
+    from heavydb_tpu_torch.storage.table import geoint_compress
+
+    xy = np.empty(2 * len(x), np.float64)
+    xy[0::2], xy[1::2] = x, y
+    return geoint_compress(xy, T.SQLTypeKind.GEO_POINT).reshape(-1, 2)
+
+
+def _points(rng, n: int) -> np.ndarray:
+    lo_x, hi_x, lo_y, hi_y = NYC_BOX
+    return _geoint(rng.uniform(lo_x, hi_x, n), rng.uniform(lo_y, hi_y, n))
+
+
+def zone_rings(seed: int):
+    """The zones' rings as float64 (x, y) vertex arrays: [(zid, outer,
+    hole or None)], from the jittered grid of `seed`.  A tile edge's
+    intermediate vertices are made once and shared by its two tiles."""
+    rng = np.random.default_rng(seed)
+    nx, ny = ZONE_GRID
+    lo_x, hi_x, lo_y, hi_y = NYC_BOX
+    gx = np.linspace(lo_x, hi_x, nx + 1)[:, None] + np.zeros((1, ny + 1))
+    gy = np.zeros((nx + 1, 1)) + np.linspace(lo_y, hi_y, ny + 1)[None, :]
+    dx, dy = (hi_x - lo_x) / nx, (hi_y - lo_y) / ny
+    gx[1:-1, 1:-1] += rng.uniform(-0.3, 0.3, (nx - 1, ny - 1)) * dx
+    gy[1:-1, 1:-1] += rng.uniform(-0.3, 0.3, (nx - 1, ny - 1)) * dy
+    t = np.arange(ZONE_EDGE_SEGMENTS) / ZONE_EDGE_SEGMENTS
+
+    def edge(a, b):
+        # the vertices from corner a up to (not including) corner b
+        (ax, ay), (bx, by) = (gx[a], gy[a]), (gx[b], gy[b])
+        return np.stack([ax + (bx - ax) * t, ay + (by - ay) * t], 1)
+
+    h_edges = {(i, j): edge((i, j), (i + 1, j)) for i in range(nx) for j in range(ny + 1)}
+    v_edges = {(i, j): edge((i, j), (i, j + 1)) for i in range(nx + 1) for j in range(ny)}
+
+    def reverse(e, far):
+        # the same vertices walked back, starting at the far corner
+        return np.concatenate([far[None, :], e[:0:-1]])
+
+    dropped = set(rng.choice(nx * ny, ZONES_DROPPED, replace=False).tolist())
+    out = []
+    for k in range(nx * ny):
+        if k in dropped:
+            continue
+        i, j = k % nx, k // nx
+        ring = np.concatenate([
+            h_edges[(i, j)], v_edges[(i + 1, j)],
+            reverse(h_edges[(i, j + 1)], np.array([gx[i + 1, j + 1], gy[i + 1, j + 1]])),
+            reverse(v_edges[(i, j)], np.array([gx[i, j + 1], gy[i, j + 1]]))])
+        zid = len(out) + 1
+        hole = None
+        if zid % ZONE_HOLE_EVERY == 0:
+            cx, cy = ring[:, 0].mean(), ring[:, 1].mean()
+            r = 0.15 * min(dx, dy)
+            hole = np.array([[cx - r, cy - r], [cx + r, cy - r], [cx + r, cy + r],
+                             [cx - r, cy + r]])
+        out.append((zid, ring, hole))
+    return out
+
+
+def _polygon_row(ring, hole) -> np.ndarray:
+    """A GEOINT32 POLYGON payload: [rings, +outer coords, -hole coords,
+    int32 coordinates...]."""
+    rings = [ring] + ([hole] if hole is not None else [])
+    head = [len(rings), 2 * len(ring)] + ([-2 * len(hole)] if hole is not None else [])
+    coords = [_geoint(r[:, 0], r[:, 1]).reshape(-1) for r in rings]
+    return np.concatenate([np.asarray(head, np.int32)] + coords)
+
+
+def load_geo(db, seed: int, trips: int = TRIPS_ROWS) -> Dict[str, object]:
+    """CREATE and load `trips`, `zones` and `stations` (the module
+    docstring's schema), made on the host from `seed`.  Returns the
+    physical columns: trips_xy ([n, 2] int32 GEOINT32), trips_null,
+    fare, pax; zones (the zid and int32 POLYGON payload of each zone);
+    stations_xy."""
+    rng = np.random.default_rng(seed)
+    xy = _points(rng, trips)
+    null = rng.random(trips) < POINT_NULL_SHARE
+    fare = rng.uniform(2.5, 80.0, trips)
+    pax = rng.integers(1, 7, trips).astype(np.int16)
+    zones = [(zid, _polygon_row(ring, hole)) for zid, ring, hole in zone_rings(seed + 1)]
+    sxy = _points(rng, STATIONS)
+    frag = f"WITH (fragment_size={FRAGMENT_ROWS})"
+    db.sql(f"CREATE TABLE trips (p GEOMETRY(POINT, 4326), fare DOUBLE, pax SMALLINT) {frag}")
+    _insert(db, "trips", {"p": _object_rows(xy, null), "fare": fare, "pax": pax})
+    db.sql("CREATE TABLE zones (zid INT, zone GEOMETRY(POLYGON, 4326))")
+    _insert(db, "zones", {"zid": np.array([z for z, _ in zones], np.int32),
+                          "zone": _object_rows([r for _, r in zones],
+                                               np.zeros(len(zones), bool))})
+    db.sql("CREATE TABLE stations (sid INT, s GEOMETRY(POINT, 4326))")
+    _insert(db, "stations", {"sid": np.arange(1, STATIONS + 1, dtype=np.int32),
+                             "s": _object_rows(sxy, np.zeros(STATIONS, bool))})
+    return dict(trips_xy=xy, trips_null=null, fare=fare, pax=pax, zones=zones,
+                stations_xy=sxy)
+
+
+def load_arrays(db, n: int, seed: int) -> Dict[str, np.ndarray]:
+    """CREATE TABLE arr and load `n` rows made on the host from `seed`
+    (the module docstring's schema).  Returns the flat elements (INT32_MIN
+    for a NULL element), each row's offsets into them, the NULL arrays and
+    w."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(0, ARRAY_MAX_LEN + 1, n)
+    null = rng.random(n) < ARRAY_NULL_SHARE
+    lengths[null] = 0
+    offsets = np.zeros(n + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    flat = rng.integers(0, ARRAY_VALUES, int(offsets[-1])).astype(np.int32)
+    flat[rng.random(flat.shape[0]) < ELEMENT_NULL_SHARE] = np.iinfo(np.int32).min
+    w = rng.random(n)
+    bounds = offsets.tolist()
+    parts = [flat[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    db.sql(f"CREATE TABLE arr (vals INT[], w DOUBLE) WITH (fragment_size={FRAGMENT_ROWS})")
+    _insert(db, "arr", {"vals": _object_rows(parts, null), "w": w})
+    return dict(flat=flat, offsets=offsets, null=null, w=w)
