@@ -121,6 +121,31 @@ printing JSON lines:
            HAVING and ORDER BY at a 4096-slot claim table (B2 at 16384
            slots), and a forced hash_unresolved retry: the same rows on
            CUDA as on the CPU
+  window   tools/synthetic.py WINDOW_QUERIES on bench: WIN_RUNNING (the
+           reference's window benchmark shape: a running SUM with RANGE
+           peers and ROW_NUMBER over one spec, the sorted egress and a
+           packed key, B1 over 10 slots), WIN_TOPN (RANK over a FLOAT key,
+           the generic sort, a filter over it) and WIN_FRAMES (three specs
+           and the permutation egress: a bounded ROWS AVG and MIN, a LAG, a
+           DENSE_RANK with no partition, B1 over 100 slots); each equal to
+           rows computed apart in plain torch on the card (stable sorts of
+           packed keys, direct frame sums), with its first and warm ms, each
+           spec's egress mode and sort, peak device bytes, launches (counted
+           from 0 for this phase) and a torch.profiler breakdown
+  window_split  the plain scans of ops/window.py alone at 10^8 rows: the
+           running MIN / MAX with resets on its blocked and doubling forms,
+           the blocked running maximum beside torch.cummax, a segmented
+           propagation, the running sum, the packed key's sort
+  window_shapes  every window kind, frame form, IGNORE NULLS case,
+           NULL / NaN / -0.0 / subnormal key, a string order key, both egress
+           modes and both sorts, windows over GROUP BY results (B1 and B2)
+           on small tables: the same rows on CUDA as on the CPU
+  udf      UDF_QUERIES on bench: UDF_GROUP, a SUM of the scalar UDF HYPOT
+           (register_udfs) on B1 over 100 slots, against numpy, measured as
+           the window cells
+  udf_shapes  every built-in table function, the fits, k-means and PCA over
+           a CURSOR of ~10^6 bench rows, and a table function in a join, on
+           CUDA against the port on the CPU holding those rows
   dml      tools/synthetic.py DML_STEPS on bench after every phase that
            reads it: UPDATE (~10^5 rows in each fragment), DELETE (~10^5
            rows), CREATE TABLE AS SELECT (~3 x 10^7 rows), INSERT ... SELECT
@@ -158,7 +183,8 @@ printing JSON lines:
            query reruns on the sort tier, still equal to numpy
 Then each new phase's seconds, the script's wall time, the kernel summary
 line (its launches are those of the e2e, sort, join, subq, distinct,
-strings, hash, dml, geo, geo_shapes, arrays and array_shapes phases), the
+strings, hash, window, window_shapes, udf, udf_shapes, dml, geo,
+geo_shapes, arrays and array_shapes phases), the
 card line, and the final {"ok": true,
 "device": ...} line.  Any failure exits non-zero.
 """
@@ -3558,6 +3584,430 @@ def run_array_shapes(counters, n: int = 20_000):
                 rows_out=rows_out), [c.launches for c in counters]
 
 
+# ---------------------------------------------------------------------------
+# window, window_shapes, udf and udf_shapes phases
+# ---------------------------------------------------------------------------
+
+# result columns held to rtol 1e-6: WIN_FRAMES' MAX(ma), a difference of
+# global prefixes over 10^8 rows (~5 x 10^7 at the end) against the
+# direct 4-row sum, which loses ~10^-8 relative to the prefix
+PREFIX_TOL = dict(rtol=1e-6, atol=1e-9)
+WINDOW_TOLS = {"WIN_RUNNING": {}, "WIN_TOPN": {}, "WIN_FRAMES": {1: PREFIX_TOL},
+               "UDF_GROUP": {}}
+WINDOW_KEYS = {"WIN_RUNNING": 1, "WIN_FRAMES": 1, "UDF_GROUP": 1}
+# each window spec's egress mode and sort, in order (Executor.window_runs)
+WINDOW_PLANS = {
+    "WIN_RUNNING": [("sorted", "packed")],
+    "WIN_TOPN": [("sorted", "generic")],
+    "WIN_FRAMES": [("permsort", "packed")] * 3,
+    "UDF_GROUP": [],
+}
+ROUTES.update({
+    # the window phase: the sorts and scans are plain torch, as the
+    # reference's are plain XLA; the GROUP BY over the window launches B1
+    # (10 and 100 slots); WIN_TOPN has no GROUP BY
+    "WIN_RUNNING": {"lane_agg"}, "WIN_TOPN": set(), "WIN_FRAMES": {"lane_agg"},
+    # the udf phase: HYPOT runs in the Compound, its SUM on B1
+    "UDF_GROUP": {"lane_agg"},
+})
+
+
+def _first_of_run(s):
+    """Index of the first element equal to each element of sorted s."""
+    return torch.searchsorted(s, s)
+
+
+def _last_of_run(s):
+    return torch.searchsorted(s, s, right=True) - 1
+
+
+def _per_key(keys, size, *cols):
+    """{(k,): row} over the keys present: cols are (values, reduce) with
+    reduce "count", "sum", "amax" or "amin"."""
+    cnt = torch.bincount(keys, minlength=size)
+    out = []
+    for vals, how in cols:
+        if how == "count":
+            out.append(torch.bincount(keys if vals is None else keys[vals], minlength=size))
+        elif how == "sum":
+            out.append(torch.zeros(size, dtype=vals.dtype, device=vals.device)
+                       .index_add_(0, keys, vals))
+        else:
+            fill = float("-inf") if how == "amax" else float("inf")
+            if not vals.is_floating_point():
+                info = torch.iinfo(vals.dtype)
+                fill = info.min if how == "amax" else info.max
+            out.append(torch.full((size,), fill, dtype=vals.dtype, device=vals.device)
+                       .scatter_reduce(0, keys, vals, how))
+    cnt = cnt.cpu().numpy()
+    host = [c.cpu().numpy() for c in out]
+    return {(k,): tuple(c[k].item() for c in host) for k in range(size) if cnt[k]}
+
+
+def expected_window(name, h, dev):
+    """Each window cell's rows, computed apart from ops/window.py in plain
+    torch on the card (numpy would take minutes over 10^8 rows): stable
+    sorts of packed keys, run bounds by binary search, and direct sums
+    and minima over the frame's rows."""
+    col = {c: torch.from_numpy(h[c]).to(dev) for c in ("x10", "x100", "x1k", "x10m", "v")}
+    n = col["v"].shape[0]
+    i = torch.arange(n, device=dev)
+    if name == "WIN_RUNNING":
+        ks, order = torch.sort((col["x1k"].long() << 24) | col["x10m"].long(), stable=True)
+        pf = _first_of_run(ks >> 24)
+        cs = torch.cumsum(col["v"][order].double(), 0)
+        base = torch.where(pf > 0, cs[(pf - 1).clamp(min=0)], 0.0)
+        rs = cs[_last_of_run(ks)] - base  # RANGE peers: through the last peer
+        g = col["x10"][order].long()
+        return _per_key(g, 11, (None, "count"), (rs, "amax"), (i - pf + 1, "sum"))
+    if name == "WIN_TOPN":
+        desc = 0x7FFFFFFF - col["v"].view(torch.int32).long()  # v >= 0: bits in order
+        ks, order = torch.sort((col["x1k"].long() << 32) | desc)
+        r = _first_of_run(ks) - _first_of_run(ks >> 32) + 1
+        sel = r <= 3
+        rows = zip(col["x1k"][order][sel].tolist(), col["v"][order][sel].tolist(),
+                   r[sel].tolist())
+        return sorted(rows)
+    if name == "WIN_FRAMES":
+        ks, o1 = torch.sort((col["x100"].long() << 24) | col["x10m"].long(), stable=True)
+        pf, pe = _first_of_run(ks >> 24), _last_of_run(ks >> 24)
+        vd = col["v"][o1].double()
+        s, cnt = vd.clone(), torch.ones(n, dtype=torch.int64, device=dev)
+        for d in (1, 2, 3):  # ROWS BETWEEN 3 PRECEDING AND CURRENT ROW, directly
+            ok = i - d >= pf
+            s += torch.where(ok, vd[(i - d).clamp(min=0)], 0.0)
+            cnt += ok
+        vf = col["v"][o1]
+        mn = vf.clone()
+        for d in (-2, -1, 1, 2):  # ROWS BETWEEN 2 PRECEDING AND 2 FOLLOWING
+            j = i + d
+            ok = (j >= pf) & (j <= pe)
+            mn = torch.where(ok, torch.minimum(mn, vf[j.clamp(0, n - 1)]), mn)
+        g1 = col["x100"][o1].long()
+        ks2, o2 = torch.sort((col["x10"].long() << 24) | col["x10m"].long(), stable=True)
+        lag_ok = i - _first_of_run(ks2 >> 24) >= 2  # LAG(x10k, 2) within x10
+        uniq = torch.unique(col["x1k"])
+        dr = torch.searchsorted(uniq, col["x1k"]) + 1  # DENSE_RANK over all rows
+        g = col["x100"].long()
+        want = _per_key(g1, 101, (None, "count"), (s / cnt, "amax"), (mn, "amin"))
+        lg = _per_key(col["x100"][o2].long(), 101, (lag_ok, "count"))
+        drm = _per_key(g, 101, (dr, "amax"))
+        return {k: w + lg[k] + drm[k] for k, w in want.items()}
+    raise KeyError(name)
+
+
+def expected_udf(name, h):
+    """UDF_GROUP in numpy: HYPOT of the DOUBLE casts, per x100."""
+    if name != "UDF_GROUP":
+        raise KeyError(name)
+    a = h["v"].astype(np.float64)
+    b = h["x10k"].astype(np.float64)
+    hyp = np.sqrt(a * a + b * b)
+    cnt = np.bincount(h["x100"], minlength=101)
+    s = np.bincount(h["x100"], weights=hyp, minlength=101)
+    return {(k,): (int(cnt[k]), float(s[k])) for k in range(101) if cnt[k]}
+
+
+def check_cell_rows(name, rows, want, n_keys, tols) -> int:
+    """Raise unless rows equal want: {key: row} for grouped cells, a sorted
+    list of rows for a multiset; integers and FLOAT values exact, DOUBLE
+    rtol 1e-9 unless tols names a column."""
+    if isinstance(want, list):
+        got = sorted(tuple(r) for r in rows)
+        if got != want:
+            raise AssertionError(f"{name}: {len(got)} rows, expected {len(want)}, "
+                                 f"or they differ")
+        return len(got)
+    if len(rows) != len(want):
+        raise AssertionError(f"{name}: {len(rows)} rows, expected {len(want)}")
+    for r in rows:
+        w = want[tuple(r[:n_keys])]
+        for j, (g, e) in enumerate(zip(r[n_keys:], w)):
+            ok = np.isclose(g, e, **tols.get(j, F64_TOL)) if isinstance(e, float) \
+                else g == e
+            if not ok:
+                raise AssertionError(f"{name}: {r} vs {w} (column {n_keys + j})")
+    return len(rows)
+
+
+def _window_cell(db, name, q, want, counters, spy):
+    """One window or UDF cell on bench: the first run (checked against
+    want), each window spec's egress mode and sort, five warm runs with
+    their peak device bytes, the tier of each Compound, the cell's
+    launches (against ROUTES), and a torch.profiler breakdown."""
+    from heavydb_tpu_torch.tools.profile_queries import profile_query
+
+    before = [c.launches for c in counters]
+    del spy.runs[:]
+    t0 = time.perf_counter()
+    rows = db.sql(q).rows()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    tiers = [r[0] for r in spy.runs]
+    nrows = check_cell_rows(name, rows, want, WINDOW_KEYS.get(name, 0), WINDOW_TOLS[name])
+    plans = [(r["mode"], r["sort"]) for r in db.executor.window_runs]
+    if plans != WINDOW_PLANS[name]:
+        raise AssertionError(f"{name}: window specs ran as {plans}, "
+                             f"expected {WINDOW_PLANS[name]}")
+    warm, reps, peak = warm_ms(db, q)
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route(name, delta)
+    prof = profile_query(db, q)
+    return dict(query=name, rows_out=nrows, first_with_decode_ms=first_ms, warm_ms=warm,
+                warm_runs_ms=reps, window_specs=[dict(mode=m, sort=s) for m, s in plans],
+                tiers=tiers, peak_device_bytes=peak,
+                launches=dict(zip(KERNEL_NAMES, delta)), profile=prof)
+
+
+def run_window(db, host, counters):
+    """WINDOW_QUERIES on bench with the launch counters set to 0 before the
+    first, against expected_window.  Returns the lines and each kernel's
+    launches in the phase."""
+    from heavydb_tpu_torch.tools.synthetic import WINDOW_QUERIES
+
+    for c in counters:
+        c.launches = 0  # the window path starts here
+    out = []
+    with _RunSpy() as spy:
+        for name, q in WINDOW_QUERIES.items():
+            t0 = time.perf_counter()
+            want = expected_window(name, host, db.device)
+            torch.cuda.empty_cache()
+            expected_s = time.perf_counter() - t0
+            line = _window_cell(db, name, q, want, counters, spy)
+            line["expected_s"] = expected_s
+            out.append(line)
+    return out, [c.launches for c in counters]
+
+
+def window_yardsticks(n: int = ROWS, parts: int = 1000) -> list:
+    """The plain scans of ops/window.py alone at n rows in `parts`
+    partitions: the running MIN / MAX with resets on its blocked running
+    maximum form (FLOAT) and its doubling form (DOUBLE), the blocked
+    running maximum beside one torch.cummax of the same int64 row, a
+    segmented propagation, the running sum, and the window sort of a
+    packed int64 key (CUDA events, median of 5)."""
+    from heavydb_tpu_torch.ops import window as W
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    starts = torch.rand(n, device="cuda", generator=gen) < parts / n
+    starts[0] = True
+    v32 = torch.rand(n, device="cuda", generator=gen)
+    v64 = v32.double()
+    key = torch.randint(0, 1 << 35, (n,), device="cuda", generator=gen)
+    out = []
+    for name, fn in [
+        ("running_max_blocked_f32", lambda: W._seg_running_op(v32, starts, torch.maximum)),
+        ("running_max_doubling_f64", lambda: W._seg_running_op(v64, starts, torch.maximum)),
+        ("cummax_blocked_int64", lambda: W._cummax(key)),
+        ("torch_cummax_int64", lambda: torch.cummax(key, 0)),
+        ("flag_index_forward", lambda: W._flag_index(starts)),
+        ("flag_index_reverse", lambda: W._flag_index(starts, reverse=True)),
+        ("running_sum_f64", lambda: W._seg_running_sum(v64, starts)),
+        ("sort_packed_int64", lambda: torch.sort(key)),
+    ]:
+        out.append(dict(op=name, rows=n, partitions=int(starts.sum()), ms=timed(fn, 5)))
+    return out
+
+
+def run_udf(db, host, counters):
+    """UDF_QUERIES on bench (HYPOT registered by register_udfs), measured
+    as the window cells, against numpy."""
+    from heavydb_tpu_torch.tools.synthetic import UDF_QUERIES, register_udfs
+
+    register_udfs(db)
+    for c in counters:
+        c.launches = 0  # the udf path starts here
+    out = []
+    with _RunSpy() as spy:
+        for name, q in UDF_QUERIES.items():
+            out.append(_window_cell(db, name, q, expected_udf(name, host), counters, spy))
+    return out, [c.launches for c in counters]
+
+
+# small tables, the same rows on CUDA as on the CPU: every window kind,
+# every frame form, IGNORE NULLS, NULL / NaN / -0.0 / subnormal keys, a
+# string order key under a WHERE, both egress modes and both sorts, and
+# windows over GROUP BY results on B1 and B2
+WINDOW_SHAPE_TABLES = [
+    "CREATE TABLE w (g TEXT, x INT, v DOUBLE)",
+    "INSERT INTO w VALUES ('a', 1, 10.0), ('a', 2, 20.0), ('a', 3, 30.0), "
+    "('b', 1, 5.0), ('b', 2, NULL), ('b', 2, 7.0), ('c', 9, 1.0)",
+    "CREATE TABLE hz (k INT, t INT, f DOUBLE, v DOUBLE, r INT)",
+    "INSERT INTO hz VALUES (1, 5, 0.0, 1.0, 0), (1, 5, -0.0, 2.0, 1), "
+    "(1, 5, 5e-324, NULL, 2), (2, 1, 1.5, 4.0, 3), (2, 1, -1.5, 8.0, 4), "
+    "(NULL, 2, NULL, 16.0, 5), (3, NULL, 0.0, 32.0, 6), (3, 7, -5e-324, NULL, 7), "
+    "(3, 7, 2.0, 128.0, 8), (1, 5, -0.0, 256.0, 9), (2, NULL, 1.5, 512.0, 10), "
+    "(NULL, 2, 0.0, 1024.0, 11), (3, 9, NULL, 2048.0, 12)",
+]
+WINDOW_SHAPE_QUERIES = [
+    "SELECT g, x, ROW_NUMBER() OVER (PARTITION BY g ORDER BY x) rn FROM w ORDER BY g, x, rn",
+    "SELECT g, x, RANK() OVER (PARTITION BY g ORDER BY x), DENSE_RANK() OVER (PARTITION BY g "
+    "ORDER BY x) FROM w WHERE g = 'b' ORDER BY x",
+    "SELECT g, x, LAG(v) OVER (PARTITION BY g ORDER BY x), LEAD(v) OVER (PARTITION BY g "
+    "ORDER BY x) FROM w WHERE g = 'a' ORDER BY x",
+    "SELECT x, LAG(x, 2, -1) OVER (ORDER BY x, v NULLS LAST) FROM w WHERE g = 'a' ORDER BY x",
+    "SELECT g, x, FIRST_VALUE(v) OVER (PARTITION BY g ORDER BY x), LAST_VALUE(v) OVER "
+    "(PARTITION BY g ORDER BY x), NTH_VALUE(v, 2) OVER (PARTITION BY g ORDER BY x) "
+    "FROM w ORDER BY g, x, v",
+    "SELECT g, SUM(v) OVER (PARTITION BY g), COUNT(*) OVER (PARTITION BY g), MIN(x) OVER "
+    "(PARTITION BY g), MAX(v) OVER (PARTITION BY g), AVG(x) OVER (PARTITION BY g) "
+    "FROM w ORDER BY g, x",
+    "SELECT x, NTILE(2) OVER (ORDER BY x), PERCENT_RANK() OVER (ORDER BY x), CUME_DIST() "
+    "OVER (ORDER BY x) FROM w ORDER BY x, g",
+    "SELECT g, x, SUM(v) OVER (PARTITION BY g ORDER BY x, v NULLS FIRST ROWS BETWEEN 1 "
+    "PRECEDING AND 1 FOLLOWING) FROM w ORDER BY g, x, v NULLS FIRST",
+    "SELECT g, x, MIN(v) OVER (PARTITION BY g ORDER BY x, v NULLS FIRST ROWS BETWEEN 1 "
+    "PRECEDING AND 2 FOLLOWING) FROM w ORDER BY g, x, v NULLS FIRST",
+    "SELECT g, x, MAX(v) OVER (PARTITION BY g ORDER BY x, v NULLS FIRST ROWS BETWEEN "
+    "CURRENT ROW AND UNBOUNDED FOLLOWING) FROM w ORDER BY g, x, v NULLS FIRST",
+    "SELECT g, x, COUNT(v) OVER (PARTITION BY g ORDER BY x, v NULLS FIRST ROWS BETWEEN 1 "
+    "FOLLOWING AND 2 FOLLOWING) FROM w ORDER BY g, x, v NULLS FIRST",
+    "SELECT g, x, SUM(x) OVER (PARTITION BY g ORDER BY x RANGE BETWEEN CURRENT ROW AND "
+    "UNBOUNDED FOLLOWING), MAX(v) OVER (PARTITION BY g ORDER BY x RANGE BETWEEN CURRENT "
+    "ROW AND CURRENT ROW) FROM w ORDER BY g, x, v NULLS FIRST",
+    "SELECT g, x, FIRST_VALUE(v) OVER (PARTITION BY g ORDER BY x, v NULLS FIRST ROWS "
+    "BETWEEN 1 PRECEDING AND 1 FOLLOWING), LAST_VALUE(v) OVER (PARTITION BY g ORDER BY x, "
+    "v NULLS FIRST ROWS BETWEEN 1 PRECEDING AND 1 FOLLOWING) FROM w "
+    "ORDER BY g, x, v NULLS FIRST",
+    "SELECT x, v - AVG(v) OVER (PARTITION BY g) delta FROM w WHERE g = 'a' ORDER BY x",
+    "SELECT g, sv FROM (SELECT g, x, SUM(v) OVER (PARTITION BY g) sv FROM w WHERE x < 3) q "
+    "WHERE sv > 10 ORDER BY g, x",
+    "SELECT x, FIRST_VALUE(g) OVER (ORDER BY x, g) FROM w ORDER BY x, g LIMIT 2",
+    "SELECT g, x, v, LEAD(x) OVER (PARTITION BY g ORDER BY x), SUM(x) OVER (ORDER BY v "
+    "NULLS FIRST, x) FROM w",
+    "SELECT r, ROW_NUMBER() OVER (ORDER BY t), ROW_NUMBER() OVER (PARTITION BY k ORDER BY "
+    "f DESC) FROM hz ORDER BY r",
+    "SELECT r, COUNT(*) OVER (PARTITION BY f), SUM(v) OVER (PARTITION BY f), RANK() OVER "
+    "(ORDER BY f), DENSE_RANK() OVER (ORDER BY f DESC) FROM hz ORDER BY r",
+    "SELECT r, COUNT(*) OVER (PARTITION BY SQRT(f - 1.0)), RANK() OVER (ORDER BY "
+    "SQRT(f - 1.0)) FROM hz ORDER BY r",
+    "SELECT r, SUM(v) OVER (PARTITION BY k ORDER BY f), RANK() OVER (PARTITION BY k "
+    "ORDER BY f) FROM hz ORDER BY r",
+    "SELECT r, ROW_NUMBER() OVER (ORDER BY t DESC NULLS FIRST), SUM(v) OVER (PARTITION BY k "
+    "ORDER BY f NULLS LAST), LAG(r) OVER (ORDER BY f ASC NULLS FIRST) FROM hz ORDER BY r",
+    "SELECT r, SUM(v) OVER (PARTITION BY k ORDER BY r ROWS BETWEEN 1 FOLLOWING AND 2 "
+    "FOLLOWING), MIN(v) OVER (PARTITION BY k ORDER BY r ROWS BETWEEN 3 PRECEDING AND 2 "
+    "PRECEDING), AVG(v) OVER (PARTITION BY k ORDER BY r ROWS BETWEEN 5 PRECEDING AND 5 "
+    "FOLLOWING) FROM hz ORDER BY r",
+    "SELECT r, LAG(v) IGNORE NULLS OVER (PARTITION BY k ORDER BY r), LEAD(v, 2, 0.5) IGNORE "
+    "NULLS OVER (PARTITION BY k ORDER BY r), FIRST_VALUE(v) IGNORE NULLS OVER (PARTITION BY "
+    "k ORDER BY r), LAST_VALUE(v) IGNORE NULLS OVER (PARTITION BY k ORDER BY r), "
+    "NTH_VALUE(v, 2) IGNORE NULLS OVER (PARTITION BY k ORDER BY r) FROM hz ORDER BY r",
+    "SELECT r, COUNT(*) OVER (PARTITION BY k), ROW_NUMBER() OVER (PARTITION BY f ORDER BY "
+    "r DESC), COUNT(*) OVER (ORDER BY k NULLS LAST) FROM hz ORDER BY r",
+    "SELECT s, ROW_NUMBER() OVER (PARTITION BY p ORDER BY s, rid) FROM ws WHERE o < 40 "
+    "ORDER BY rid",
+    "SELECT rid, SUM(v) OVER (PARTITION BY p ORDER BY o, rid ROWS BETWEEN 2 PRECEDING AND "
+    "CURRENT ROW), MIN(v) OVER (PARTITION BY p ORDER BY f, rid ROWS BETWEEN 1 PRECEDING "
+    "AND 1 FOLLOWING), MAX(v) OVER (ORDER BY o, rid RANGE BETWEEN UNBOUNDED PRECEDING AND "
+    "CURRENT ROW) FROM ws ORDER BY rid",
+    "SELECT rid, COUNT(v) OVER (PARTITION BY p ORDER BY o), LAST_VALUE(v) OVER (ORDER BY "
+    "s, rid), RANK() OVER (PARTITION BY p ORDER BY f DESC) FROM ws WHERE p <> 3 ORDER BY rid",
+    "SELECT k, s, RANK() OVER (ORDER BY s DESC) FROM (SELECT p k, SUM(v) s FROM ws "
+    "GROUP BY p) q",
+    "SELECT k, c, s, DENSE_RANK() OVER (ORDER BY c DESC, k) FROM (SELECT k1k k, COUNT(*) c, "
+    "SUM(v) s FROM ws GROUP BY k1k) q",
+]
+WINDOW_SHAPE_PLANS = {("sorted", "packed"), ("sorted", "generic"), ("permsort", "packed"),
+                      ("permsort", "generic")}
+
+
+def run_window_shapes(counters, n: int = 20_000):
+    """WINDOW_SHAPE_QUERIES on CUDA against the same port on the CPU (whose
+    rows tests/test_torch_window*.py hold to the JAX package's): the same
+    rows, all four (egress mode, sort) pairs taken on CUDA, and B1 and B2
+    under the windows over GROUP BY results.  Returns the line and each
+    kernel's launches in the phase."""
+    rng = np.random.default_rng(SEED + 16)
+    ws = {"p": rng.integers(0, 7, n).astype(np.int32),
+          "o": rng.integers(0, 50, n).astype(np.int32),
+          "v": np.where(rng.random(n) < 0.09, np.nan, np.round(rng.normal(0, 10, n), 2)),
+          "f": np.round(rng.normal(0, 3, n), 1),
+          "s": np.array([f"t{k}" for k in range(9)], object)[rng.integers(0, 9, n)],
+          "k1k": rng.integers(0, 1000, n).astype(np.int32),
+          "rid": np.arange(n, dtype=np.int32)}
+    dbs = _twin_dbs()
+    for db in dbs:
+        for st in WINDOW_SHAPE_TABLES:
+            db.sql(st)
+        db.sql("CREATE TABLE ws (p INT, o INT, v DOUBLE, f DOUBLE, s TEXT, k1k INT, rid INT)")
+        db.load_table("ws", ws)
+    for c in counters:
+        c.launches = 0  # the window_shapes path starts here
+    rows_out, plans = [], set()
+    for q in WINDOW_SHAPE_QUERIES:
+        got, want = (db.sql(q).rows() for db in dbs)
+        plans |= {(r["mode"], r["sort"]) for r in dbs[0].executor.window_runs}
+        _same_on_both(q, got, want, False)
+        rows_out.append(len(got))
+    if plans != WINDOW_SHAPE_PLANS:
+        raise AssertionError(f"window_shapes: specs ran as {plans}")
+    launched = dict(zip(KERNEL_NAMES, [c.launches for c in counters]))
+    if min(launched["lane_agg"], launched["radix_hist"]) < 1:
+        raise AssertionError(f"window_shapes: B1 and B2 under the windows: {launched}")
+    return dict(queries=len(WINDOW_SHAPE_QUERIES), rows=n, rows_out=rows_out,
+                specs=sorted(plans)), [c.launches for c in counters]
+
+
+# the table functions, on CUDA against the CPU: every built-in of
+# api._register_system_tfs; the fits read a CURSOR over ~10^6 rows of bench
+# (the CPU twin holds those rows of bench in the same order)
+UDF_CURSOR = "FROM bench WHERE x10m <= 100000"
+UDF_SHAPE_QUERIES = [
+    "SELECT * FROM TABLE(generate_series(1, 20, 3)) ORDER BY 1",
+    "SELECT y, SUM(num_iterations), MAX(x) FROM TABLE(tf_mandelbrot(64, 48)) GROUP BY y",
+    "SELECT coef_idx, coef FROM TABLE(linear_reg_fit(CURSOR(SELECT v, x10, x100 "
+    f"{UDF_CURSOR}))) ORDER BY coef_idx",
+    "SELECT COUNT(*), SUM(prediction) FROM TABLE(linear_reg_predict(CURSOR(SELECT x10m, "
+    f"x10, x100 {UDF_CURSOR}), 0.5, 0.01, -0.002))",
+    "SELECT cluster_id, COUNT(*), SUM(id) FROM TABLE(kmeans(CURSOR(SELECT x10m, x10, x100 "
+    f"{UDF_CURSOR}), 4, 5)) GROUP BY cluster_id",
+    "SELECT COUNT(*), SUM(pc1), SUM(pc2 * pc2) FROM TABLE(pca_project(CURSOR(SELECT x10m, "
+    f"x10, x100, x1k {UDF_CURSOR}), 2))",
+    "SELECT * FROM TABLE(tf_compute_dwell_times(CURSOR(SELECT x10, x100, x10m "
+    f"{UDF_CURSOR} AND x1k = 7))) ORDER BY ts, entity_id, site_id",
+    "SELECT * FROM TABLE(decision_tree_reg_fit('dtb', 6, 4, CURSOR(SELECT v, x10, x100 "
+    f"{UDF_CURSOR})))",
+    "SELECT * FROM TABLE(random_forest_reg_fit('rfb', 3, 5, CURSOR(SELECT v, x10, x100 "
+    f"{UDF_CURSOR})))",
+    "SELECT * FROM TABLE(gbt_reg_fit('gbb', 4, 3, 0.3, CURSOR(SELECT v, x10, x100 "
+    f"{UDF_CURSOR})))",
+    f"SELECT r2 FROM TABLE(r2_score('gbb', CURSOR(SELECT v, x10, x100 {UDF_CURSOR})))",
+    "SELECT COUNT(*), SUM(prediction) FROM TABLE(ml_reg_predict('rfb', CURSOR(SELECT x10m, "
+    f"x10, x100 {UDF_CURSOR})))",
+    "SELECT model_name, kind FROM TABLE(ml_models()) ORDER BY model_name",
+    "SELECT g.generate_series, COUNT(*), SUM(b.v) FROM TABLE(generate_series(1, 100)) g "
+    "JOIN bench b ON g.generate_series = b.x100 WHERE b.x10m <= 100000 GROUP BY 1",
+]
+
+
+def run_udf_shapes(db, host, counters):
+    """UDF_SHAPE_QUERIES on db (CUDA, bench at 10^8 rows) against the port
+    on the CPU holding bench's rows that the cursors read: the same rows
+    (the fits are the same numpy over the same cursor).  Returns the line
+    and each kernel's launches in the phase."""
+    import heavydb_tpu_torch as hdt
+
+    keep = host["x10m"] <= 100_000
+    cpu = hdt.connect(device="cpu")
+    cols = ("x10", "x100", "x1k", "x10m", "v")
+    cpu.sql("CREATE TABLE bench (" + ", ".join(
+        f"{c} {'FLOAT' if c == 'v' else 'INT'}" for c in cols) + ")")
+    cpu.load_table("bench", {c: host[c][keep] for c in cols})
+    for c in counters:
+        c.launches = 0  # the udf_shapes path starts here
+    rows_out, seconds = [], []
+    for q in UDF_SHAPE_QUERIES:
+        t0 = time.perf_counter()
+        got = db.sql(q).rows()
+        seconds.append(time.perf_counter() - t0)
+        _same_on_both(q, got, cpu.sql(q).rows(), "SUM(b.v)" in q)
+        rows_out.append(len(got))
+    return dict(queries=len(UDF_SHAPE_QUERIES), cursor_rows=int(keep.sum()),
+                rows_out=rows_out, cuda_seconds=seconds), [c.launches for c in counters]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -3641,6 +4091,26 @@ def main() -> None:
     emit({"phase": "hash_shapes", **run_hash_shapes(counters)})
     phase_s["hash_shapes"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    win_lines, win_total = run_window(db, host, counters)
+    for line in win_lines:
+        emit({"phase": "window", **line})
+    for line in window_yardsticks():
+        emit({"phase": "window_split", **line})
+    phase_s["window"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line, win_shape_total = run_window_shapes(counters)
+    emit({"phase": "window_shapes", **line})
+    phase_s["window_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    udf_lines, udf_total = run_udf(db, host, counters)
+    for line in udf_lines:
+        emit({"phase": "udf", **line})
+    phase_s["udf"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line, udf_shape_total = run_udf_shapes(db, host, counters)
+    emit({"phase": "udf_shapes", **line})
+    phase_s["udf_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     dml_lines, dml_total = run_dml(db, host, counters)
     for line in dml_lines:
         emit({"phase": "dml", **line})
@@ -3666,7 +4136,8 @@ def main() -> None:
     emit({"phase": "phase_seconds", **phase_s})
     # the kernels line counts the launches of the main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
-                                  distinct_total, string_total, hash_total, dml_total,
+                                  distinct_total, string_total, hash_total, win_total,
+                                  win_shape_total, udf_total, udf_shape_total, dml_total,
                                   geo_total, geo_shape_total, arr_total, arr_shape_total)]
     if dict(zip(KERNEL_NAMES, geo_total))["radix_hist"] < 1:
         raise AssertionError("B2 did not launch in the geo phase (GEO_ZONE_JOIN)")

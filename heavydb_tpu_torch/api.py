@@ -3,9 +3,13 @@
 Port of heavydb_tpu/api.py for this slice: `connect`, `Database.sql`
 (SELECT, CREATE TABLE and CREATE TABLE AS SELECT, INSERT VALUES and INSERT
 ... SELECT, UPDATE, DELETE, TRUNCATE, DROP TABLE), `sql_device`,
-`load_table` and `load_table_device`, `register_llm_transform`, plus
-`load_state`, which rebuilds a set of tables from their definitions and
-physical host columns.
+`load_table` and `load_table_device`, `register_llm_transform`,
+`register_udf` (scalar UDFs over torch tensors), `register_table_function`
+and the built-in table functions of `_register_system_tfs` (generate_series,
+the regressions, kmeans, PCA, dwell times and the tree fits of
+ops/ml.py, numpy on the host as in the reference), plus `load_state`,
+which rebuilds a set of tables from their definitions and physical host
+columns.
 
 Every Database carries one explicit torch device.  `connect()` takes CUDA
 unless the caller passes `device="cpu"`; without CUDA and without a device
@@ -90,8 +94,13 @@ class Database:
         self._transient_dicts: Dict[int, object] = {}
         self._transient_by_key: Dict[tuple, tuple] = {}
         self._next_transient = 0
-        # the planner looks table functions up here; none are ported yet
+        # scalar UDFs: name -> (fn, arg_types, ret_type), fn over torch tensors
+        self._udfs: Dict[str, tuple] = {}
+        # table functions: name -> fn(*args, cursor=...) -> dict of numpy
+        # columns; the fitted ML models by name
         self._table_functions: Dict[str, object] = {}
+        self._ml_models: Dict[str, object] = {}
+        _register_system_tfs(self._table_functions, self)
         # the last UPDATE / DELETE: its matched rows and touched fragments
         self.last_mutation: Optional[dict] = None
 
@@ -219,6 +228,21 @@ class Database:
         from heavydb_tpu_torch.storage import string_ops as SO
 
         SO.set_llm_transform(fn)
+
+    def register_udf(self, name: str, fn, arg_types, ret_type) -> None:
+        """Register a scalar UDF.  `fn` takes torch tensors (one per
+        argument, already cast to `arg_types`, on the Database's device)
+        and returns a tensor, or a (value, valid) pair; a NULL argument
+        makes the result NULL.  It runs eagerly inside the query's
+        Compound, wherever the SQL calls it."""
+        self._udfs[name.upper()] = (fn, list(arg_types), ret_type)
+
+    def register_table_function(self, name: str, fn) -> None:
+        """Register a table function: fn(*scalar_args, cursor=<dict of numpy
+        columns>) -> dict[str, numpy array], invoked as
+        SELECT * FROM TABLE(name(CURSOR(SELECT ...), arg, ...)).  It runs on
+        the host at plan time; its rows reach the device as a table."""
+        self._table_functions[name.lower()] = fn
 
     def register_transient_dict(self, key=None):
         """A transient dictionary (reference StringDictionaryProxy transient
@@ -690,3 +714,243 @@ def _infer_type(arr: np.ndarray) -> T.TypeInfo:
     if k == "M":
         return T.timestamp()
     raise StorageError(f"cannot infer SQL type for dtype {arr.dtype}")
+
+
+def _register_system_tfs(registry, db=None):
+    """Built-in table functions (reference SystemFunctions/os/ subset), a
+    copy of heavydb_tpu/api.py's: numpy on the host."""
+
+    def generate_series(*args, cursor=None):
+        start = int(args[0])
+        stop = int(args[1])
+        step = int(args[2]) if len(args) > 2 else 1
+        return {"generate_series": np.arange(start, stop + (1 if step > 0 else -1), step, dtype=np.int64)}
+
+    def tf_mandelbrot(*args, cursor=None):  # parity playground TF
+        x_pixels = int(args[0])
+        y_pixels = int(args[1])
+        xs = np.linspace(-2.0, 1.0, x_pixels)
+        ys = np.linspace(-1.5, 1.5, y_pixels)
+        c = xs[None, :] + 1j * ys[:, None]
+        z = np.zeros_like(c)
+        it = np.zeros(c.shape, np.int32)
+        for i in range(64):
+            m = np.abs(z) <= 2
+            z = np.where(m, z * z + c, z)
+            it += m
+        yy, xx = np.meshgrid(range(y_pixels), range(x_pixels), indexing="ij")
+        return {
+            "x": xx.ravel().astype(np.int32),
+            "y": yy.ravel().astype(np.int32),
+            "num_iterations": it.ravel(),
+        }
+
+    # ---- ML table functions (reference TableFunctions/SystemFunctions/
+    # os/ML: LINEAR_REG_FIT/PREDICT, KMEANS, PCA via oneDAL — here as
+    # closed-form / Lloyd's numpy implementations over CURSOR inputs) ----
+    def linear_reg_fit(*args, cursor=None):
+        """CURSOR(SELECT y, x1 [, x2 ...]) → one coefficient per row
+        (intercept first), least squares."""
+        cols = list(cursor.values())
+        y = np.asarray(cols[0], np.float64)
+        X = np.column_stack(
+            [np.ones_like(y)] + [np.asarray(c, np.float64) for c in cols[1:]]
+        )
+        ok = np.isfinite(y)
+        for j in range(1, X.shape[1]):
+            ok &= np.isfinite(X[:, j])
+        coef, *_ = np.linalg.lstsq(X[ok], y[ok], rcond=None)
+        return {
+            "coef_idx": np.arange(len(coef), dtype=np.int32),
+            "coef": coef,
+        }
+
+    def linear_reg_predict(*args, cursor=None):
+        """CURSOR(SELECT id, x1 [, x2 ...]) + coef args → predictions."""
+        cols = list(cursor.values())
+        ids = np.asarray(cols[0])
+        X = np.column_stack(
+            [np.ones(len(ids))]
+            + [np.asarray(c, np.float64) for c in cols[1:]]
+        )
+        coef = np.asarray([float(a) for a in args], np.float64)
+        return {"id": ids, "prediction": X @ coef}
+
+    def kmeans(*args, cursor=None):
+        """CURSOR(SELECT id, f1 [, f2 ...]), k[, iters] → cluster per row
+        (Lloyd's algorithm, k-means++ style farthest-point seeding)."""
+        cols = list(cursor.values())
+        ids = np.asarray(cols[0])
+        X = np.column_stack([np.asarray(c, np.float64) for c in cols[1:]])
+        k = int(args[0])
+        iters = int(args[1]) if len(args) > 1 else 20
+        rng = np.random.default_rng(0)
+        cent = X[rng.choice(len(X), 1)]
+        while len(cent) < k:
+            d = ((X[:, None, :] - cent[None]) ** 2).sum(-1).min(1)
+            cent = np.vstack([cent, X[d.argmax()][None]])
+        for _ in range(iters):
+            a = ((X[:, None, :] - cent[None]) ** 2).sum(-1).argmin(1)
+            for j in range(k):
+                if (a == j).any():
+                    cent[j] = X[a == j].mean(0)
+        return {"id": ids, "cluster_id": a.astype(np.int32)}
+
+    def pca_project(*args, cursor=None):
+        """CURSOR(SELECT id, f1, f2, ...), n_components → projections onto
+        the top principal components."""
+        cols = list(cursor.values())
+        ids = np.asarray(cols[0])
+        X = np.column_stack([np.asarray(c, np.float64) for c in cols[1:]])
+        nc = int(args[0]) if args else min(2, X.shape[1])
+        Xc = X - X.mean(0)
+        _, _, vt = np.linalg.svd(Xc, full_matrices=False)
+        proj = Xc @ vt[:nc].T
+        out = {"id": ids}
+        for j in range(nc):
+            out[f"pc{j + 1}"] = proj[:, j]
+        return out
+
+    def tf_compute_dwell_times(*args, cursor=None):
+        """CURSOR(SELECT entity_id, site_id, ts) → per-visit dwell times
+        (reference SystemFunctions tf_compute_dwell_times: sessionize by
+        entity, dwell = next-ts - ts within entity)."""
+        cols = list(cursor.values())
+        ent = np.asarray(cols[0])
+        site = np.asarray(cols[1])
+        ts = np.asarray(cols[2], np.int64)
+        order = np.lexsort((ts, ent))
+        ent_s, site_s, ts_s = ent[order], site[order], ts[order]
+        same_next = np.zeros(len(ent), bool)
+        if len(ent):
+            same_next[:-1] = ent_s[:-1] == ent_s[1:]
+        dwell = np.where(
+            same_next, np.roll(ts_s, -1) - ts_s, -1
+        ).astype(np.int64)
+        keep = dwell >= 0
+        return {
+            "entity_id": ent_s[keep],
+            "site_id": site_s[keep],
+            "ts": ts_s[keep],
+            "dwell_time_sec": dwell[keep],
+        }
+
+    # ---- tree-model regression (reference DECISION_TREE_REG_FIT /
+    # RANDOM_FOREST_REG_FIT / GBT_REG_FIT / ML_REG_PREDICT / R2_SCORE,
+    # TableFunctions/SystemFunctions/os/ML + MLPredictCodegen.cpp).
+    # Fitted models live in a per-connection named registry the way the
+    # reference's MLModelMap does; prediction is the branch-free gather
+    # ladder in ops/ml.py. ----
+    def _cursor_xy(cursor):
+        cols = list(cursor.values())
+        if len(cols) < 2:
+            raise NotSupported(
+                "ML fit cursor needs a target column followed by at least "
+                "one feature column"
+            )
+        y = np.asarray(cols[0], np.float64)
+        X = np.column_stack([np.asarray(c, np.float64) for c in cols[1:]])
+        ok = np.isfinite(y)
+        for j in range(X.shape[1]):
+            ok &= np.isfinite(X[:, j])
+        return X[ok], y[ok]
+
+    def _fit_summary(name, model):
+        if db is not None:
+            db._ml_models[str(name).lower()] = model
+        return {
+            "model_name": np.array([str(name)], object),
+            "kind": np.array([model.kind], object),
+            "n_trees": np.array([len(model.trees)], np.int32),
+            "n_features": np.array([model.n_features], np.int32),
+        }
+
+    def decision_tree_reg_fit(*args, cursor=None):
+        """(model_name [, max_depth [, min_leaf]], CURSOR(y, x1..xk))"""
+        from heavydb_tpu_torch.ops import ml
+
+        X, y = _cursor_xy(cursor)
+        depth = int(args[1]) if len(args) > 1 else 8
+        leaf = int(args[2]) if len(args) > 2 else 4
+        return _fit_summary(args[0], ml.fit_single(X, y, depth, leaf))
+
+    def random_forest_reg_fit(*args, cursor=None):
+        """(model_name [, n_trees [, max_depth]], CURSOR(y, x1..xk))"""
+        from heavydb_tpu_torch.ops import ml
+
+        X, y = _cursor_xy(cursor)
+        n_trees = int(args[1]) if len(args) > 1 else 16
+        depth = int(args[2]) if len(args) > 2 else 8
+        return _fit_summary(
+            args[0], ml.fit_forest(X, y, n_trees=n_trees, max_depth=depth))
+
+    def gbt_reg_fit(*args, cursor=None):
+        """(model_name [, n_trees [, max_depth [, learning_rate]]],
+        CURSOR(y, x1..xk))"""
+        from heavydb_tpu_torch.ops import ml
+
+        X, y = _cursor_xy(cursor)
+        n_trees = int(args[1]) if len(args) > 1 else 32
+        depth = int(args[2]) if len(args) > 2 else 3
+        lr = float(args[3]) if len(args) > 3 else 0.2
+        return _fit_summary(
+            args[0], ml.fit_gbt(X, y, n_trees=n_trees, max_depth=depth,
+                                learning_rate=lr))
+
+    def _get_model(name):
+        m = (db._ml_models if db is not None else {}).get(
+            str(name).lower())
+        if m is None:
+            raise ValueError(f"unknown ML model {name!r}")
+        return m
+
+    def ml_reg_predict(*args, cursor=None):
+        """(model_name, CURSOR(id, x1..xk)) → id, prediction"""
+        m = _get_model(args[0])
+        cols = list(cursor.values())
+        ids = np.asarray(cols[0])
+        X = np.column_stack([np.asarray(c, np.float64) for c in cols[1:]])
+        pred = m.predict(X)
+        # rows with non-finite features were dropped at fit time; at
+        # predict time they must yield NULL, not an arbitrary tree path
+        bad = ~np.isfinite(X).all(axis=1)
+        if bad.any():
+            pred = np.where(bad, np.nan, pred)
+        return {"id": ids, "prediction": pred}
+
+    def r2_score(*args, cursor=None):
+        """(model_name, CURSOR(y, x1..xk)) → coefficient of determination"""
+        m = _get_model(args[0])
+        X, y = _cursor_xy(cursor)
+        pred = m.predict(X)
+        ss_res = float(((y - pred) ** 2).sum())
+        ss_tot = float(((y - y.mean()) ** 2).sum())
+        if ss_tot:
+            r2 = 1.0 - ss_res / ss_tot
+        else:
+            # constant y: a perfect fit scores 1.0 (sklearn convention)
+            r2 = 1.0 if ss_res == 0.0 else 0.0
+        return {"r2": np.array([r2], np.float64)}
+
+    def ml_models(*args, cursor=None):
+        names = sorted(db._ml_models) if db is not None else []
+        return {
+            "model_name": np.array(names, object),
+            "kind": np.array(
+                [db._ml_models[n].kind for n in names], object),
+        }
+
+    registry["decision_tree_reg_fit"] = decision_tree_reg_fit
+    registry["random_forest_reg_fit"] = random_forest_reg_fit
+    registry["gbt_reg_fit"] = gbt_reg_fit
+    registry["ml_reg_predict"] = ml_reg_predict
+    registry["r2_score"] = r2_score
+    registry["ml_models"] = ml_models
+
+    registry["generate_series"] = generate_series
+    registry["tf_mandelbrot"] = tf_mandelbrot
+    registry["linear_reg_fit"] = linear_reg_fit
+    registry["linear_reg_predict"] = linear_reg_predict
+    registry["kmeans"] = kmeans
+    registry["pca_project"] = pca_project
+    registry["tf_compute_dwell_times"] = tf_compute_dwell_times

@@ -127,8 +127,10 @@ class _Domain:
     where the slot is a null-extended row of an outer join (None = all
     matched)."""
 
-    def __init__(self, cols, col_types, offsets, aux, nrows, padded0, device):
+    def __init__(self, cols, col_types, offsets, aux, nrows, padded0, device,
+                 udfs=None):
         self.cols = cols
+        self.udfs = udfs
         self.col_types = col_types
         self.offsets = offsets
         self.aux = aux
@@ -167,7 +169,7 @@ class _Domain:
             if e is not None:
                 needed |= {r.field_idx for r in E.collect_input_refs(e)}
         return ExprCompiler({f: self.field_tv(f) for f in needed}, self.aux,
-                            self.error_flags, self.device, self.size)
+                            self.error_flags, self.device, self.size, self.udfs)
 
     def restrict(self, preds):
         """mask &= each predicate over the current domain."""
@@ -193,7 +195,7 @@ class _Domain:
             ti = self.col_types[bi][local]
             cdict[r.field_idx] = (base, derive_valid(base, ti) if ti.nullable else None)
         val, valid = ExprCompiler(cdict, self.aux, self.error_flags, self.device,
-                                  pb).compile(expr)
+                                  pb, self.udfs).compile(expr)
         return _broadcast(val, pb), valid
 
 
@@ -243,13 +245,14 @@ def build_compound_kernel(node, batches, plan, device):
     build_filters = dict(plan.build_filters)
     filter_rest = plan.filter_rest
     distinct_force_sort = plan.distinct_force_sort
+    udfs = plan.udfs
 
     def kernel(*args):
         it = iter(args)
         cols = {bi: {ci: next(it) for ci in present} for bi, present in batch_cols}
         nrows = [next(it) for _ in range(n_inputs)]
         aux = {k: next(it) for k in aux_order}
-        dom = _Domain(cols, col_types, offsets, aux, nrows, paddeds[0], device)
+        dom = _Domain(cols, col_types, offsets, aux, nrows, paddeds[0], device, udfs)
         out: Dict[str, object] = {}
         if pre_mask:
             dom.restrict(pre_mask)
@@ -734,7 +737,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
     for j, tv in enumerate(agg_tvs):
         gcols[n_keys + j] = tv
     gflags: Dict[str, torch.Tensor] = {}
-    gcomp = ExprCompiler(gcols, kc.aux, gflags, device, slots)
+    gcomp = ExprCompiler(gcols, kc.aux, gflags, device, slots, kc.udfs)
     if node.having is not None:
         present = present & gcomp.compile_predicate(node.having)
     outs = []

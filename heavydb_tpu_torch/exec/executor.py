@@ -40,8 +40,15 @@ pruned by `drop_stale`.  UNNEST expands rows into their elements
 (`_exec_unnest`), and a join level with no equality runs as the
 grid-bucket spatial join when its residual holds a distance or
 polygon-containment test (exec/geo_join.py, planned in `_plan_compound`).
-Every tensor lives on the executor's one explicit device.  Window and a
-subquery left after substitution raise NotSupported.
+
+A Window node appends its window columns to its child's batch
+(`_exec_window` over exec/window_kernel.py: one sort a partition / order
+spec, segmented scans, the batch emitted in sorted order or the outputs
+scattered back), with the string tables of its arguments and a rank
+table for each dictionary-string ORDER BY key; it is never streamed.
+Scalar UDFs reach the expression compiler through each Compound's plan.
+Every tensor lives on the executor's one explicit device.  A subquery
+left after substitution raises NotSupported.
 """
 
 from __future__ import annotations
@@ -174,6 +181,9 @@ class Executor:
         self._sel_cache: Dict[tuple, int] = {}
         # each join Compound the last execute() ran: its builds, caps, retries
         self.join_runs: List[JoinRun] = []
+        # each window spec the last execute() sorted: its egress mode and
+        # whether its key was packed (exec/window_kernel.run_window)
+        self.window_runs: List[dict] = []
         # host-to-device bytes of scanned columns, aux tables and cache
         # patches; scan-cache keys a mutation dropped rather than moved
         self.h2d_bytes = 0
@@ -187,6 +197,7 @@ class Executor:
     # ------------------------------------------------------------------
     def execute(self, root: R.RelNode) -> B.Batch:
         self.join_runs = []
+        self.window_runs = []
         return self._execute_plan(root)
 
     def _execute_plan(self, root: R.RelNode) -> B.Batch:
@@ -298,6 +309,8 @@ class Executor:
                 out = self._exec_union(node, memo)
             elif isinstance(node, R.Unnest):
                 out = self._exec_unnest(node, memo)
+            elif isinstance(node, R.Window):
+                out = self._exec_window(node, memo)
             else:
                 raise NotSupported(f"cannot execute node {type(node).__name__}")
         memo[node.id] = out
@@ -535,6 +548,39 @@ class Executor:
         pidx = torch.where(out_mask, pidx, 0)
         cols = [None if c is None else c[pidx] for c in inp.cols] + [elem]
         return B.Batch(cols, int(needed), list(node.types))
+
+    # ---- Window ----
+    def _exec_window(self, node: R.Window, memo) -> B.Batch:
+        """The window columns appended to the child's (exec/window_kernel.py),
+        with the dictionary-string tables of the functions' arguments and
+        an id -> rank table for each dictionary-string ORDER BY key, so that
+        such keys order lexicographically (the Sort node's contract)."""
+        from heavydb_tpu_torch.exec.window_kernel import run_window
+
+        child = node.inputs[0]
+        inp = self._exec(child, memo, set(range(child.arity)))
+        specs = _expr_aux_specs(node.wfuncs)
+        aux = self._aux_tables(specs, list(specs))
+        rank_info = {}
+        for w in node.wfuncs:
+            for e, _asc, _nf in w.order_by:
+                if e.type.is_dict_string and isinstance(e, E.InputRef):
+                    # the bound expression carries its dictionary; a Compound
+                    # target built by a later pass may have dropped it, and
+                    # ranking by raw id would order by first insertion
+                    ref = getattr(e, "dict_ref", None) \
+                        or self._result_dict_ref(child, e.field_idx)
+                    if ref is not None:
+                        ak = ("winrank", e.key())
+                        aux[ak] = self._dict_rank_table(ref)
+                        rank_info[e.key()] = (ak, self.db.dict_by_ref(ref).size)
+        cols, wcols, runs = run_window(node, inp, aux, rank_info,
+                                       getattr(self.db, "_udfs", {}), self.device)
+        self.window_runs.extend(runs)
+        return B.Batch(list(cols) + list(wcols), inp.nrows, list(node.types))
+
+    def _result_dict_ref(self, node: R.RelNode, field_idx: int):
+        return _node_dict_ref(node, field_idx)
 
     # ---- Sort ----
     def _in_domain(self, padded: int, nrows: int) -> torch.Tensor:
@@ -1160,7 +1206,7 @@ class Executor:
             v, ti = batch.cols[local], batch.types[local]
             cdict[f] = (v, derive_valid(v, ti) if ti.nullable else None)
         comp = ExprCompiler(cdict, self._aux_tables(specs, list(specs)), None,
-                            self.device, batch.padded)
+                            self.device, batch.padded, getattr(self.db, "_udfs", {}))
         m = self._in_domain(batch.padded, batch.nrows)
         try:
             for c in conjs:
@@ -1237,7 +1283,8 @@ class Executor:
     def _plan_compound(self, node: R.Compound, batches, offsets=(0,)):
         cfg = self.config
         plan = _CompoundPlan(offsets=list(offsets),
-                             distinct_force_sort=not cfg.enable_hash_groupby)
+                             distinct_force_sort=not cfg.enable_hash_groupby,
+                             udfs=getattr(self.db, "_udfs", {}))
         probe = batches[0]
         if node.filter_cond is not None and node.join_levels \
                 and not any(k == "FULL" for k, _ in node.join_levels):
@@ -2270,6 +2317,8 @@ class _CompoundPlan:
     # COUNT(DISTINCT) on its sorted form: unless the hash group-by is
     # enabled (the reference's rule), and after a claim table ran out
     distinct_force_sort: bool = False
+    # the Database's scalar UDFs (the live registry, read at each call)
+    udfs: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass

@@ -11,7 +11,8 @@ Value representation: TV = (val, valid) where
 Null storage is in-band sentinels; three-valued AND/OR matches SQL.
 
 Dispatch is on `_c_<ExprType>`; a type without a method raises
-NotSupported.
+NotSupported.  A scalar UDF (`FunctionOp` named `UDF:<name>`) calls the
+torch function registered under its name on its arguments' values.
 
 An array or geo column's device value is its row's int32 global rowid;
 ArrayFn gathers the tables the executor builds over the column's host
@@ -117,11 +118,15 @@ class ExprCompiler:
     of `domain_size` rows on `device`
     aux:  aux key -> device table (or a pair of tables) of the dictionary
     string expressions
+    udfs: name -> (fn, arg_types, ret_type) of the scalar UDFs; fn takes
+    and returns torch tensors
     """
 
     def __init__(self, cols: Dict[int, TV], aux=None, error_flags=None,
-                 device="cpu", domain_size: int = 0):
+                 device="cpu", domain_size: int = 0, udfs=None):
         self.cols = cols
+        # scalar UDFs: name -> (fn, arg_types, ret_type) (Database.register_udf)
+        self.udfs = udfs if udfs is not None else {}
         self.aux = aux if aux is not None else {}
         # error flags: name -> bool tensor (div-by-zero etc.)
         self.error_flags = error_flags if error_flags is not None else {}
@@ -445,14 +450,22 @@ class ExprCompiler:
 
     def _c_FunctionOp(self, e: E.FunctionOp) -> TV:
         name = e.name
-        if name.startswith("UDF:"):
-            raise NotSupported("scalar UDFs")
         args = [self.compile(a) for a in e.args]
         valid = None
         for _, v in args:
             valid = and_valid(valid, v)
         vals = [torch.as_tensor(a) for a, _ in args]
         out_dt = e.type.np_dtype()
+        if name.startswith("UDF:"):
+            # the binder cast each argument to the UDF's declared type; a
+            # NULL argument makes the result NULL, and fn may return its own
+            # validity as (value, valid)
+            fn, _, _ = self.udfs[name[4:]]
+            res = fn(*vals)
+            if isinstance(res, tuple):
+                rval, rvalid = res
+                return self._t(rval, out_dt), and_valid(valid, rvalid)
+            return self._t(res, out_dt), valid
         f64 = torch.float64
         # real-valued functions see decimals as their real value
         if name in ("SQRT", "EXP", "LN", "LOG", "LOG10", "SIN", "COS", "TAN",

@@ -34,7 +34,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from heavydb_tpu_torch.ops.groupby import _lex_sort_perm
+from heavydb_tpu_torch.ops.groupby import _flush_subnormals, _lex_sort_perm
 
 TV = Tuple[torch.Tensor, Optional[torch.Tensor]]
 
@@ -92,6 +92,28 @@ def _ascending_codes(val, valid, asc: bool, nulls_first: bool):
         return [(torch.where(valid, u, 1 << w), w + 1)]
     null_flag = valid.to(torch.int64) if nulls_first else (~valid).to(torch.int64)
     return [(null_flag, 1), (torch.where(valid, u, 0), 64)]
+
+
+def _sortable_operands(val, valid, asc: bool, nulls_first: bool):
+    """Key column -> (null_rank int8, value) ascending-sort operands, the
+    reference's: NaN as 0, DESC by negation (int64 for integers), NULL
+    rank -1 first or 1 last.  -0.0 and the subnormals become +0.0 after
+    the negation, as `lax.sort` compares them, so that a stable
+    `torch.sort` keeps such ties in row order."""
+    v = torch.as_tensor(val)
+    if v.dtype == torch.bool:
+        v = v.to(torch.int8)
+    fp = v.is_floating_point()
+    if fp:
+        v = torch.where(torch.isnan(v), torch.zeros((), dtype=v.dtype, device=v.device), v)
+    if not asc:
+        v = -v if fp else -v.to(torch.int64)
+    if fp:
+        v = _flush_subnormals(v)
+    if valid is None:
+        return torch.zeros(v.shape, dtype=torch.int8, device=v.device), v
+    nullr = torch.where(valid, 0, -1 if nulls_first else 1).to(torch.int8)
+    return nullr, torch.where(valid, v, torch.zeros((), dtype=v.dtype, device=v.device))
 
 
 def _pack_words(operands):

@@ -14,7 +14,9 @@ tier's HASH_QUERIES of tools/synthetic.py, whose dimension tables
 `load_hsparse` (HASH_ROWS rows) add when one of them runs; each under its QUERY_SETTINGS,
 and a HASH_QUERIES query also with the hash group-by off, on the sort
 tier; the geo GEO_QUERIES over `load_geo`'s trips, zones and stations and
-the ARRAY_QUERIES over `load_arrays`' arr, loaded when one of them runs) warm under
+the ARRAY_QUERIES over `load_arrays`' arr, loaded when one of them runs;
+the window functions of WINDOW_QUERIES and the scalar UDF of UDF_QUERIES
+on bench) warm under
 torch.profiler, and prints one JSON line per query: the
 host-clock time of a run (median of 5 unprofiled runs, parse to control
 read, result left on the device), the CUDA kernel and copy time of one
@@ -40,13 +42,14 @@ from heavydb_tpu_torch.tools.synthetic import (ARRAY_QUERIES, ARRAY_ROWS, DISTIN
                                                FRAGMENT_ROWS, GEO_QUERIES, HASH_QUERIES,
                                                HASH_ROWS, JOIN_QUERIES, QUERIES,
                                                SORT_QUERIES, STRING_QUERIES, SUBQ_QUERIES,
-                                               TRIPS_ROWS, load_arrays, load_bench,
-                                               load_dims, load_geo, load_hsparse,
-                                               load_strings, query_settings)
+                                               TRIPS_ROWS, UDF_QUERIES, WINDOW_QUERIES,
+                                               load_arrays, load_bench, load_dims,
+                                               load_geo, load_hsparse, load_strings,
+                                               query_settings, register_udfs)
 
 ALL_QUERIES = {**QUERIES, **SORT_QUERIES, **JOIN_QUERIES, **STRING_QUERIES,
                **SUBQ_QUERIES, **DISTINCT_QUERIES, **HASH_QUERIES, **GEO_QUERIES,
-               **ARRAY_QUERIES}
+               **ARRAY_QUERIES, **WINDOW_QUERIES, **UDF_QUERIES}
 # the queries that read load_dims' tables
 DIM_QUERIES = set(JOIN_QUERIES) | {"SUBQ_IN", "SUBQ_NOT_IN"}
 # the queries on tables of their own, and those tables' rows
@@ -144,6 +147,7 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_queries: needs a CUDA device")
     db = hdt.connect(config=Config(stream_threshold_bytes=args.stream_threshold))
+    register_udfs(db)
     if set(args.queries) - set(OWN_ROWS):
         load_bench(db, args.rows, args.seed, args.fragment_rows)
     if set(args.queries) & DIM_QUERIES:

@@ -4,9 +4,10 @@ group-by QUERIES, the ORDER BY SORT_QUERIES, the join + GROUP BY
 JOIN_QUERIES, the dictionary-string STRING_QUERIES, the subquery and set
 operation SUBQ_QUERIES, the DISTINCT-family DISTINCT_QUERIES and the hash
 group-by tier's HASH_QUERIES, with the settings some of them run under,
-QUERY_SETTINGS), the UPDATE / DELETE / CTAS / INSERT ... SELECT /
-TRUNCATE statements of DML_STEPS, and the loaders that build the tables on
-the device.
+QUERY_SETTINGS; the window functions of WINDOW_QUERIES and the scalar UDF
+of UDF_QUERIES, registered by `register_udfs`), the UPDATE / DELETE /
+CTAS / INSERT ... SELECT / TRUNCATE statements of DML_STEPS, and the
+loaders that build the tables on the device.
 
 Schema (the reference's benchmarks/synthetic.py:21-31, 67-74): uniform INT
 columns `x10 .. x100k` and `x10m` in [1, card]; sparse BIGINT columns
@@ -246,6 +247,35 @@ ARRAY_QUERIES = {
     "ARR_ANY_SUBSCRIPT": "SELECT COUNT(*), SUM(w) FROM arr WHERE 7 = ANY(vals) "
                          "AND vals[1] < 500",
 }
+# window functions over bench (chip_smoke.py's window phase)
+WINDOW_QUERIES = {
+    # the reference's own window benchmark shape (bench.py:401-418): a
+    # running SUM with RANGE peers and ROW_NUMBER over one spec (the sorted
+    # egress, a packed key of 1 + 10 + 24 bits and 27 row bits), then B1
+    # over 10 slots
+    "WIN_RUNNING": "SELECT x10, COUNT(*), MAX(rs), SUM(rn) FROM (SELECT x10, "
+                   "SUM(v) OVER (PARTITION BY x1k ORDER BY x10m) rs, "
+                   "ROW_NUMBER() OVER (PARTITION BY x1k ORDER BY x10m) rn "
+                   "FROM bench) t GROUP BY x10",
+    # top 3 per group: a FLOAT order key (the generic sort), then a filter
+    # Compound over the window
+    "WIN_TOPN": "SELECT x1k, v, r FROM (SELECT x1k, v, RANK() OVER (PARTITION BY x1k "
+                "ORDER BY v DESC) r FROM bench) t WHERE r <= 3",
+    # three specs (the permutation egress): a bounded ROWS AVG (shifted
+    # prefixes), a bounded ROWS MIN (the sparse table), a static LAG and a
+    # DENSE_RANK with no partition; then B1 over 100 slots
+    "WIN_FRAMES": "SELECT x100, COUNT(*), MAX(ma), MIN(mn), COUNT(lg), MAX(dr) FROM ("
+                  "SELECT x100, AVG(v) OVER (PARTITION BY x100 ORDER BY x10m "
+                  "ROWS BETWEEN 3 PRECEDING AND CURRENT ROW) ma, "
+                  "MIN(v) OVER (PARTITION BY x100 ORDER BY x10m "
+                  "ROWS BETWEEN 2 PRECEDING AND 2 FOLLOWING) mn, "
+                  "LAG(x10k, 2) OVER (PARTITION BY x10 ORDER BY x10m) lg, "
+                  "DENSE_RANK() OVER (ORDER BY x1k) dr FROM bench) t GROUP BY x100",
+}
+# a scalar UDF over bench (register_udfs), then B1 over 100 slots
+UDF_QUERIES = {
+    "UDF_GROUP": "SELECT x100, COUNT(*), SUM(HYPOT(v, x10k)) FROM bench GROUP BY x100",
+}
 TRIPS_ROWS = 10_000_000
 NYC_BOX = (-74.26, -73.70, 40.49, 40.92)  # lon min, lon max, lat min, lat max
 POINT_NULL_SHARE = 0.01
@@ -341,6 +371,14 @@ def load_strings(db, n: int, seed: int, fragment_rows: int = FRAGMENT_ROWS,
            f"x10 INT, x100 INT, x1k INT, v FLOAT) WITH (fragment_size={fragment_rows})")
     db.load_table_device("lstr", data, dicts=vocab)
     return data, vocab
+
+
+def register_udfs(db) -> None:
+    """The scalar UDFs of UDF_QUERIES: HYPOT(a, b) over DOUBLE."""
+    from heavydb_tpu_torch import types as T
+
+    db.register_udf("HYPOT", lambda a, b: torch.sqrt(a * a + b * b),
+                    [T.double(), T.double()], T.double())
 
 
 def load_bench(db, n: int, seed: int,

@@ -210,10 +210,10 @@ def test_division_by_zero_raises_in_both(engines):
 
 
 @pytest.mark.parametrize("sql", [
-    "SELECT k10, ROW_NUMBER() OVER (PARTITION BY k100 ORDER BY x) FROM t",
+    "EXPLAIN SELECT k10 FROM t",
     "COPY (SELECT x FROM t) TO 'out.csv'",
     "ALTER TABLE t ADD COLUMN z INT",
-    "SELECT k10, SUM(x) OVER (PARTITION BY k100) FROM t",
+    "CREATE VIEW vk AS SELECT k10 FROM t",
 ])
 def test_out_of_slice_queries_raise(engines, sql):
     _, port = engines
