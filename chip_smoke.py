@@ -181,10 +181,35 @@ printing JSON lines:
   hot_key  a 4M-row table where 60 % of the rows share one key of a 2^22
            key space: the radix tier flags the partition overflow and the
            query reruns on the sort tier, still equal to numpy
+  controls the per-query controls on bench after the dml phase, launches
+           counted from 0: EXPLAIN / EXPLAIN CALCITE / EXPLAIN OPTIMIZED of
+           the eleven e2e queries (the kernels the OPTIMIZED program names
+           must be the e2e route's); Q1K_MINMAX's plan / execute / fetch
+           scopes under enable_debug_timer; the keep_result recycler (miss,
+           hit, rows against numpy); Q10M_AGGS in 3 fragment waves stopped
+           by an interrupt after its first wave and by a query_time_limit(1)
+           hint (raised in the next wave, device bytes back, the next run
+           equal to numpy); 8 threads of Q1K_MINMAX and PHS002 at
+           max_concurrent_queries 1 and 4 and under a max_exec_bytes that
+           admits one (rows against numpy, wall, p50 / p99, info()); the
+           eleven e2e cells' warm ms with the resource manager on and off,
+           in turns; an INSERT into bench, after which the recycled query
+           misses
+  upload   bench's host columns into a new table by load_table, its first
+           query (Q100_MINMAX's shape) through one pageable copy, the
+           staging ring wide and the staging ring narrow: ms, bytes on the
+           wire, GB/s, device columns bit-equal; prestage_table; a BIGINT of
+           int16-range values with 1 % NULL at 10^8 rows (2 bytes a row on
+           the wire, rows against numpy)
+  ddl      ADD COLUMN with a DEFAULT on bench and a query on it, DROP /
+           RENAME COLUMN, RENAME TABLE, a view of Q1K_MINMAX's shape and
+           Q1K_MINMAX under a row-level policy on x10 beside the
+           superuser's, against numpy over the rows kept; statement ms and
+           bytes; everything added dropped again
 Then each new phase's seconds, the script's wall time, the kernel summary
 line (its launches are those of the e2e, sort, join, subq, distinct,
 strings, hash, window, window_shapes, udf, udf_shapes, dml, geo,
-geo_shapes, arrays and array_shapes phases), the
+geo_shapes, arrays, array_shapes, controls, upload and ddl phases), the
 card line, and the final {"ok": true,
 "device": ...} line.  Any failure exits non-zero.
 """
@@ -3027,10 +3052,6 @@ class _Split:
             setattr(cls, name, orig)
 
 
-# host columns of bench the dml phase keeps for its checks
-DML_COLUMNS = ("x10", "x100", "x1k", "x10k", "x10m", "v")
-
-
 def dml_apply(step, h, b3):
     """The numpy model after each DML_STEPS statement: h (bench's kept
     columns) and b3 (the CTAS table's columns, or None) as they must be."""
@@ -3104,10 +3125,11 @@ def run_dml(db, host, counters):
     query: its first run's uploads (none after an UPDATE or a DELETE: the
     cache was patched), its rows against the numpy model of the table, its
     warm ms (median of 5) and launches.  Returns the lines and each
-    kernel's launches in the phase."""
+    kernel's launches in the phase.  `host`, the numpy model of bench,
+    follows each statement (the later phases check against it)."""
     from heavydb_tpu_torch.tools.synthetic import DML_STEPS
 
-    h = {c: host[c] for c in DML_COLUMNS}
+    h = dict(host)
     b3 = None
     ex = db.executor
     for c in counters:
@@ -3161,6 +3183,8 @@ def run_dml(db, host, counters):
                 warm_ms=warm, warm_runs_ms=reps, peak_device_bytes=peak,
                 launches=dict(zip(KERNEL_NAMES, delta))))
         out.append(line)
+    host.clear()
+    host.update(h)
     return out, [c.launches for c in counters]
 
 
@@ -4008,6 +4032,484 @@ def run_udf_shapes(db, host, counters):
                 rows_out=rows_out, cuda_seconds=seconds), [c.launches for c in counters]
 
 
+# ---------------------------------------------------------------------------
+# controls, upload and ddl phases (bench after the dml phase)
+# ---------------------------------------------------------------------------
+
+# the kernels EXPLAIN OPTIMIZED names -> their launch counters
+PROGRAM_KERNELS = {"B1": "lane_agg", "B2": "radix_hist", "B3": "groupby_minmax",
+                   "B5": "radix_partition", "B6": "radix_group"}
+ADMISSION_QUERIES = ("Q1K_MINMAX", "PHS002")
+# a row INSERTed into bench by the controls phase, in column order
+INSERTED_ROW = {"x10": 1, "y10": 1, "x100": 1, "y100": 1, "x1k": 1, "x10k": 1,
+                "x100k": 1, "x10m": 1, "x10k_s10k": 10_000, "x1m_s10k": 10_000, "v": 0.5}
+
+
+def explained(db, name, q) -> dict:
+    """EXPLAIN, EXPLAIN CALCITE and EXPLAIN OPTIMIZED of one query: each
+    one's ms and lines, the program's tier and each aggregate's route; the
+    kernels the program names must be those the e2e phase saw it launch."""
+    import re
+
+    line = dict(query=name)
+    for kind in ("PLAN", "CALCITE", "OPTIMIZED"):
+        t0 = time.perf_counter()
+        text = [r[0] for r in db.sql(f"EXPLAIN {'' if kind == 'PLAN' else kind} {q}").rows()]
+        line[f"{kind.lower()}_ms"] = (time.perf_counter() - t0) * 1e3
+        line[f"{kind.lower()}_lines"] = len(text)
+    program = "\n".join(text).split("--- compound program")[1].splitlines()
+    line["tier"] = next(ln for ln in program if ln.startswith("group-by tier"))
+    routes = [ln for ln in program if ln.startswith(("aggregate ", "presence "))]
+    named = {PROGRAM_KERNELS[b] for ln in routes for b in re.findall(r"\bB[1-6]\b", ln)}
+    if named != ROUTES[name]:
+        raise AssertionError(f"{name}: EXPLAIN OPTIMIZED names {sorted(named)}, the e2e "
+                             f"route launched {sorted(ROUTES[name])}")
+    line["routes"] = routes
+    return line
+
+
+def timer_split(db, name, q, reps: int = 5) -> dict:
+    """The query's plan / execute / fetch scopes under enable_debug_timer,
+    median of reps runs after one: on CUDA `execute` ends at the Compound's
+    control read, which waits for the device; `fetch` only wraps the device
+    result, whose columns reach the host when read (here, after the
+    timer)."""
+    runs = []
+    db.config.enable_debug_timer = True
+    try:
+        for _ in range(reps + 1):
+            t0 = time.perf_counter()
+            rs = db.sql(q)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            rs.rows()
+            scopes = {c["name"]: c["ms"] for c in db.last_query_timings["children"]}
+            runs.append(dict(scopes, query=db.last_query_timings["ms"], wall=wall))
+    finally:
+        db.config.enable_debug_timer = False
+    return {f"{k}_ms": statistics.median(r[k] for r in runs[1:])
+            for k in ("plan", "execute", "fetch", "query", "wall")} | dict(query=name)
+
+
+def recycled(db, host, name) -> dict:
+    """The keep_result hint: the first run a miss, the second a hit that
+    returns the same ResultSet, its rows numpy's."""
+    q = QUERIES[name].replace("SELECT", "SELECT /*+ keep_result */", 1)
+    ex = db.executor
+    h2d0 = ex.h2d_bytes
+    t0 = time.perf_counter()
+    rs = db.sql(q)
+    rs.rows()
+    miss_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    hit = db.sql(q)
+    hit.rows()
+    hit_ms = (time.perf_counter() - t0) * 1e3
+    if hit is not rs:
+        raise AssertionError(f"{name}: keep_result did not recycle the result")
+    return dict(query=name, miss_ms=miss_ms, miss_h2d_bytes=ex.h2d_bytes - h2d0,
+                hit_ms=hit_ms, rows_out=check_result(name, hit, host),
+                cached_results=len(db._result_cache))
+
+
+def stopped_in_the_waves(db, host) -> dict:
+    """Q10M_AGGS in 3 fragment waves (a 1 MB stream threshold), stopped by
+    an interrupt raised once its first wave has run, then by a
+    query_time_limit(1) hint: each raises in the wave that follows; the
+    device bytes come back to where they were, but for scan-cache entries
+    the run kept; the next run equals numpy."""
+    import gc
+
+    from heavydb_tpu_torch.errors import QueryInterrupted, WatchdogException
+
+    ex = db.executor
+    base_cfg = ex.config
+    q = QUERIES["Q10M_AGGS"]
+    out = {}
+    ex.config = base_cfg.clone(stream_threshold_bytes=FORCED_THRESHOLD)
+    try:
+        for how, hook, sql, exc in (
+                ("interrupt", lambda: ex.waves_run > waves0, q, QueryInterrupted),
+                ("deadline", None, q.replace("SELECT", "SELECT /*+ query_time_limit(1) */", 1),
+                 WatchdogException)):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0, cache0 = torch.cuda.memory_allocated(), ex.scan_cache.total_bytes
+            waves0 = ex.waves_run
+            ex.interrupt_check = hook
+            raised = None
+            t0 = time.perf_counter()
+            try:
+                db.sql(sql)
+            except exc as e:
+                raised = str(e)
+            raise_ms = (time.perf_counter() - t0) * 1e3
+            ex.interrupt_check = None
+            waves = ex.waves_run - waves0
+            if raised is None or waves > 1:
+                raise AssertionError(f"{how}: raised {raised!r} after {waves} waves")
+            gc.collect()
+            torch.cuda.synchronize()
+            left = torch.cuda.memory_allocated() - mem0
+            kept = ex.scan_cache.total_bytes - cache0
+            if left > kept:
+                raise AssertionError(f"{how}: {left} B left on the card, the scan cache "
+                                     f"kept {kept} B")
+            out[how] = dict(raised=raised, ms_to_raise=raise_ms, waves_run=waves,
+                            device_bytes_left=left, scan_cache_bytes_kept=kept)
+    finally:
+        ex.config = base_cfg
+        ex.interrupt_check = None
+    rs = db.sql(q)
+    out["next_run_rows"] = check_result("Q10M_AGGS", rs, host)
+    return out
+
+
+def admitted(db, host, n_threads: int = 8, per_thread: int = 2) -> list:
+    """8 threads run Q1K_MINMAX and PHS002 (two each, alternating) on the
+    one Database at max_concurrent_queries 1 and 4, then at 4 with
+    max_exec_bytes below two queries' estimate: each result equals numpy;
+    the wall time, each query's p50 / p99 ms (to its decoded rows) and the
+    manager's info(), whose running count is 0 at the end."""
+    import threading
+
+    from heavydb_tpu_torch.plan.optimizer import optimize
+    from heavydb_tpu_torch.sql.parser import parse
+
+    ex = db.executor
+    rm = ex.resource_mgr
+    ests = [rm.estimate_scan_bytes(p) + rm.estimate_output_bytes(p, ex)
+            for p in (optimize(db._plan_select(parse(QUERIES[n]))) for n in ADMISSION_QUERIES)]
+    limit = int(1.5 * max(ests))
+    if 2 * min(ests) <= limit:
+        raise AssertionError(f"estimates {ests}: two queries would fit {limit} B")
+    want = {n: expected(n, host) for n in ADMISSION_QUERIES}
+    out = []
+    for label, conc, max_bytes in (("max_concurrent_queries=1", 1, 0),
+                                   ("max_concurrent_queries=4", 4, 0),
+                                   (f"max_exec_bytes={limit}", 4, limit)):
+        db.sql(f"ALTER SYSTEM SET max_concurrent_queries = {conc}")
+        db.sql(f"ALTER SYSTEM SET max_exec_bytes = {max_bytes}")
+        rm.peak_concurrent = 0
+        admitted0 = rm.total_admitted
+        results, errors = [], []
+        barrier = threading.Barrier(n_threads)
+
+        def worker(i):
+            try:
+                barrier.wait(timeout=60)
+                for j in range(per_thread):
+                    name = ADMISSION_QUERIES[(i + j) % 2]
+                    t0 = time.perf_counter()
+                    rs = db.sql(QUERIES[name])
+                    rs.rows()
+                    results.append((name, (time.perf_counter() - t0) * 1e3, rs))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"{label}: {errors or 'a thread did not finish'}")
+        for name, _, rs in results:
+            check_rows(name, rs.rows(), want[name], 1, ())
+        info = rm.info()
+        if info["running"] or info["queued"] or len(results) != n_threads * per_thread:
+            raise AssertionError(f"{label}: {len(results)} results, {info}")
+        if info["total_admitted"] - admitted0 != len(results):
+            raise AssertionError(f"{label}: admitted {info['total_admitted'] - admitted0}")
+        if (conc == 1 or max_bytes) and info["peak_concurrent"] != 1:
+            raise AssertionError(f"{label}: {info['peak_concurrent']} ran together")
+        lat = {n: [ms for m, ms, _ in results if m == n] for n in ADMISSION_QUERIES}
+        out.append(dict(setting=label, estimates=ests, queries=len(results), wall_ms=wall,
+                        p50_ms={n: float(np.percentile(v, 50)) for n, v in lat.items()},
+                        p99_ms={n: float(np.percentile(v, 99)) for n, v in lat.items()},
+                        info=info))
+    db.sql("ALTER SYSTEM SET max_concurrent_queries = 4")
+    db.sql("ALTER SYSTEM SET max_exec_bytes = 0")
+    return out
+
+
+def admission_cost(db) -> list:
+    """Each e2e cell's warm ms with the resource manager on (the default)
+    and off, in turns (on, off, off, on; 5 runs each), and the host time of
+    its estimate alone (median of 20)."""
+    from heavydb_tpu_torch.plan.optimizer import optimize
+    from heavydb_tpu_torch.sql.parser import parse
+
+    ex = db.executor
+    rm = ex.resource_mgr
+    out = []
+    try:
+        for name, q in QUERIES.items():
+            runs = {"on": [], "off": []}
+            for mode in ("on", "off", "off", "on"):
+                ex.resource_mgr = rm if mode == "on" else None
+                runs[mode].append(warm_ms(db, q)[0])
+            ex.resource_mgr = rm
+            plan = optimize(db._plan_select(parse(q)))
+            est = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                rm.estimate_scan_bytes(plan) + rm.estimate_output_bytes(plan, ex)
+                est.append((time.perf_counter() - t0) * 1e3)
+            on, off = statistics.mean(runs["on"]), statistics.mean(runs["off"])
+            out.append(dict(query=name, on_ms=runs["on"], off_ms=runs["off"],
+                            on_minus_off_ms=on - off, estimate_ms=statistics.median(est)))
+    finally:
+        ex.resource_mgr = rm
+    return out
+
+
+def run_controls(db, host, counters):
+    """The per-query controls on bench, with the launch counters set to 0
+    first: EXPLAIN of the eleven e2e queries, Q1K_MINMAX's debug-timer
+    scopes, the result recycler, Q10M_AGGS stopped in its waves, admission
+    under 8 threads, the e2e cells' warm ms with admission on and off; then
+    an INSERT into bench, after which the recycled query misses (numpy's
+    model gets the row too).  Returns the lines and each kernel's launches."""
+    for c in counters:
+        c.launches = 0  # the controls path starts here
+    lines = [dict(part="explain", **explained(db, n, q)) for n, q in QUERIES.items()]
+    lines.append(dict(part="debug_timer", **timer_split(db, "Q1K_MINMAX",
+                                                        QUERIES["Q1K_MINMAX"])))
+    lines.append(dict(part="keep_result", **recycled(db, host, "Q1K_MINMAX")))
+    lines.append(dict(part="stopped", **stopped_in_the_waves(db, host)))
+    lines += [dict(part="admission", **a) for a in admitted(db, host)]
+    lines += [dict(part="admission_cost", **a) for a in admission_cost(db)]
+    cols = list(INSERTED_ROW)
+    t0 = time.perf_counter()
+    db.sql(f"INSERT INTO bench ({', '.join(cols)}) VALUES "
+           f"({', '.join(repr(INSERTED_ROW[c]) for c in cols)})")
+    insert_ms = (time.perf_counter() - t0) * 1e3
+    for c in cols:
+        host[c] = np.append(host[c], np.array([INSERTED_ROW[c]], host[c].dtype))
+    after = recycled(db, host, "Q1K_MINMAX")
+    if not after["miss_h2d_bytes"]:
+        raise AssertionError("keep_result served a result across an INSERT")
+    lines.append(dict(part="keep_result_after_insert", insert_ms=insert_ms, **after))
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if min(launched[k] for k in set().union(*(ROUTES[n] for n in QUERIES))) < 1:
+        raise AssertionError(f"a kernel of the e2e routes never launched: {launched}")
+    return lines, total
+
+
+BENCH_COLUMNS = tuple(INSERTED_ROW)
+UPLOAD_QUERY = QUERIES["Q100_MINMAX"].replace("FROM bench", "FROM up")
+UPLOAD_PATHS = (("pageable", 1 << 62, False), ("staged_wide", None, True),
+                ("staged_narrow", None, False))
+
+
+def run_upload(db, host, counters):
+    """bench's host columns into a new table through load_table, its first
+    query (Q100_MINMAX's shape: x10, x100, x10k, v) taken three ways: one
+    pageable copy a column, staged with no narrowing (the chunk-stat range
+    withheld), staged with narrowing; for each its ms, the bytes that
+    crossed, the upload alone timed again (GB/s of the wire and of the
+    columns), and the device columns, bit-equal across the three; the table
+    is dropped after each.  On the last, prestage_table's seconds for every
+    column and the first query after it (nothing uploads).  Then a BIGINT
+    of int16-range values with 1 % NULL at 10^8 rows: 2 bytes a row on the
+    wire, its rows numpy's."""
+    from heavydb_tpu_torch.exec import executor as EX
+    from heavydb_tpu_torch.plan import rel_alg as R
+
+    ex = db.executor
+    cfg = db.config
+    staging, min0 = cfg.eager_device_staging, ex._STAGE_MIN_BYTES
+    narrow = EX._narrow_dtype
+    schema = ", ".join(f"{cd.name} {cd.type}" for cd in db.catalog.get_table("bench").columns)
+    cfg.eager_device_staging = False
+    for c in counters:
+        c.launches = 0  # the upload path starts here
+    want = expected("Q100_MINMAX", host)
+    used = ("x10", "x100", "x10k", "v")
+    lines, ref_cols = [], None
+    try:
+        for path, min_bytes, wide in UPLOAD_PATHS:
+            db.sql(f"CREATE TABLE up ({schema})")
+            t0 = time.perf_counter()
+            db.load_table("up", {c: host[c] for c in BENCH_COLUMNS})
+            load_s = time.perf_counter() - t0
+            t = db.catalog.get_table("up")
+            # the wide path: the narrowing rule stubbed to find no type
+            EX._narrow_dtype = (lambda dt, rng: None) if wide else narrow
+            ex._STAGE_MIN_BYTES = min0 if min_bytes is None else min_bytes
+            torch.cuda.synchronize()
+            h2d0 = ex.h2d_bytes
+            t0 = time.perf_counter()
+            rows = db.sql(UPLOAD_QUERY).rows()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            wire = ex.h2d_bytes - h2d0
+            nrows = check_rows(path, rows, want, 1, F32_RESULT_COLS["Q100_MINMAX"])
+            warm = warm_ms(db, UPLOAD_QUERY)[0]
+            ids = {cd.col_id: cd.name for cd in t.columns if cd.name in used}
+            keys = [k for k, _ in ex.scan_cache.items() if k[0] == t.table_id]
+            cols = {ids[k[2]]: ex.scan_cache.get(k) for k in keys}
+            for k in keys:
+                ex.scan_cache.pop(k)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ex._exec_scan(R.Scan(t), {i for i, cd in enumerate(t.columns) if cd.name in used})
+            torch.cuda.synchronize()
+            upload_ms = (time.perf_counter() - t0) * 1e3
+            logical = sum(host[c].nbytes for c in used)
+            if ref_cols is None:
+                ref_cols = cols
+            for c, a in cols.items():
+                b = ref_cols[c]
+                if a.dtype != b.dtype or not torch.equal(
+                        a.view(torch.int32) if a.is_floating_point() else a,
+                        b.view(torch.int32) if b.is_floating_point() else b):
+                    raise AssertionError(f"{path}: column {c} differs from the pageable copy")
+            line = dict(path=path, load_table_s=load_s, first_query_ms=first_ms,
+                        first_query_h2d_bytes=wire, warm_ms=warm, rows_out=nrows,
+                        upload_ms=upload_ms, wire_gb_per_s=wire / upload_ms / 1e6,
+                        column_gb_per_s=logical / upload_ms / 1e6, column_bytes=logical,
+                        device_dtypes={c: str(a.dtype) for c, a in cols.items()})
+            if path == "staged_narrow":
+                for k in [k for k, _ in ex.scan_cache.items() if k[0] == t.table_id]:
+                    ex.scan_cache.pop(k)
+                torch.cuda.synchronize()
+                h2d0 = ex.h2d_bytes
+                t0 = time.perf_counter()
+                ex.prestage_table(t)
+                line["prestage_s"] = time.perf_counter() - t0
+                line["prestage_h2d_bytes"] = ex.h2d_bytes - h2d0
+                h2d0 = ex.h2d_bytes
+                t0 = time.perf_counter()
+                rows = db.sql(UPLOAD_QUERY).rows()
+                line["first_query_after_prestage_ms"] = (time.perf_counter() - t0) * 1e3
+                check_rows(path, rows, want, 1, F32_RESULT_COLS["Q100_MINMAX"])
+                if ex.h2d_bytes != h2d0:
+                    raise AssertionError("the first query after prestage_table uploaded")
+            del cols
+            db.sql("DROP TABLE up")
+            lines.append(line)
+        del ref_cols
+        EX._narrow_dtype = narrow
+        ex._STAGE_MIN_BYTES = min0
+        rng = np.random.default_rng(SEED + 7)
+        k = rng.integers(-30_000, 30_001, ROWS)
+        k[rng.random(ROWS) < 0.01] = np.iinfo(np.int64).min
+        db.sql("CREATE TABLE bnull (k BIGINT)")
+        db.load_table("bnull", {"k": k})
+        ok = k != np.iinfo(np.int64).min
+        h2d0 = ex.h2d_bytes
+        t0 = time.perf_counter()
+        rows = db.sql("SELECT COUNT(*), COUNT(k), MIN(k), MAX(k), SUM(k) FROM bnull").rows()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        wire = ex.h2d_bytes - h2d0
+        kv = k[ok]
+        numpy_rows = [(ROWS, int(ok.sum()), int(kv.min()), int(kv.max()), int(kv.sum()))]
+        if rows != numpy_rows or wire != ROWS * 2:
+            raise AssertionError(f"bnull: {rows} vs {numpy_rows}; {wire} B on the wire")
+        nulls = db.sql("SELECT COUNT(*) FROM bnull WHERE k IS NULL").rows()
+        if nulls != [(int((~ok).sum()),)]:
+            raise AssertionError(f"bnull: {nulls} NULLs")
+        lines.append(dict(path="bigint_int16_range_1pct_null", rows=ROWS, first_query_ms=first_ms,
+                          first_query_h2d_bytes=wire, column_bytes=k.nbytes,
+                          warm_ms=warm_ms(db, "SELECT COUNT(*), COUNT(k), MIN(k), MAX(k), "
+                                          "SUM(k) FROM bnull")[0]))
+        db.sql("DROP TABLE bnull")
+    finally:
+        cfg.eager_device_staging = staging
+        ex._STAGE_MIN_BYTES = min0
+        EX._narrow_dtype = narrow
+    total = [c.launches for c in counters]
+    if dict(zip(KERNEL_NAMES, total))["lane_agg"] < 1:
+        raise AssertionError("B1 did not launch in the upload phase (Q100_MINMAX's shape)")
+    return lines, total
+
+
+def run_ddl(db, host, counters):
+    """Column DDL, views and a row-level policy on the 10^8-row bench after
+    the dml and controls phases, with the launch counters set to 0 first
+    (the expected rows come from `host`, which those phases kept): ADD
+    COLUMN with a DEFAULT and a query on it (the new column alone uploads,
+    one byte a row), DROP COLUMN, RENAME COLUMN and RENAME TABLE and back
+    (nothing uploads), a view of Q1K_MINMAX's shape, and Q1K_MINMAX by a
+    user whose policy keeps x10 IN (1, 2, 3), beside the superuser's warm
+    ms; each statement's ms and bytes; everything added is dropped."""
+    ex = db.executor
+    for c in counters:
+        c.launches = 0  # the ddl path starts here
+    lines = []
+    n = db.table_rows("bench")
+
+    def statement(sql):
+        torch.cuda.synchronize()
+        h2d0 = ex.h2d_bytes
+        t0 = time.perf_counter()
+        db.sql(sql)
+        torch.cuda.synchronize()
+        lines.append(dict(statement=sql, ms=(time.perf_counter() - t0) * 1e3,
+                          h2d_bytes=ex.h2d_bytes - h2d0))
+
+    def query(label, q, want, f32=(), user=None, uploads=0):
+        h2d0 = ex.h2d_bytes
+        t0 = time.perf_counter()
+        rows = db.sql(q, user=user).rows()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        uploaded = ex.h2d_bytes - h2d0
+        nrows = check_rows(label, rows, want, 1, f32)
+        if uploads is not None and uploaded != uploads:
+            raise AssertionError(f"{label}: uploaded {uploaded} B, expected {uploads}")
+        reps = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            db.sql(q, user=user)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        lines.append(dict(query=label, sql=q, user=user, rows_out=nrows, first_ms=first_ms,
+                          first_h2d_bytes=uploaded, warm_ms=statistics.median(reps)))
+
+    q1k = QUERIES["Q1K_MINMAX"]
+    want_1k = expected("Q1K_MINMAX", host)
+    k = host["x1k"].astype(np.int64)
+    cnt = np.bincount(k, minlength=1001)
+    statement("ALTER TABLE bench ADD COLUMN z INT DEFAULT 7")
+    query("ADD_COLUMN", "SELECT x1k, COUNT(*), SUM(z) FROM bench GROUP BY x1k",
+          {(i,): (int(cnt[i]), 7 * int(cnt[i])) for i in range(1001) if cnt[i]}, uploads=n)
+    statement("ALTER TABLE bench DROP COLUMN z")
+    query("DROP_COLUMN", q1k, want_1k)
+    statement("ALTER TABLE bench RENAME COLUMN x1k TO k1k")
+    query("RENAME_COLUMN", q1k.replace("x1k", "k1k"), want_1k)
+    statement("ALTER TABLE bench RENAME COLUMN k1k TO x1k")
+    statement("ALTER TABLE bench RENAME TO bench_r")
+    query("RENAME_TABLE", q1k.replace("bench", "bench_r"), want_1k)
+    statement("ALTER TABLE bench_r RENAME TO bench")
+    statement("CREATE VIEW v1k AS SELECT x1k, MIN(x10k) AS mn, MAX(v) AS mx, AVG(v) AS av "
+              "FROM bench GROUP BY x1k")
+    query("VIEW", "SELECT * FROM v1k", want_1k)
+    statement("DROP VIEW v1k")
+    statement("CREATE USER analyst (password='pw')")
+    statement("GRANT SELECT ON bench TO analyst")
+    statement("CREATE POLICY ON COLUMN bench.x10 TO analyst VALUES (1, 2, 3)")
+    keep = np.isin(host["x10"], (1, 2, 3))
+    # x10 uploads here unless an earlier phase left it resident
+    query("POLICY", q1k, expected("Q1K_MINMAX", {c: host[c][keep] for c in ("x1k", "x10k", "v")}),
+          user="analyst", uploads=None)
+    query("SUPERUSER", q1k, want_1k)
+    statement("DROP POLICY ON COLUMN bench.x10 FROM analyst")
+    statement("DROP USER analyst")
+    details = db.sql("SHOW TABLE DETAILS bench").rows()
+    lines.append(dict(statement="SHOW TABLE DETAILS bench", row=list(details[0])))
+    if db.catalog.get_table("bench").column_by_name("z") is not None or db._views:
+        raise AssertionError("the ddl phase left a column or a view behind")
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if launched["radix_hist"] < 1 or launched["groupby_minmax"] < 1:
+        raise AssertionError(f"B2 / B3 did not launch in the ddl phase: {launched}")
+    return lines, total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -4133,12 +4635,28 @@ def main() -> None:
     line, arr_shape_total = run_array_shapes(counters)
     emit({"phase": "array_shapes", **line})
     phase_s["array_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctl_lines, ctl_total = run_controls(db, host, counters)
+    for line in ctl_lines:
+        emit({"phase": "controls", **line})
+    phase_s["controls"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    up_lines, up_total = run_upload(db, host, counters)
+    for line in up_lines:
+        emit({"phase": "upload", **line})
+    phase_s["upload"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ddl_lines, ddl_total = run_ddl(db, host, counters)
+    for line in ddl_lines:
+        emit({"phase": "ddl", **line})
+    phase_s["ddl"] = time.perf_counter() - t0
     emit({"phase": "phase_seconds", **phase_s})
     # the kernels line counts the launches of the main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
                                   distinct_total, string_total, hash_total, win_total,
                                   win_shape_total, udf_total, udf_shape_total, dml_total,
-                                  geo_total, geo_shape_total, arr_total, arr_shape_total)]
+                                  geo_total, geo_shape_total, arr_total, arr_shape_total,
+                                  ctl_total, up_total, ddl_total)]
     if dict(zip(KERNEL_NAMES, geo_total))["radix_hist"] < 1:
         raise AssertionError("B2 did not launch in the geo phase (GEO_ZONE_JOIN)")
     del host

@@ -28,10 +28,30 @@ WKT), per-row lists in `load_table`, and the rows of a query in CTAS and
 INSERT ... SELECT; a result's array or geo column comes back as its
 rows' host payloads (`_fix_array_cols`).  UPDATE of an array or geo
 column raises NotSupported, as in the reference.
+
+The in-memory SQL surface of the reference: EXPLAIN, EXPLAIN CALCITE and
+EXPLAIN OPTIMIZED (the plan, then the root Compound's program as the port
+runs it: tier, each aggregate's kernel route, join builds, kernel-cache
+key); ALTER SESSION / SYSTEM SET of the settable flags; RENAME TABLE, ADD /
+DROP / RENAME COLUMN, ALTER COLUMN TYPE, OPTIMIZE TABLE, COMMENT ON,
+CREATE / DROP VIEW, VALIDATE; SHOW TABLES / CREATE TABLE / TABLE DETAILS /
+FUNCTIONS, DESCRIBE; users, roles, GRANT / REVOKE and row-level policies
+(storage/syscatalog.py; `sql(text, user=...)` checks privileges and puts
+the user's policy filters into the plan before it is optimized); SHOW
+QUERIES, KILL QUERY and SHOW USER SESSIONS over providers a server
+installs.  Query hints reach the executor (the watchdogs, a time limit,
+`keep_result`: the result recycler, keyed by the scanned tables'
+generations); `enable_debug_timer` fills `last_query_timings`.  `load_table`
+uploads a table of `eager_staging_min_rows` rows or more at once when
+`eager_device_staging` says so (None: on CUDA).  Persistence, COPY, FSI,
+DUMP / RESTORE and servers are not ported yet.
 """
 
 from __future__ import annotations
 
+import logging
+import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -39,7 +59,8 @@ import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.config import Config
-from heavydb_tpu_torch.errors import BinderError, NotSupported, SqlError, StorageError
+from heavydb_tpu_torch.errors import (BinderError, CatalogError, NotSupported, SqlError,
+                                      StorageError)
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec.executor import Executor, _iter_node_exprs
 from heavydb_tpu_torch.exec.result_set import ResultSet, from_batch
@@ -52,8 +73,10 @@ from heavydb_tpu_torch.plan.select_planner import SelectPlanner, _node_dict_ref
 from heavydb_tpu_torch.sql import ast as A
 from heavydb_tpu_torch.sql.parser import parse_many
 from heavydb_tpu_torch.storage.catalog import Catalog
+from heavydb_tpu_torch.storage.syscatalog import SysCatalog
 from heavydb_tpu_torch.storage.table import (ChunkStats, LazyDeviceChunk, Table, from_physical,
                                              to_physical)
+from heavydb_tpu_torch.utils.timer import NullTimer, QueryTimer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -90,6 +113,15 @@ class Database:
             kernel_gate(device)
         self.catalog = Catalog(config)
         self.executor = Executor(self)
+        # users, roles, privileges and row-level policies; the user of the
+        # statement each thread runs (None: the embedded superuser)
+        self.syscatalog = SysCatalog()
+        self._user_tls = threading.local()
+        # the result recycler: (plan key, scanned tables' generations) ->
+        # ResultSet, for queries with the keep_result hint
+        self._result_cache: Dict[tuple, ResultSet] = {}
+        # the last SELECT's scope timings (enable_debug_timer), or None
+        self.last_query_timings: Optional[dict] = None
         self._views: Dict[str, A.Select] = {}
         self._transient_dicts: Dict[int, object] = {}
         self._transient_by_key: Dict[tuple, tuple] = {}
@@ -107,22 +139,36 @@ class Database:
     # ------------------------------------------------------------------
     # public
     # ------------------------------------------------------------------
-    def sql(self, text: str) -> Optional[ResultSet]:
-        """Execute SQL text (the last statement's result is returned)."""
+    def sql(self, text: str, user: Optional[str] = None) -> Optional[ResultSet]:
+        """Execute SQL text (the last statement's result is returned).
+        `user` turns on privilege checks and that user's row-level
+        policies; None is the embedded superuser."""
         out = None
-        for st in parse_many(text):
-            out = self._execute_statement(st)
-            if not isinstance(st, A.Select):
-                self.executor.drop_stale()
+        self._user_tls.user = user
+        try:
+            for st in parse_many(text):
+                if user is not None:
+                    self.syscatalog.check_statement(user, st, _stmt_tables(st))
+                # a statement runs with no hints and no timer but its own
+                self.executor.exec_hints = {}
+                self.executor.timer = NullTimer()
+                out = self._execute_statement(st)
+                if not isinstance(st, (A.Select, A.Explain)):
+                    self._drop_stale()
+        finally:
+            self._user_tls.user = None
         return out
 
     def sql_device(self, text: str):
         """Execute a SELECT and return the device-resident result Batch plus
-        a decode callback — separates device compute from result egress."""
+        a decode callback — separates device compute from result egress.
+        The SELECT's hints reach the executor as in `sql`."""
         stmts = parse_many(text)
         if len(stmts) != 1 or not isinstance(stmts[0], A.Select):
             raise SqlError("sql_device takes exactly one SELECT")
         plan = optimize(self._plan_select(stmts[0]))
+        self.executor.exec_hints = stmts[0].hints or {}
+        self.executor.timer = NullTimer()
         batch = self.executor.execute(plan)
 
         def decode() -> ResultSet:
@@ -146,7 +192,78 @@ class Database:
             arrays[cd.col_id] = to_physical(cols[key], cd.type,
                                             t.dicts.get(cd.col_id))
         t.insert_columns(arrays)
+        self._drop_stale()
+        self._maybe_prestage(t)
+
+    def _maybe_prestage(self, t) -> None:
+        """Upload a freshly loaded table's columns now (`prestage_table`)
+        when `eager_device_staging` is on (None: on a CUDA device) and the
+        table holds `eager_staging_min_rows` rows or more."""
+        cfg = self.config
+        on = cfg.eager_device_staging
+        if on is None:
+            on = self.device.type == "cuda"
+        if on and t.num_rows >= cfg.eager_staging_min_rows:
+            with self.executor.timer.scope("eager_stage"):
+                self.executor.prestage_table(t)
+
+    def _drop_stale(self) -> None:
+        """After a statement that may change a table: the executor's stale
+        device state (`Executor.drop_stale`), and the recycled results of
+        tables that are gone or have a new generation."""
         self.executor.drop_stale()
+
+        def live(tid, gen):
+            t = self.catalog._by_id.get(tid)
+            return t is not None and t.generation == gen
+
+        for key in [k for k in self._result_cache
+                    if not all(live(tid, gen) for tid, gen in k[1])]:
+            del self._result_cache[key]
+
+    def warmup(self, queries) -> None:
+        """Run each query once to fill the kernel and aux caches before
+        serving, its result discarded (the reference's --warmup-queries-file).
+        A failing query is skipped: a warmup must not block readiness."""
+        for q in queries:
+            try:
+                rs = self.sql(q)
+                if rs is not None:
+                    rs.row_count
+            except Exception:  # noqa: BLE001 - readiness goes on without it
+                logging.getLogger(__name__).warning("warmup query failed: %s", q,
+                                                    exc_info=True)
+
+    def table_rows(self, name: str) -> int:
+        return self.catalog.get_table(name).num_rows
+
+    # -- dashboards (the reference's Catalog dashboards, TDashboard CRUD) --
+    @property
+    def dashboards(self) -> Dict[int, dict]:
+        if getattr(self, "_dashboards", None) is None:
+            self._dashboards = {}
+            self._next_dashboard_id = 1
+        return self._dashboards
+
+    def create_dashboard(self, name: str, state: str = "", metadata: str = "",
+                         owner: str = "admin") -> int:
+        ds = self.dashboards
+        did = self._next_dashboard_id
+        self._next_dashboard_id += 1
+        ds[did] = {"id": did, "name": name, "state": state, "metadata": metadata,
+                   "owner": owner, "update_time": time.time()}
+        return did
+
+    def replace_dashboard(self, did: int, name: str, state: str, metadata: str,
+                          owner: str) -> None:
+        if did not in self.dashboards:
+            raise SqlError(f"no dashboard {did}")
+        self.dashboards[did].update(name=name, state=state, metadata=metadata,
+                                    owner=owner, update_time=time.time())
+
+    def delete_dashboard(self, did: int) -> None:
+        if self.dashboards.pop(did, None) is None:
+            raise SqlError(f"no dashboard {did}")
 
     def load_table_device(self, name: str, data, create: bool = False,
                           dicts=None):
@@ -328,12 +445,13 @@ class Database:
     # ------------------------------------------------------------------
     def _execute_statement(self, st: A.Statement) -> Optional[ResultSet]:
         if isinstance(st, A.Select):
-            plan = optimize(self._plan_select(st))
-            batch = self.executor.execute(plan)
-            return self._fix_array_cols(from_batch(batch, plan.fields, plan.types,
-                                                   self._result_dicts(plan)), plan)
+            return self._run_select(st)
+        if isinstance(st, A.Explain):
+            return self._explain(st)
         if isinstance(st, A.CreateTable):
             return self._create_table(st)
+        if isinstance(st, A.AlterSetting):
+            return self._alter_setting(st)
         if isinstance(st, A.InsertValues):
             return self._insert_values(st)
         if isinstance(st, A.InsertSelect):
@@ -346,9 +464,371 @@ class Database:
             self.catalog.get_table(st.name).delete_all()
             return None
         if isinstance(st, A.DropTable):
+            t = self.catalog.get_table_opt(st.name)
             self.catalog.drop_table(st.name, st.if_exists)
+            if t is not None:
+                self.executor.forget_table(t.table_id)
             return None
+        if isinstance(st, A.RenameTable):
+            self.catalog.rename_table(st.old, st.new)
+            return None
+        if isinstance(st, (A.AddColumn, A.DropColumn, A.RenameColumn, A.AlterColumnType,
+                           A.OptimizeTable)):
+            return self._alter_columns(st)
+        if isinstance(st, A.CommentOn):
+            t = self.catalog.get_table(st.table)
+            if st.kind == "COLUMN":
+                cd = t.column_by_name(st.column)
+                if cd is None:
+                    raise SqlError(f"no column {st.column!r}")
+                cd.comment = st.text
+            else:
+                t.comment = st.text
+            return None
+        if isinstance(st, A.CreateView):
+            key = st.name.lower()
+            if key in self._views and not st.if_not_exists:
+                raise CatalogError(f"view {st.name!r} already exists")
+            self._views[key] = st.select
+            return None
+        if isinstance(st, A.DropView):
+            if st.name.lower() not in self._views and not st.if_exists:
+                raise CatalogError(f"view {st.name!r} does not exist")
+            self._views.pop(st.name.lower(), None)
+            return None
+        if isinstance(st, A.ValidateStmt):
+            return _string_result("status", ["OK"])
+        if isinstance(st, (A.ShowTables, A.DescribeTable, A.ShowCreateTable,
+                           A.ShowTableDetails, A.ShowFunctions, A.ShowQueries,
+                           A.KillQuery, A.ShowUserSessions)):
+            return self._show(st)
+        if isinstance(st, (A.CreateUser, A.DropUser, A.AlterUser, A.CreateRole,
+                           A.DropRole, A.GrantStmt, A.CreatePolicy, A.DropPolicy,
+                           A.ShowPolicies, A.ShowUsers, A.ShowRoles)):
+            return self._security(st)
         raise NotSupported(f"statement {type(st).__name__}")
+
+    # ------------------------------------------------------------------
+    # SELECT: hints, timers, row-level policies, the result recycler
+    # ------------------------------------------------------------------
+    def _run_select(self, sel: A.Select) -> ResultSet:
+        """A SELECT under its hints, with the `query` / `plan` / `execute` /
+        `fetch` scopes timed when `enable_debug_timer` is on.  On CUDA the
+        `execute` scope ends at the Compound's control read, which waits
+        for the device; `fetch` only wraps the device result (its columns
+        reach the host when first read)."""
+        timer = QueryTimer() if self.config.enable_debug_timer else NullTimer()
+        ex = self.executor
+        ex.timer = timer
+        ex.exec_hints = sel.hints or {}
+        cache_key = None
+        with timer.scope("query"):
+            with timer.scope("plan"):
+                plan = self._plan_select(sel)
+                user = getattr(self._user_tls, "user", None)
+                if user is not None and self.syscatalog.policies:
+                    plan = self._inject_rls(plan, user)
+                plan = optimize(plan)
+            if "keep_result" in ex.exec_hints:
+                cache_key = self._result_cache_key(plan)
+                hit = self._result_cache.get(cache_key) if cache_key is not None else None
+                if hit is not None:
+                    self.last_query_timings = None
+                    return hit
+            with timer.scope("execute"):
+                batch = ex.execute(plan)
+            with timer.scope("fetch"):
+                rs = self._fix_array_cols(from_batch(batch, plan.fields, plan.types,
+                                                     self._result_dicts(plan)), plan)
+        if cache_key is not None:
+            self._result_cache[cache_key] = rs
+        self.last_query_timings = timer.to_dict()
+        return rs
+
+    def _inject_rls(self, plan, user: str):
+        """Row-level security: every Scan of a table with policies for
+        `user` (or a role of theirs) becomes a Filter `col IN (values)`
+        before optimization, so it fuses and pushes down like a WHERE;
+        subquery plans get theirs too.  A dictionary-string column filters
+        through a DictStrPredicate IN (a match table over its entries)."""
+        sysc = self.syscatalog
+
+        def cond_for(scan):
+            conjs = []
+            for col, vals in sysc.policies_for(user, scan.table.name):
+                cd = scan.table.column_by_name(col)
+                if cd is None:
+                    continue
+                idx = next(i for i, c in enumerate(scan.table.columns)
+                           if c.col_id == cd.col_id)
+                ti = scan.types[idx]
+                ref = E.InputRef(0, idx, ti, _node_dict_ref(scan, idx))
+                if ti.is_dict_string:
+                    conjs.append(E.DictStrPredicate(
+                        arg=ref, kind="IN", pattern="\x00".join(str(v) for v in vals),
+                        dict_ref=ref.dict_ref, type=T.boolean(ti.nullable)))
+                else:
+                    phys = tuple(int(v) if ti.is_integer else float(v) for v in vals)
+                    conjs.append(E.InValues(arg=ref, values=phys,
+                                            type=T.boolean(ti.nullable)))
+            if not conjs:
+                return None
+            cond = conjs[0]
+            for c in conjs[1:]:
+                cond = E.BinOp(E.BinOpKind.AND, cond, c, T.boolean(False))
+            return cond
+
+        def node_exprs(n):
+            if isinstance(n, R.Filter):
+                return [n.condition]
+            if isinstance(n, R.Project):
+                return list(n.exprs)
+            if isinstance(n, R.Join):
+                return [n.condition] if n.condition is not None else []
+            if isinstance(n, R.Aggregate):
+                return list(n.group_exprs) + list(n.agg_exprs)
+            if isinstance(n, R.Window):
+                return list(n.wfuncs)
+            if isinstance(n, R.Compound):
+                return list(_iter_node_exprs(n))
+            return []
+
+        seen = {}
+
+        def walk(node):
+            if id(node) in seen:
+                return seen[id(node)]
+            node.inputs[:] = [walk(i) for i in node.inputs]
+            for e in node_exprs(node):
+                for sub in E.walk(e):
+                    if isinstance(sub, E.SubqueryExpr) and sub.plan is not None:
+                        object.__setattr__(sub, "plan", walk(sub.plan))
+            out = node
+            if isinstance(node, R.Scan):
+                c = cond_for(node)
+                if c is not None:
+                    out = R.Filter(node, c)
+            seen[id(node)] = out
+            return out
+
+        return walk(plan)
+
+    def _result_cache_key(self, plan: R.RelNode):
+        """(plan key, (table id, generation) of every Scan), or None for a
+        plan with a subquery, whose result the key cannot track."""
+        gens = []
+        for n in R.topo_order(plan):
+            for e in _iter_all_exprs(n):
+                if any(isinstance(sub, E.SubqueryExpr) for sub in E.walk(e)):
+                    return None
+            if isinstance(n, R.Scan):
+                gens.append((n.table.table_id, n.table.generation))
+        return (plan.plan_key(), tuple(gens))
+
+    def _explain(self, st: A.Explain) -> ResultSet:
+        """EXPLAIN: the optimized plan; CALCITE: the plan before the
+        optimizer; OPTIMIZED: the optimized plan, then the root Compound's
+        program as the port runs it (`Executor.program_text`), where the
+        reference prints its kernel's jaxpr."""
+        if not isinstance(st.stmt, A.Select):
+            raise NotSupported("EXPLAIN of non-SELECT")
+        plan = self._plan_select(st.stmt)
+        if st.kind == "CALCITE":
+            return _string_result("explanation", plan.explain().split("\n"))
+        plan = optimize(plan)
+        if st.kind == "OPTIMIZED":
+            program = self.executor.program_text(plan)
+            text = plan.explain() if program is None else plan.explain() + "\n\n" + program
+            return _string_result("explanation", text.split("\n"))
+        return _string_result("explanation", plan.explain().split("\n"))
+
+    # ------------------------------------------------------------------
+    # ALTER SESSION / SYSTEM SET
+    # ------------------------------------------------------------------
+    _SETTABLE = {
+        "enable_watchdog", "watchdog_max_projected_rows",
+        "enable_dynamic_watchdog", "dynamic_watchdog_time_limit_ms",
+        "enable_debug_timer", "enable_fragment_skipping",
+        "enable_executor_resource_mgr", "max_concurrent_queries",
+        "max_exec_bytes", "admission_queue_timeout_s",
+        "baseline_groupby_threshold", "perfect_join_max_range",
+    }
+
+    def _alter_setting(self, st: A.AlterSetting) -> ResultSet:
+        key = st.key
+        if key not in self._SETTABLE or not hasattr(self.config, key):
+            raise SqlError(f"unknown or non-settable parameter {key!r}")
+        cur = getattr(self.config, key)
+        val = st.value
+        if isinstance(cur, bool):
+            val = bool(val)
+        elif isinstance(cur, int):
+            val = int(val)
+        elif isinstance(cur, float):
+            val = float(val)
+        setattr(self.config, key, val)
+        rm = self.executor.resource_mgr
+        if key == "max_concurrent_queries" and rm is not None:
+            rm.max_concurrent = int(val)
+        if key == "max_exec_bytes" and rm is not None:
+            rm.max_bytes = int(val) or None
+        if key == "admission_queue_timeout_s" and rm is not None:
+            rm.queue_timeout_s = float(val)
+        return _string_result("result", [f"{key} = {val}"])
+
+    # ------------------------------------------------------------------
+    # column DDL
+    # ------------------------------------------------------------------
+    def _alter_columns(self, st) -> None:
+        """ADD (with a bound DEFAULT) / DROP / RENAME COLUMN, ALTER COLUMN
+        TYPE and OPTIMIZE TABLE.  Each bumps the table's generation: the
+        resident device columns whose rows did not change move to it, the
+        altered or dropped one leaves, and the kernels and aux tables that
+        name the table go (`Executor.forget_table`), since an aux table is
+        keyed by its column's dictionary reference and size only."""
+        t = self.catalog.get_table(st.name if isinstance(st, A.OptimizeTable) else st.table)
+        old_gen = t.generation
+        changed = ()
+        if isinstance(st, A.AddColumn):
+            ti = resolve_type_name(st.column.type_name)
+            default = None
+            if st.column.default is not None:
+                e = ExprBinder(Scope(), self, allow_aggs=False).bind(st.column.default)
+                if ti.is_dict_string:
+                    default = str(e.value) if e.value is not None else None
+                else:
+                    default = _const_value(e, ti)
+                    # add_column backfills through to_physical, which takes
+                    # raw values: undo the decimal scaling
+                    if ti.is_decimal and default is not None:
+                        default = default / 10**ti.scale
+            t.add_column(st.column.name, ti, default)
+        elif isinstance(st, A.DropColumn):
+            t.drop_column(st.column)
+        elif isinstance(st, A.RenameColumn):
+            t.rename_column(st.old, st.new)
+        elif isinstance(st, A.AlterColumnType):
+            cd = t.column_by_name(st.column)
+            t.alter_column_type(st.column, resolve_type_name(st.type_name))
+            changed = (cd.col_id,) if cd is not None else ()
+        else:
+            t.recompute_metadata()
+        if t.generation != old_gen:
+            self.executor.patch_cache_columns(t, old_gen, changed)
+        if not isinstance(st, (A.AddColumn, A.OptimizeTable)):
+            self.executor.forget_table(t.table_id)
+        return None
+
+    # ------------------------------------------------------------------
+    # SHOW / DESCRIBE and the server's registries
+    # ------------------------------------------------------------------
+    def _show(self, st) -> ResultSet:
+        txt = T.TypeInfo(T.SQLTypeKind.TEXT, False)
+        if isinstance(st, A.ShowTables):
+            return _string_result("table_name", self.catalog.list_tables())
+        if isinstance(st, A.DescribeTable):
+            t = self.catalog.get_table(st.name)
+            return ResultSet(["name", "type"], [txt, txt],
+                             [np.array([cd.name for cd in t.columns], object),
+                              np.array([str(cd.type) for cd in t.columns], object)],
+                             [None, None])
+        if isinstance(st, A.ShowCreateTable):
+            t = self.catalog.get_table(st.name)
+            cols = ",\n  ".join(f"{cd.name} {cd.type}" for cd in t.columns)
+            return _string_result("create_table", [f"CREATE TABLE {t.name} (\n  {cols});"])
+        if isinstance(st, A.ShowTableDetails):
+            # per table: rows, fragments, columns, fragment capacity and the
+            # bytes of its chunks (a device-backed chunk counts its slice)
+            rows = []
+            for nm in list(st.names) or self.catalog.list_tables():
+                t = self.catalog.get_table(nm)
+                nbytes = sum(int(getattr(a, "nbytes", 0) or 0)
+                             for f in t.fragments for a in f.chunks.values())
+                rows.append((nm, t.num_rows, len(t.fragments), len(t.columns),
+                             t.fragment_rows, nbytes))
+            i64 = T.bigint(False)
+            return ResultSet(
+                ["table_name", "num_rows", "num_fragments", "num_columns",
+                 "max_fragment_rows", "host_bytes"],
+                [txt, i64, i64, i64, i64, i64],
+                [np.array([r[0] for r in rows], object)]
+                + [np.array([r[i] for r in rows], np.int64) for i in range(1, 6)],
+                [None] * 6)
+        if isinstance(st, A.ShowFunctions):
+            if st.table_functions:
+                return _string_result("table_function", sorted(self._table_functions))
+            from heavydb_tpu_torch.plan.builder import _INT_STRING_FNS, _MATH_FNS, _STRING_FNS
+
+            return _string_result("function", sorted(
+                _MATH_FNS | _STRING_FNS | set(_INT_STRING_FNS) | set(self._udfs)))
+        if isinstance(st, A.KillQuery):
+            # interrupts the session's query through the server's registry
+            killer = getattr(self, "kill_provider", None)
+            if killer is None:
+                raise SqlError("KILL QUERY requires a live server (no embedded "
+                               "query registry)")
+            return _string_result("result", ["interrupted" if killer(st.session_id)
+                                             else "no such query"])
+        # SHOW QUERIES (in-flight statements) and SHOW USER SESSIONS: rows
+        # of a provider the server installs; none when embedded
+        if isinstance(st, A.ShowQueries):
+            provider = getattr(self, "queries_provider", None)
+            fields = ["query_session_id", "current_status", "query_str", "elapsed_ms"]
+        else:
+            provider = getattr(self, "session_provider", None)
+            fields = ["session_id", "login_name", "client_address", "idle_seconds"]
+        rows = list(provider()) if provider is not None else []
+        return ResultSet(fields, [txt, txt, txt, T.bigint(False)],
+                         [np.array([r[i] for r in rows], object) for i in range(3)]
+                         + [np.array([int(r[3]) for r in rows], np.int64)],
+                         [None] * 4)
+
+    # ------------------------------------------------------------------
+    # users, roles, privileges, row-level policies
+    # ------------------------------------------------------------------
+    def _security(self, st) -> Optional[ResultSet]:
+        sc = self.syscatalog
+        if isinstance(st, A.CreateUser):
+            sc.create_user(st.name, str(st.options.get("password", "")),
+                           bool(st.options.get("is_super", False)))
+        elif isinstance(st, A.DropUser):
+            sc.drop_user(st.name)
+        elif isinstance(st, A.AlterUser):
+            sc.alter_user(st.name,
+                          password=(str(st.options["password"])
+                                    if "password" in st.options else None),
+                          is_super=(bool(st.options["is_super"])
+                                    if "is_super" in st.options else None))
+        elif isinstance(st, A.CreateRole):
+            sc.create_role(st.name)
+        elif isinstance(st, A.DropRole):
+            sc.drop_role(st.name)
+        elif isinstance(st, A.GrantStmt):
+            for g in st.grantees:
+                if st.privileges is not None:
+                    (sc.revoke if st.revoke else sc.grant)(st.privileges, st.object, g)
+                else:
+                    for r in st.roles:
+                        (sc.revoke_role if st.revoke else sc.grant_role)(r, g)
+        elif isinstance(st, A.CreatePolicy):
+            t = self.catalog.get_table(st.table)
+            cd = t.column_by_name(st.column)
+            if cd is None:
+                raise SqlError(f"no column {st.column!r} in {st.table!r}")
+            if not (cd.type.is_string or cd.type.is_integer):
+                raise NotSupported("policies supported on TEXT and integer columns")
+            sc.create_policy(st.table, st.column, st.grantee, st.values)
+        elif isinstance(st, A.DropPolicy):
+            sc.drop_policy(st.table, st.column, st.grantee)
+        elif isinstance(st, A.ShowPolicies):
+            return _string_result("policy", [
+                f"{tb}.{col} TO {g} VALUES ({', '.join(repr(v) for v in vals)})"
+                for tb, col, g, vals in sc.list_policies(st.grantee, st.effective)])
+        elif isinstance(st, A.ShowUsers):
+            return _string_result("user_name", [u.name for u in sc.users.values()])
+        else:
+            return _string_result("role_name", sorted(sc.roles))
+        return None
 
     def _create_table(self, st: A.CreateTable) -> None:
         frag_rows = st.options.get("fragment_size")
@@ -675,6 +1155,47 @@ def _iter_all_exprs(node):
     if isinstance(node, R.Aggregate):
         yield from node.group_exprs
         yield from node.agg_exprs
+
+
+def _string_result(name: str, values: List[str]) -> ResultSet:
+    return ResultSet([name], [T.TypeInfo(T.SQLTypeKind.TEXT, False)],
+                     [np.array(values, object)], [None])
+
+
+def _stmt_tables(st) -> list:
+    """Table names a statement touches, for privilege checks."""
+    out = []
+
+    def from_ref(r):
+        if isinstance(r, A.NamedTable):
+            out.append(r.name)
+        elif isinstance(r, A.JoinRef):
+            from_ref(r.left)
+            from_ref(r.right)
+        elif isinstance(r, A.SubqueryRef):
+            from_select(r.select)
+
+    def from_select(sel):
+        from_ref(sel.from_)
+        for _, cte in sel.ctes:
+            from_select(cte)
+        for _, rhs in sel.set_ops:
+            from_select(rhs)
+
+    if isinstance(st, A.Select):
+        from_select(st)
+    elif isinstance(st, (A.InsertValues, A.Update, A.Delete, A.CopyFrom, A.TruncateTable)):
+        out.append(getattr(st, "table", getattr(st, "name", "")))
+    elif isinstance(st, A.InsertSelect):
+        out.append(st.table)
+        from_select(st.select)
+    elif isinstance(st, A.CreateTable):
+        out.append(st.name)
+        if st.as_select is not None:
+            from_select(st.as_select)
+    elif isinstance(st, A.DropTable):
+        out.append(st.name)
+    return [t for t in out if t]
 
 
 def _normalize_tabular(data) -> Dict[str, np.ndarray]:

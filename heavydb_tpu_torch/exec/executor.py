@@ -49,12 +49,39 @@ table for each dictionary-string ORDER BY key; it is never streamed.
 Scalar UDFs reach the expression compiler through each Compound's plan.
 Every tensor lives on the executor's one explicit device.  A subquery
 left after substitution raises NotSupported.
+
+Per-query controls, as the reference's: the interrupt hook, the timer, the
+query hints and the dynamic watchdog's deadline are per thread, as are the
+records of the calling thread's last query (`join_runs`, `window_runs`,
+`last_stream`) and its counters (`waves_run`, `h2d_bytes`), so that
+concurrent callers of one Database never see each other's (`_PerThread`).
+`execute` sets the deadline (the `query_time_limit(ms)` or
+`dynamic_watchdog` hint, or `enable_dynamic_watchdog`) and takes an
+admission grant from the resource manager (exec/resource_mgr.py) for the
+plan's estimated bytes; a subquery runs inside its parent's grant.
+`_checkpoint` raises QueryInterrupted or WatchdogException at each node,
+each retry of a Compound and each fragment wave; it reads a host flag and
+the monotonic clock and never waits for the device.  The static watchdog
+refuses a projection over more rows than `watchdog_max_projected_rows`
+(`enable_watchdog` or the `watchdog` hint; `no_watchdog` lifts it).
+
+A large column uploads in chunks through a ring of reused staging buffers
+(pinned on CUDA, each reused only after its copy's event), with no full
+padded host copy, the pad tail filled on the device, and an integer column
+whose chunk-stat range fits a narrower type sent narrow and widened on the
+device (`_staged_put`, the reference's rule); `prestage_table` uploads a
+table's columns ahead of its first query.  The reference's jax.export
+artifact cache (`_ArtifactKernel`) has no counterpart: the port runs
+eagerly, and its only compiled artifacts are the nvcc builds of the hand
+kernels, which kernels/_build.py already caches under build/kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -62,7 +89,8 @@ import torch
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import (CatalogError, DeviceMemoryExceeded, DivisionByZero,
-                                      ExecutionError, NotSupported, WatchdogException)
+                                      ExecutionError, NotSupported, QueryInterrupted,
+                                      WatchdogException)
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import geo_join as GEO
 from heavydb_tpu_torch.exec import radix_tier as RT
@@ -71,6 +99,9 @@ from heavydb_tpu_torch.exec.compound_kernel import (build_compound_kernel, ctrl_
                                                     derive_valid, input_of_field)
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
 from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
+from heavydb_tpu_torch.exec.resource_mgr import ResourceMgr
+from heavydb_tpu_torch.ops import agg as AGG
+from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.ops import sort as S
 from heavydb_tpu_torch.plan import exprs as E
@@ -157,11 +188,68 @@ def _iter_node_exprs(node: R.RelNode):
             yield node.having
 
 
+class _PerThread:
+    """An Executor attribute each thread sees on its own: the state of the
+    query the thread runs (made by `default()` at a thread's first read)."""
+
+    def __init__(self, default):
+        self.default = default
+
+    def __set_name__(self, owner, name):
+        self.name = name
+
+    def __get__(self, ex, owner=None):
+        if ex is None:
+            return self
+        tls = ex._tls
+        if not hasattr(tls, self.name):
+            setattr(tls, self.name, self.default())
+        return getattr(tls, self.name)
+
+    def __set__(self, ex, value):
+        setattr(ex._tls, self.name, value)
+
+
 class Executor:
+    # per-query state of the calling thread: the interrupt hook (a callable
+    # returning True to stop), the scope timer, the query hints and the
+    # dynamic watchdog's monotonic deadline
+    interrupt_check = _PerThread(lambda: None)
+    timer = _PerThread(NullTimer)
+    exec_hints = _PerThread(dict)
+    _deadline = _PerThread(lambda: None)
+    # the calling thread's last execute(): each join Compound's builds,
+    # caps and retries; each window spec's egress mode and sort; the last
+    # Compound stream plan
+    join_runs = _PerThread(list)
+    window_runs = _PerThread(list)
+    last_stream = _PerThread(lambda: None)
+    # the calling thread's counters: fragment waves run by streamed
+    # Compounds and top-k Sorts; host-to-device bytes of scanned columns,
+    # aux tables and cache patches
+    waves_run = _PerThread(int)
+    h2d_bytes = _PerThread(int)
+
+    # a column of at least _STAGE_MIN_BYTES uploads in pieces of
+    # _STAGE_CHUNK_BYTES through _STAGE_BUFFERS reused staging buffers
+    _STAGE_MIN_BYTES = 64 << 20
+    _STAGE_CHUNK_BYTES = 32 << 20
+    _STAGE_BUFFERS = 2
+
     def __init__(self, db):
         self.db = db
         self.config = db.config
         self.device = db.device
+        self._tls = threading.local()
+        self.resource_mgr: Optional[ResourceMgr] = None
+        if self.config.enable_executor_resource_mgr:
+            self.resource_mgr = ResourceMgr(self.config.max_concurrent_queries,
+                                            self.config.max_exec_bytes or None,
+                                            self.config.admission_queue_timeout_s)
+        # the staging ring: [buffer, event of its last copy or None], and
+        # the lock that gives it to one upload at a time
+        self._stage_ring: List[list] = []
+        self._stage_lock = threading.Lock()
         self.kernel_cache: Dict[tuple, object] = {}
         # the device tables of dictionary strings and join translations
         # (`_aux_array`), by a key that carries their dictionaries' sizes
@@ -172,21 +260,9 @@ class Executor:
         elif budget < 0:
             budget = 0  # unbounded
         self.scan_cache = DeviceLRUCache(budget)
-        self.timer = NullTimer()
-        # fragment waves run by streamed Compounds and top-k Sorts, and the
-        # last Compound stream plan
-        self.waves_run = 0
-        self.last_stream: Optional[StreamPlan] = None
         # selectivity probe counts of join inputs (_selectivity_sizes)
         self._sel_cache: Dict[tuple, int] = {}
-        # each join Compound the last execute() ran: its builds, caps, retries
-        self.join_runs: List[JoinRun] = []
-        # each window spec the last execute() sorted: its egress mode and
-        # whether its key was packed (exec/window_kernel.run_window)
-        self.window_runs: List[dict] = []
-        # host-to-device bytes of scanned columns, aux tables and cache
-        # patches; scan-cache keys a mutation dropped rather than moved
-        self.h2d_bytes = 0
+        # scan-cache keys a mutation dropped rather than moved
         self.cache_keys_dropped = 0
         # the hash tier's NDV estimates by (table, generation, key fields),
         # pruned by drop_stale
@@ -196,14 +272,46 @@ class Executor:
     # entry
     # ------------------------------------------------------------------
     def execute(self, root: R.RelNode) -> B.Batch:
+        """Run a plan under the dynamic watchdog's deadline and, with the
+        resource manager on, inside an admission grant for its estimated
+        scan and output bytes (queued FIFO while the grants in force leave
+        no room)."""
         self.join_runs = []
         self.window_runs = []
-        return self._execute_plan(root)
+        hints = self.exec_hints
+        limit_ms = 0
+        if self.config.enable_dynamic_watchdog or hints.get("dynamic_watchdog") \
+                or hints.get("query_time_limit"):
+            try:
+                limit_ms = int(hints.get("query_time_limit") or 0)
+            except (TypeError, ValueError):
+                limit_ms = 0
+            limit_ms = limit_ms or self.config.dynamic_watchdog_time_limit_ms
+        self._deadline = time.monotonic() + limit_ms / 1000.0 if limit_ms else None
+        rm = self.resource_mgr
+        if rm is None:
+            return self._execute_plan(root)
+        est = rm.estimate_scan_bytes(root) + rm.estimate_output_bytes(root, self)
+        with rm.acquire(est):
+            return self._execute_plan(root)
+
+    def _checkpoint(self) -> None:
+        """Raise QueryInterrupted when the calling thread's interrupt hook
+        says so, WatchdogException past its deadline.  A host flag and the
+        monotonic clock: nothing waits for the device."""
+        check = self.interrupt_check
+        if check is not None and check():
+            raise QueryInterrupted("query interrupted by session")
+        dl = self._deadline
+        if dl is not None and time.monotonic() > dl:
+            raise WatchdogException("query exceeded the dynamic watchdog time limit")
 
     def _execute_plan(self, root: R.RelNode) -> B.Batch:
         """Run a plan after substituting its uncorrelated subqueries; a
-        subquery's own plan comes back through here, so the outer query's
-        `join_runs` keep its subqueries' join runs too."""
+        subquery's own plan comes back through here, inside the outer
+        query's admission grant (another grant could wait on itself at
+        `max_concurrent_queries`), and the outer query's `join_runs` keep
+        its subqueries' join runs too."""
         self._substitute_subqueries(root, set())
         for node in R.topo_order(root):
             for e in _iter_node_exprs(node):
@@ -293,6 +401,7 @@ class Executor:
     def _exec(self, node: R.RelNode, memo, needed) -> B.Batch:
         if node.id in memo:
             return memo[node.id]
+        self._checkpoint()
         with self.timer.scope(f"{type(node).__name__}#{node.id}"):
             if isinstance(node, R.Scan):
                 out = self._exec_scan(node, needed)
@@ -325,20 +434,31 @@ class Executor:
     # `load_table_device` (which the cache may hold itself) is never written.
     # A fragment-subset entry, or a TEXT ENCODING NONE column (its lazy
     # dictionary re-interns in the new generation), is dropped and counted.
-    def _old_entries(self, t, old_gen: int):
+    def _old_entries(self, t, old_gen: int, changed=()):
         """The (key, tensor) entries of t's generation old_gen, removed
-        from the cache, full-table ones only; the others are dropped."""
+        from the cache, full-table ones of columns t still has and that are
+        not in `changed` only; the others are dropped."""
         out = []
+        live = {cd.col_id: cd for cd in t.columns}
         for key, arr in list(self.scan_cache.items()):
             if key[0] != t.table_id or key[1] != old_gen:
                 continue
             self.scan_cache.pop(key)
-            cd = t.column_by_id(key[2])
-            if key[4] is not None or cd.type.is_none_string:
+            cd = live.get(key[2])
+            if key[4] is not None or cd is None or cd.type.is_none_string \
+                    or key[2] in changed:
                 self.cache_keys_dropped += 1
                 continue
             out.append((key, arr))
         return out
+
+    def patch_cache_columns(self, t, old_gen: int, changed=()) -> None:
+        """Move t's resident columns from old_gen to its generation after a
+        statement that bumped it without touching their rows (ADD / DROP /
+        RENAME COLUMN, OPTIMIZE, ALTER COLUMN TYPE of another column); a
+        column in `changed`, or dropped, leaves the cache."""
+        for (tid, _, cid, size, _), arr in self._old_entries(t, old_gen, changed):
+            self.scan_cache[(tid, t.generation, cid, size, None)] = arr
 
     def patch_cache_update(self, t, old_gen: int, rowids: np.ndarray,
                            new_cols: Dict[int, np.ndarray]) -> None:
@@ -408,8 +528,79 @@ class Executor:
         self.h2d_bytes += host.nbytes
         return torch.from_numpy(host).to(self.device)
 
-    def _put(self, host: np.ndarray, size: int, ti) -> torch.Tensor:
-        return self._to_device(B.pad_to(host, size, ti))
+    def _staged_put(self, parts, size: int, ti, rng=None) -> torch.Tensor:
+        """A column's host pieces (its fragments' chunks, in order) as one
+        device tensor of `size` rows, null-padded.  Under _STAGE_MIN_BYTES:
+        one pageable copy.  Else the pieces go in _STAGE_CHUNK_BYTES chunks
+        through the staging ring into a tensor allocated on the device, whose
+        pad tail is filled there, so the host holds no full padded copy.  An
+        integer column whose chunk-stat range `rng` = (lo, hi, has_nulls)
+        fits int8 / int16 / int32 with room for that type's minimum as its
+        NULL (the reference's rule) crosses narrow and is widened on the
+        device, the narrow minimum mapped back to the column's sentinel.
+        h2d_bytes counts the bytes that cross."""
+        parts = [np.asarray(p) for p in parts]
+        dt = parts[0].dtype if parts else np.dtype(ti.np_dtype())
+        n = sum(int(p.shape[0]) for p in parts)
+        sent = ti.null_sentinel()
+        if n * dt.itemsize < self._STAGE_MIN_BYTES:
+            return self._to_device(np.concatenate(
+                parts + [np.full(size - n, sent, dt)]))
+        narrow = _narrow_dtype(dt, rng)
+        send_dt = narrow if narrow is not None else dt
+        send_sent = np.iinfo(narrow).min if narrow is not None else sent
+        out = torch.empty(size, dtype=G.torch_dtype(send_dt), device=self.device)
+        if size > n:
+            out[n:] = send_sent
+        remap = narrow is not None and bool(rng[2])
+        rows = max(1, self._STAGE_CHUNK_BYTES // send_dt.itemsize)
+        with self._stage_lock:
+            ring = self._staging_ring()
+            pos = k = 0
+            for part in parts:
+                for i in range(0, part.shape[0], rows):
+                    src = part[i:i + rows]
+                    m = src.shape[0]
+                    slot = ring[k % len(ring)]
+                    if slot[1] is not None:
+                        slot[1].synchronize()  # its last copy has left it
+                    buf = slot[0].view(G.torch_dtype(send_dt))[:m]
+                    host = buf.numpy()
+                    np.copyto(host, src, casting="unsafe")
+                    if remap:
+                        host[src == sent] = send_sent
+                    out[pos:pos + m].copy_(buf, non_blocking=True)
+                    if self.device.type == "cuda":
+                        slot[1] = torch.cuda.Event()
+                        slot[1].record()
+                    pos += m
+                    k += 1
+        self.h2d_bytes += n * send_dt.itemsize
+        if narrow is None:
+            return out
+        return torch.where(out == int(send_sent), sent, out.to(G.torch_dtype(dt)))
+
+    def _staging_ring(self) -> List[list]:
+        """The staging buffers of _STAGE_CHUNK_BYTES, made at first use
+        (page-locked on CUDA, so that a copy runs while the next chunk is
+        filled) and again when the chunk size changes."""
+        nbytes = self._STAGE_CHUNK_BYTES
+        if not self._stage_ring or self._stage_ring[0][0].numel() != nbytes:
+            for slot in self._stage_ring:
+                if slot[1] is not None:
+                    slot[1].synchronize()
+            pin = self.device.type == "cuda"
+            self._stage_ring = [[torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin),
+                                 None] for _ in range(self._STAGE_BUFFERS)]
+        return self._stage_ring
+
+    def prestage_table(self, t) -> None:
+        """Upload every column of t into the scan cache now, and wait for
+        the copies, so that its first query finds it resident.  A failure
+        raises: nothing falls back to a later upload."""
+        self._exec_scan(R.Scan(t), None)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _rowids(self, t, frag_ids, n: int, size: int) -> torch.Tensor:
         """The virtual rowid of the scanned fragments (all, or frag_ids):
@@ -490,19 +681,13 @@ class Executor:
                 # StringDictionaryProxy interning at query time)
                 _, ids = t.lazy_text_dict(cd.col_id)
                 use = range(len(t.fragments)) if frags is None else frag_ids
-                host = np.concatenate([ids[int(gstart[f]):int(gstart[f + 1])]
-                                       for f in use] + [np.empty(0, np.int32)])
-                arr = self._put(host, size, T.text_dict(nullable=cd.type.nullable))
+                arr = self._staged_put([ids[int(gstart[f]):int(gstart[f + 1])] for f in use],
+                                       size, T.text_dict(nullable=cd.type.nullable))
                 self.scan_cache[key] = arr
             if arr is None:
-                if frags is None:
-                    host = t.column_values(cd.col_id)
-                else:
-                    parts = [np.asarray(f.chunks[cd.col_id]) for f in frags
-                             if f.num_rows]
-                    host = (np.concatenate(parts) if parts
-                            else np.empty(0, cd.type.np_dtype()))
-                arr = self._put(np.asarray(host), size, cd.type)
+                parts = [f.chunks[cd.col_id] for f in (t.fragments if frags is None else frags)
+                         if f.num_rows]
+                arr = self._staged_put(parts, size, cd.type, t.column_range(cd.col_id))
                 self.scan_cache[key] = arr
             cols.append(arr)
         return B.Batch(cols, n, list(node.types))
@@ -756,6 +941,7 @@ class Executor:
             return None
         winners: List[B.Batch] = []
         for wave in waves:
+            self._checkpoint()
             batch = self._exec_scan(scan, scan_needed, frag_ids=wave)
             if compound is not None:
                 plan = self._plan_compound(compound, [batch])
@@ -855,6 +1041,7 @@ class Executor:
         # retry ladder: _postprocess returns None after updating the plan
         # when the run missed its output capacity or must change tier
         for attempt in range(MAX_RETRIES + 1):
+            self._checkpoint()
             if plan.joins:
                 self._check_join_memory(node, batches, plan)
             kernel, layout = self._get_kernel(node, batches, plan)
@@ -1019,6 +1206,7 @@ class Executor:
         self.last_stream = sp
         parts: List[List[np.ndarray]] = []
         for wave in waves:
+            self._checkpoint()
             batch = self._exec_scan(scan, needed, frag_ids=wave)
             plan = self._plan_compound(wave_node, [batch])
             out = self._run_compound(wave_node, [batch], plan)
@@ -1286,6 +1474,16 @@ class Executor:
                              distinct_force_sort=not cfg.enable_hash_groupby,
                              udfs=getattr(self.db, "_udfs", {}))
         probe = batches[0]
+        # the static watchdog (the reference's pre-execution check): a
+        # projection over more rows than the limit is refused
+        hints = self.exec_hints
+        watchdog = (cfg.enable_watchdog or hints.get("watchdog")) \
+            and not hints.get("no_watchdog")
+        if watchdog and not node.is_aggregate \
+                and probe.nrows > cfg.watchdog_max_projected_rows:
+            raise WatchdogException(
+                f"projection over {probe.nrows:,} rows exceeds the watchdog "
+                f"limit ({cfg.watchdog_max_projected_rows:,})")
         if node.filter_cond is not None and node.join_levels \
                 and not any(k == "FULL" for k, _ in node.join_levels):
             self._split_filter(node, offsets, plan)
@@ -1522,17 +1720,65 @@ class Executor:
         return max(int(est), 1)
 
     # ---- kernel build & cache ----
-    def _get_kernel(self, node, batches, plan):
+    @staticmethod
+    def _kernel_key(node, batches, plan) -> tuple:
+        """The kernel cache's key of a Compound's program: its plan's
+        structure, the inputs' padded rows and dtypes, and the plan's
+        capacities, tier, join forms and aux tables."""
         shapes = tuple(
             (b.padded,) + tuple(
                 (i, str(c.dtype)) for i, c in enumerate(b.cols) if c is not None)
             for b in batches)
-        key = (node.plan_key(), shapes, tuple(plan.caps), plan.group_strategy,
-               plan.group_cap, plan.distinct_force_sort,
-               tuple((jp.kind, jp.pack, jp.pack_spans, jp.key_min, jp.key_range,
-                      jp.translate, jp.unique_build, jp.hash_fallback, jp.geo)
-                     for jp in plan.joins),
-               tuple(sorted(plan.aux_specs, key=repr)))
+        return (node.plan_key(), shapes, tuple(plan.caps), plan.group_strategy,
+                plan.group_cap, plan.distinct_force_sort,
+                tuple((jp.kind, jp.pack, jp.pack_spans, jp.key_min, jp.key_range,
+                       jp.translate, jp.unique_build, jp.hash_fallback, jp.geo)
+                      for jp in plan.joins),
+                tuple(sorted(plan.aux_specs, key=repr)))
+
+    def program_text(self, root: R.RelNode) -> Optional[str]:
+        """The root Compound's program as the port runs it (EXPLAIN
+        OPTIMIZED): its group-by tier and capacity, each aggregate's route
+        (B1, B2, B3, B5 + B6, or plain torch), each join level's build form
+        and capacity, and its kernel-cache key; None for a plan with no
+        Compound.  Subqueries run first, as in `execute`, and the Compound's
+        inputs are scanned (columns may upload), but nothing of the
+        Compound itself runs."""
+        compounds = [n for n in R.topo_order(root) if isinstance(n, R.Compound)]
+        if not compounds:
+            return None
+        node = compounds[-1]
+        self._substitute_subqueries(root, set())
+        batches, plan = self._prepare_compound(node, {})
+        self._get_kernel(node, batches, plan)
+        tier = plan.group_strategy[0] if plan.group_strategy else "projection"
+        slots = {"keyless": 1, "perfect": plan.group_cap,
+                 "hash": 4 * plan.group_cap}.get(tier)
+        lines = [f"--- compound program: Compound#{node.id} ---",
+                 f"group-by tier: {tier}, cap {plan.group_cap}"]
+        if tier in ("perfect", "hash") and 1 < slots <= G.SHARED_SCAN_MAX_SLOTS:
+            lines.append(f"presence counts: {AGG.pass_kernel(slots)} (the shared pass "
+                         f"over {slots} slots)")
+        for i, agg in enumerate(node.aggs):
+            lines.append(f"aggregate {i} {agg.kind.name}: {AGG.route(agg, tier, slots)}")
+        for li, (jp, cap) in enumerate(zip(plan.joins, plan.caps)):
+            lines.append(f"join level {li + 1}: {jp.kind} "
+                         f"{_build_form(jp, batches[li + 1].padded)}, cap {cap}")
+        lines.append(f"kernel-cache key: {self._kernel_key(node, batches, plan)!r}")
+        return "\n".join(lines)
+
+    def forget_table(self, table_id: int) -> None:
+        """Drop every kernel and aux table whose key names the table: its
+        Scan, or one of its columns as a dictionary reference (table_id,
+        col_id[, step]).  An aux table is keyed by its dictionary's reference
+        and size, so after a column's type, name or dictionary changes, or
+        the table goes, a stale one could otherwise be served."""
+        for cache in (self.kernel_cache, self.aux_cache):
+            for key in [k for k in cache if _names_table(k, table_id)]:
+                del cache[key]
+
+    def _get_kernel(self, node, batches, plan):
+        key = self._kernel_key(node, batches, plan)
         hit = self.kernel_cache.get(key)
         if hit is None:
             hit = build_compound_kernel(node, batches, plan, self.device)
@@ -2339,6 +2585,33 @@ class _KernelLayout:
 
 
 _NO_PACK = object()
+
+
+def _names_table(key, table_id: int) -> bool:
+    """True when a cache key holds, at any depth, a Scan of table_id or a
+    column reference (table_id, col_id) / (table_id, col_id, step)."""
+    if not isinstance(key, tuple):
+        return False
+    if len(key) >= 2 and key[0] == "Scan" and key[1] == table_id:
+        return True
+    if len(key) in (2, 3) and key[0] == table_id and isinstance(key[1], int) \
+            and not isinstance(key[1], bool):
+        return True
+    return any(_names_table(k, table_id) for k in key)
+
+
+def _narrow_dtype(dt: np.dtype, rng) -> Optional[np.dtype]:
+    """The narrowest of int8 / int16 / int32, narrower than the integer
+    dtype dt, whose values hold the chunk-stat range rng = (lo, hi, ...)
+    above its minimum (kept for NULL); None when none does."""
+    if dt.kind != "i" or rng is None or rng[0] is None or rng[1] is None:
+        return None
+    lo, hi = int(rng[0]), int(rng[1])
+    for cand in (np.int8, np.int16, np.int32):
+        ii = np.iinfo(cand)
+        if np.dtype(cand).itemsize < dt.itemsize and ii.min < lo and hi <= ii.max:
+            return np.dtype(cand)
+    return None
 
 
 def _is_null_value(v, ti: T.TypeInfo) -> bool:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch.errors import NotSupported
+from heavydb_tpu_torch.kernels import groupby_minmax, lane_agg
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.plan import exprs as E
 
@@ -170,6 +171,46 @@ def accumulate_all(lowered, compiler, gid, mask, num_slots: int,
         p["count"] = res[0]
     present = res[0] if want_present else None
     return partials, present
+
+
+def pass_kernel(slots: int) -> str:
+    """The kernel of the shared count / sum pass over `slots` slots."""
+    return "B1" if slots <= lane_agg.MAX_SLOTS else "B2"
+
+
+def route(agg: E.Agg, tier: str, slots: Optional[int]) -> str:
+    """The kernel route of one aggregate on a group-by tier over `slots`
+    slots, as `accumulate_all` and the segment reductions of ops/groupby.py
+    take it (EXPLAIN OPTIMIZED): B1 / B2 for the shared pass, B1 / B3 for
+    MIN / MAX of <= 4-byte values, B5 + B6 on the radix tier, else plain
+    torch."""
+    A = E.AggKind
+    if tier == "radix":
+        return "B5 + B6"
+    if tier == "sort":
+        return "plain torch (sorted segments)"
+    if slots == 1:
+        return "plain torch (a masked reduction)"
+    la = LoweredAgg(agg)
+    if agg.distinct or la.kind in (A.COUNT_DISTINCT, A.APPROX_COUNT_DISTINCT,
+                                   A.APPROX_QUANTILE, A.MODE):
+        return "plain torch (distinct values, sketches)"
+    shared = slots <= G.SHARED_SCAN_MAX_SLOTS
+    count = pass_kernel(slots) if shared and slots > G.SMALL_SLOTS else "plain scatter"
+    if la.kind in (A.MIN, A.MAX, A.SAMPLE, A.SINGLE_VALUE):
+        narrow = agg.arg is not None and (
+            agg.arg.type.is_dict_string or np.dtype(agg.arg.type.np_dtype()).itemsize <= 4)
+        mm = "plain scatter"
+        if narrow and G.SMALL_SLOTS < slots <= lane_agg.MAX_SLOTS:
+            mm = "B1"
+        elif narrow and lane_agg.MAX_SLOTS < slots <= groupby_minmax.MAX_SLOTS:
+            mm = "B3"
+        return f"{mm} + {count} (count)"
+    if not shared:
+        return "plain scatter"
+    if not _fusable(la):
+        return f"{count} (sums and count)"
+    return f"{pass_kernel(slots)} (the shared pass)"
 
 
 class LoweredAgg:

@@ -6,11 +6,13 @@ eviction).  PyTorch's caching allocator owns the memory, so the cache
 manages *references*: evicting an entry drops our handle and the allocator
 reuses the memory once no queued kernel holds it.  In-use buffers are therefore naturally
 "pinned" by their consumers — eviction can never corrupt a running query,
-it only bounds what the cache keeps alive across queries.
+it only bounds what the cache keeps alive across queries.  One lock
+serialises the cache's operations: concurrent queries share it.
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Iterator, Optional, Tuple
 
@@ -30,6 +32,7 @@ class DeviceLRUCache:
     def __init__(self, budget_bytes: int = 0):
         self.budget_bytes = int(budget_bytes)
         self._data: "OrderedDict[tuple, object]" = OrderedDict()
+        self._lock = threading.RLock()
         self._bytes = 0
         self.evictions = 0
         self.hits = 0
@@ -37,21 +40,23 @@ class DeviceLRUCache:
 
     # -- dict-ish API used by the executor --
     def get(self, key, default=None):
-        v = self._data.get(key)
-        if v is None:
-            self.misses += 1
-            return default
-        self._data.move_to_end(key)
-        self.hits += 1
-        return v
+        with self._lock:
+            v = self._data.get(key)
+            if v is None:
+                self.misses += 1
+                return default
+            self._data.move_to_end(key)
+            self.hits += 1
+            return v
 
     def __setitem__(self, key, value):
-        old = self._data.pop(key, None)
-        if old is not None:
-            self._bytes -= _nbytes(old)
-        self._data[key] = value
-        self._bytes += _nbytes(value)
-        self._evict()
+        with self._lock:
+            old = self._data.pop(key, None)
+            if old is not None:
+                self._bytes -= _nbytes(old)
+            self._data[key] = value
+            self._bytes += _nbytes(value)
+            self._evict()
 
     def __contains__(self, key):
         return key in self._data
@@ -60,24 +65,28 @@ class DeviceLRUCache:
         return len(self._data)
 
     def items(self) -> Iterator[Tuple[tuple, object]]:
-        return self._data.items()
+        """A snapshot of the entries."""
+        with self._lock:
+            return list(self._data.items())
 
     def clear(self):
-        self._data.clear()
-        self._bytes = 0
+        with self._lock:
+            self._data.clear()
+            self._bytes = 0
 
     def pop(self, key, default=None):
-        v = self._data.pop(key, default)
-        if v is not default:
-            self._bytes -= _nbytes(v)
-        return v
+        with self._lock:
+            v = self._data.pop(key, default)
+            if v is not default:
+                self._bytes -= _nbytes(v)
+            return v
 
     def evict_table(self, table_id: int):
         """Invalidate all entries whose key starts with this table id
         (UPDATE/DELETE/generation bumps)."""
-        dead = [k for k in self._data if k and k[0] == table_id]
-        for k in dead:
-            self.pop(k)
+        with self._lock:
+            for k in [k for k in self._data if k and k[0] == table_id]:
+                self.pop(k)
 
     @property
     def total_bytes(self) -> int:

@@ -408,11 +408,18 @@ class Table:
             ):
                 self.dicts[col_id] = StringDictionary(dict_id=col_id)
             fill_vals = [default] if default is not None else [None]
+            # a scalar column repeats the default's one physical value; an
+            # array, geo or none-encoded TEXT column keeps an object a row
+            one = None
+            if not (ti.is_array or ti.is_geo or ti.is_none_string):
+                one = to_physical(fill_vals, ti, self.dicts.get(col_id))
             for frag in self.fragments:
-                vals = fill_vals * frag.num_rows
-                frag.chunks[col_id] = to_physical(
-                    vals, ti, self.dicts.get(col_id)
-                )
+                if one is not None:
+                    frag.chunks[col_id] = np.full(frag.num_rows, one[0], one.dtype)
+                else:
+                    frag.chunks[col_id] = to_physical(
+                        fill_vals * frag.num_rows, ti, self.dicts.get(col_id)
+                    )
                 frag.compute_stats(cd)
             self.generation += 1
             return cd

@@ -117,11 +117,13 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     # the profiler stretches the host clock, so the idle share is taken
     # against the median unprofiled wall time; one stream runs one kernel
-    # at a time, so busy time above it means the sum is wrong
+    # at a time, so busy time above the profiled run's own wall means the
+    # sum is wrong (against the unprofiled runs' wall a query ~2 % idle
+    # can pass it by the spread of its kernels' times between runs)
     wall = statistics.median(walls)
-    if busy_ms > wall:
+    if busy_ms > wall_ms:
         raise RuntimeError(f"device busy {busy_ms:.3f} ms exceeds the "
-                           f"{wall:.3f} ms wall clock of the query")
+                           f"{wall_ms:.3f} ms wall clock of the profiled run")
     top = sorted(kernels, key=_device_us, reverse=True)[:6]
     ranges = {name: range_stats(prof, name) for name in RANGES}
     return dict(
