@@ -206,11 +206,44 @@ printing JSON lines:
            Q1K_MINMAX under a row-level policy on x10 beside the
            superuser's, against numpy over the rows kept; statement ms and
            bytes; everything added dropped again
+  persist  a database on disk on CUDA under build/ (free disk checked
+           first, the directory removed at the end): bench's host columns by
+           load_table, a checkpoint (seconds, bytes per column and
+           encoding), the database released and reopened (seconds), the
+           eleven e2e queries on the reopened table (first and warm ms, the
+           first run's uploads, each on its e2e route against numpy), an
+           UPDATE and an INSERT of one row (ms with the checkpoint, chunk
+           bytes rewritten), a set_table_epoch rollback (the old rows
+           against numpy, the rolled-back generation's device bytes freed),
+           DUMP and RESTORE of a 10^7-row table (the dropped table's device
+           bytes freed) and a query on it; then bench made on the device in
+           a second database and its first checkpoint (a device-to-host
+           copy a chunk)
+  copy     10^7 rows of bench's columns (cut from 10^8 for the script's
+           time) COPY'd TO a CSV and to parquet, then FROM the CSV through
+           the native parser and through pandas and FROM the parquet: rows/s
+           each way, Q1K_MINMAX's shape on each table against numpy (first
+           and warm ms, B2 + B3); a COPY of the CSV appended to the 10^8-row
+           bench (host ms)
+  fsi      a delimited and a parquet foreign table over those files: the
+           first query (the lazy read and the upload) and the warm one
+           against numpy; the CSV cut to half its rows and REFRESH FOREIGN
+           TABLES: the new rows against numpy, the old generation's device
+           bytes freed
+  io_shapes  GeoJSON points and polygons, an ESRI ASCII grid, XYZ points, a
+           GeoTIFF and a stream importer of six batches, imported into a
+           CUDA database and into the port on the CPU: the same rows, B1 and
+           B2 launched; then three stream batches into a table past
+           eager_staging_min_rows, the bytes each puts on the wire
+  cast_shapes  faults F3 and F4: every FLOAT / DOUBLE -> integer CAST over
+           the edges and values around each target's range, ROUND /
+           TRUNCATE of a FLOAT at half-way points and near FLT_MAX: the
+           same bits on CUDA as on the CPU
 Then each new phase's seconds, the script's wall time, the kernel summary
 line (its launches are those of the e2e, sort, join, subq, distinct,
 strings, hash, window, window_shapes, udf, udf_shapes, dml, geo,
-geo_shapes, arrays, array_shapes, controls, upload and ddl phases), the
-card line, and the final {"ok": true,
+geo_shapes, arrays, array_shapes, controls, upload, ddl, persist, copy,
+fsi and io_shapes phases), the card line, and the final {"ok": true,
 "device": ...} line.  Any failure exits non-zero.
 """
 
@@ -4510,6 +4543,541 @@ def run_ddl(db, host, counters):
     return lines, total
 
 
+# the storage and import phases: everything they write goes under the
+# repo's git-ignored build/, and is removed at their end
+STORE_ROOT = "build/chip_store"
+STORE_MIN_FREE = 24 << 30  # two 10^8-row stores (~3.2 GB each), the exports, dumps
+COPY_ROWS = 10_000_000  # the copy and fsi phases' table, cut from 10^8 for the script's time
+
+
+def _store_root(name: str) -> str:
+    """A fresh directory under STORE_ROOT, after a check of free disk."""
+    import os
+    import shutil
+
+    path = os.path.abspath(os.path.join(STORE_ROOT, name))
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    free = shutil.disk_usage(path).free
+    if free < STORE_MIN_FREE:
+        raise AssertionError(f"{path}: {free} bytes free on its disk, the storage phases "
+                             f"need {STORE_MIN_FREE}")
+    return path
+
+
+def _files_bytes(d: str) -> dict:
+    import os
+
+    return {f: os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)}
+
+
+def _bench_schema(db, name: str = "bench") -> str:
+    return ", ".join(f"{cd.name} {cd.type}" for cd in db.catalog.get_table(name).columns)
+
+
+def _store_layout(db, name: str) -> dict:
+    """Bytes on disk of a table's committed epoch, per column and
+    encoding, from its manifest (`encode_chunk`'s choice per chunk)."""
+    import os
+
+    t = db.catalog.get_table(name)
+    store = db._table_stores[t.table_id]
+    m = store._load_manifest(store.committed_epoch())
+    by_col = {}
+    for key, ref in m["chunks"].items():
+        f, c = (int(x) for x in key.split(":"))
+        size = os.path.getsize(store._chunk_path(f, c, ref["epoch"]))
+        col = by_col.setdefault(t.column_by_id(c).name, {})
+        col[ref["enc"]] = col.get(ref["enc"], 0) + size
+    return dict(epoch=m["epoch"], chunks=len(m["chunks"]), by_column=by_col,
+                bytes=sum(sum(v.values()) for v in by_col.values()))
+
+
+def _statement_on_disk(db, name: str, sql: str) -> dict:
+    """One statement on a database on disk: its ms (the checkpoint after
+    it included) and the chunk files it wrote."""
+    t = db.catalog.get_table(name)
+    d = db._table_stores[t.table_id].dir
+    before = _files_bytes(d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.sql(sql)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    new = {f: b for f, b in _files_bytes(d).items() if f not in before and f.startswith("f")}
+    return dict(statement=sql, ms=ms, chunk_files_written=len(new),
+                bytes_written=sum(new.values()), epoch=db.get_table_epoch(name))
+
+
+def _resident_of(db, table_id, gen=None) -> int:
+    """Device bytes of a table's scan-cache columns (of one generation)."""
+    return sum(a.numel() * a.element_size() for k, a in db.executor.scan_cache.items()
+               if k[0] == table_id and (gen is None or k[1] == gen))
+
+
+def _e2e_cells(db, host, counters, names, table="bench") -> list:
+    """QUERIES (on `table`) against numpy over `host`: first and warm ms,
+    bytes uploaded by the first run, each on its e2e route."""
+    out = []
+    for name in names:
+        q = QUERIES[name].replace("FROM bench", f"FROM {table}")
+        before = [c.launches for c in counters]
+        h2d0 = db.executor.h2d_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = db.sql(q)
+        decode(rs)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        h2d = db.executor.h2d_bytes - h2d0
+        nrows = check_result(name, rs, host)
+        warm = warm_ms(db, q)[0]
+        delta = [c.launches - b for c, b in zip(counters, before)]
+        check_route(name, delta)
+        out.append(dict(query=name, table=table, rows_out=nrows, first_ms=first_ms,
+                        first_h2d_bytes=h2d, warm_ms=warm,
+                        launches=dict(zip(KERNEL_NAMES, delta))))
+    return out
+
+
+def run_persist(db, host, counters):
+    """A database on disk on CUDA (under build/): bench's host columns by
+    load_table at 10^8 rows, a checkpoint (seconds, bytes per column and
+    encoding), the database released and reopened (seconds), the eleven
+    e2e queries on the reopened table (first run uploads, each on its e2e
+    route, against numpy), an UPDATE and an INSERT of one row (ms with the
+    checkpoint, the chunk bytes rewritten), a set_table_epoch rollback
+    (rows against numpy of the old values, the rolled-back generation's
+    device bytes freed), DUMP and RESTORE of a 10^7-row table and a query on
+    it; then bench made on the device (load_table_device) in a second
+    database on disk and its first checkpoint, each chunk's host copy
+    through one device-to-host copy.  Launches counted from 0."""
+    import gc
+    import os
+    import shutil
+
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.tools.synthetic import FRAGMENT_ROWS
+
+    for c in counters:
+        c.launches = 0  # the persist path starts here
+    root = _store_root("persist")
+    lines = []
+    n = int(host["x10"].shape[0])
+    schema = _bench_schema(db)
+    try:
+        path = os.path.join(root, "db")
+        pdb = hdt.connect(path)
+        pdb.sql(f"CREATE TABLE bench ({schema}) WITH (fragment_size={FRAGMENT_ROWS})")
+        t0 = time.perf_counter()
+        pdb.load_table("bench", {c: host[c] for c in BENCH_COLUMNS})
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pdb.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        layout = _store_layout(pdb, "bench")
+        lines.append(dict(part="checkpoint", rows=n, load_table_s=load_s, checkpoint_s=ckpt_s,
+                          disk_gb_per_s=layout["bytes"] / ckpt_s / 1e9, **layout))
+        epoch0 = pdb.get_table_epoch("bench")
+        del pdb
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pdb = hdt.connect(path)
+        reopen_s = time.perf_counter() - t0
+        if pdb.table_rows("bench") != n or pdb.get_table_epoch("bench") != epoch0:
+            raise AssertionError("persist: the reopened bench differs in rows or epoch")
+        lines.append(dict(part="reopen", reopen_s=reopen_s, rows=n, epoch=epoch0,
+                          device_bytes_after_reopen=torch.cuda.memory_allocated() - base))
+        for line in _e2e_cells(pdb, host, counters, QUERIES):
+            lines.append(dict(part="reopened_e2e", **line))
+        t = pdb.catalog.get_table("bench")
+        r = n // 8  # a row of the first fragment
+        old = int(host["x100"][r])
+        lines.append(dict(part="update_one_row", **_statement_on_disk(
+            pdb, "bench", f"UPDATE bench SET x100 = 0 WHERE rowid = {r}")))
+        cols = list(INSERTED_ROW)
+        lines.append(dict(part="insert_one_row", **_statement_on_disk(
+            pdb, "bench", f"INSERT INTO bench ({', '.join(cols)}) VALUES "
+                          f"({', '.join(repr(INSERTED_ROW[c]) for c in cols)})")))
+        s100 = int(host["x100"].sum(dtype=np.int64))
+        # x100, x1k and x10k of the new generation resident before the rollback
+        got = pdb.sql("SELECT COUNT(*), SUM(x100), MIN(x1k), MAX(x10k) FROM bench").rows()
+        if got != [(n + 1, s100 - old + INSERTED_ROW["x100"], 1, int(host["x10k"].max()))]:
+            raise AssertionError(f"persist: after UPDATE and INSERT {got}")
+        old_gen = t.generation
+        resident = _resident_of(pdb, t.table_id, old_gen)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        pdb.set_table_epoch("bench", epoch0)
+        torch.cuda.synchronize()
+        rollback_ms = (time.perf_counter() - t0) * 1e3
+        mem1 = torch.cuda.memory_allocated()
+        if _resident_of(pdb, t.table_id) or mem0 - mem1 < resident:
+            raise AssertionError(f"persist: after the rollback {mem0 - mem1} device bytes freed, "
+                                 f"{resident} were resident")
+        line = dict(part="rollback", ms=rollback_ms, to_epoch=epoch0, resident_bytes=resident,
+                    device_bytes_freed=mem0 - mem1)
+        cells = _e2e_cells(pdb, host, counters, ("Q1K_MINMAX", "Q100_MINMAX"))
+        if pdb.sql("SELECT COUNT(*), SUM(x100) FROM bench").rows() != [(n, s100)]:
+            raise AssertionError("persist: the rollback did not give the old rows")
+        lines.append(dict(line, queries=cells))
+        # DUMP / RESTORE of a 10^7-row table, RESTORE over it
+        sub = {c: host[c][:COPY_ROWS] for c in BENCH_COLUMNS}
+        pdb.sql(f"CREATE TABLE b7 ({schema})")
+        pdb.load_table("b7", sub)
+        pdb.checkpoint()
+        dump = os.path.join(root, "b7.tgz")
+        t0 = time.perf_counter()
+        pdb.sql(f"DUMP TABLE b7 TO '{dump}'")
+        dump_s = time.perf_counter() - t0
+        _e2e_cells(pdb, sub, counters, ("Q1K_MINMAX",), table="b7")
+        old_id = pdb.catalog.get_table("b7").table_id
+        mem0 = torch.cuda.memory_allocated()
+        resident = _resident_of(pdb, old_id)
+        t0 = time.perf_counter()
+        pdb.sql(f"RESTORE TABLE b7 FROM '{dump}'")
+        restore_s = time.perf_counter() - t0
+        mem1 = torch.cuda.memory_allocated()
+        if _resident_of(pdb, old_id) or mem0 - mem1 < resident:
+            raise AssertionError("persist: RESTORE left device columns of the dropped table")
+        lines.append(dict(part="dump_restore", rows=COPY_ROWS, dump_s=dump_s,
+                          dump_bytes=os.path.getsize(dump), restore_s=restore_s,
+                          device_bytes_freed=mem0 - mem1, resident_bytes=resident,
+                          queries=_e2e_cells(pdb, sub, counters, ("Q1K_MINMAX",), table="b7")))
+        del pdb, sub
+        gc.collect()
+        torch.cuda.empty_cache()
+        # bench made on the device: its first checkpoint copies each chunk
+        # to the host once
+        ddb = hdt.connect(os.path.join(root, "ddb"))
+        data = load_bench(ddb, ROWS, SEED + 1)
+        dev_bytes = sum(a.numel() * a.element_size() for a in data.values())
+        del data
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ddb.checkpoint()
+        ckpt_s = time.perf_counter() - t0
+        t = ddb.catalog.get_table("bench")
+        if not all(getattr(ch, "_np", 0) is not None for f in t.fragments
+                   for ch in f.chunks.values()):
+            raise AssertionError("persist: a device chunk was not copied to the host")
+        lines.append(dict(part="checkpoint_device_loaded", rows=ROWS, checkpoint_s=ckpt_s,
+                          d2h_bytes=dev_bytes, **_store_layout(ddb, "bench")))
+        del ddb, t
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if min(launched[k] for k in set().union(*(ROUTES[q] for q in QUERIES))) < 1:
+        raise AssertionError(f"a kernel of the e2e routes never launched in persist: {launched}")
+    return lines, total
+
+
+def run_copy(db, host, counters):
+    """COPY on the CUDA database of the earlier phases, launches counted from
+    0: 10^7 rows of bench's columns (cut from 10^8 for the script's time)
+    loaded as b7, COPY TO a CSV and to parquet, COPY FROM the CSV through
+    the native parser and through pandas (no_native) and from the parquet,
+    each table's rows/s and Q1K_MINMAX's shape on it against numpy (first
+    and warm ms, B2 + B3); then a COPY of the CSV into the 10^8-row bench
+    (its host ms: the last fragment's chunks concatenated, a new one made).
+    Returns the lines, the launches, and the files for the fsi phase."""
+    import os
+
+    for c in counters:
+        c.launches = 0  # the copy path starts here
+    root = _store_root("copy")
+    schema = _bench_schema(db)
+    cols = ", ".join(BENCH_COLUMNS)
+    sub = {c: host[c][:COPY_ROWS] for c in BENCH_COLUMNS}
+    db.sql(f"CREATE TABLE b7 ({schema})")
+    db.load_table("b7", sub)
+    lines = []
+    files = {"csv": os.path.join(root, "b7.csv"), "parquet": os.path.join(root, "b7.parquet")}
+    for kind, f in files.items():
+        t0 = time.perf_counter()
+        db.sql(f"COPY (SELECT {cols} FROM b7) TO '{f}'")
+        s = time.perf_counter() - t0
+        lines.append(dict(part=f"copy_to_{kind}", rows=COPY_ROWS, seconds=s,
+                          rows_per_s=COPY_ROWS / s, file_bytes=os.path.getsize(f)))
+    db.sql("DROP TABLE b7")
+    for name, f, opts in (("native", files["csv"], ""),
+                          ("pandas", files["csv"], " WITH (no_native='true')"),
+                          ("parquet", files["parquet"], "")):
+        db.sql(f"CREATE TABLE c_{name} ({schema})")
+        t0 = time.perf_counter()
+        db.sql(f"COPY c_{name} FROM '{f}'{opts}")
+        s = time.perf_counter() - t0
+        if db.table_rows(f"c_{name}") != COPY_ROWS:
+            raise AssertionError(f"copy: c_{name} holds {db.table_rows(f'c_{name}')} rows")
+        (cell,) = _e2e_cells(db, sub, counters, ("Q1K_MINMAX",), table=f"c_{name}")
+        lines.append(dict(part=f"copy_from_{name}", rows=COPY_ROWS, seconds=s,
+                          rows_per_s=COPY_ROWS / s, query=cell))
+        db.sql(f"DROP TABLE c_{name}")
+    n = db.table_rows("bench")
+    frags = len(db.catalog.get_table("bench").fragments)
+    t0 = time.perf_counter()
+    db.sql(f"COPY bench FROM '{files['csv']}'")
+    append_ms = (time.perf_counter() - t0) * 1e3
+    got = db.sql("SELECT COUNT(*), SUM(x100) FROM bench").rows()
+    want = [(n + COPY_ROWS, int(host["x100"].sum(dtype=np.int64))
+             + int(sub["x100"].sum(dtype=np.int64)))]
+    if got != want:
+        raise AssertionError(f"copy: bench after the append {got}, numpy {want}")
+    lines.append(dict(part="copy_append_to_bench", rows_before=n, rows_appended=COPY_ROWS,
+                      host_ms=append_ms, fragments_before=frags,
+                      fragments_after=len(db.catalog.get_table("bench").fragments)))
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if launched["radix_hist"] < 1 or launched["groupby_minmax"] < 1:
+        raise AssertionError(f"B2 / B3 did not launch in the copy phase: {launched}")
+    return lines, total, dict(files, root=root, sub=sub)
+
+
+def _cut_csv(path: str, rows: int) -> None:
+    """Keep a CSV's header and its first `rows` rows."""
+    with open(path, "rb") as f:
+        data = f.read()
+    nl = np.flatnonzero(np.frombuffer(data, np.uint8) == ord("\n"))
+    with open(path, "wb") as f:
+        f.write(data[:int(nl[rows]) + 1])
+
+
+def run_fsi(db, counters, files):
+    """Foreign tables on the CUDA database over the copy phase's CSV and
+    parquet files, launches counted from 0: each one's first query (the
+    lazy read, the upload) and warm query, Q1K_MINMAX's shape against numpy;
+    then the CSV cut to half its rows and REFRESH FOREIGN TABLES: the new
+    rows against numpy, and no device column of the old generation left
+    (its bytes freed).  The copy phase's files are removed at the end."""
+    import shutil
+
+    for c in counters:
+        c.launches = 0  # the fsi path starts here
+    sub = files["sub"]
+    schema = _bench_schema(db)
+    lines = []
+    try:
+        for name, server, f in (("fcsv", "default_local_delimited", files["csv"]),
+                                ("fpq", "default_local_parquet", files["parquet"])):
+            t0 = time.perf_counter()
+            db.sql(f"CREATE FOREIGN TABLE {name} ({schema}) SERVER {server} "
+                   f"WITH (file_path='{f}')")
+            create_ms = (time.perf_counter() - t0) * 1e3
+            (cell,) = _e2e_cells(db, sub, counters, ("Q1K_MINMAX",), table=name)
+            lines.append(dict(part=f"foreign_{name}", rows=COPY_ROWS, create_ms=create_ms,
+                              query=cell))
+        half = COPY_ROWS // 2
+        t0 = time.perf_counter()
+        _cut_csv(files["csv"], half)
+        cut_s = time.perf_counter() - t0
+        t = db.catalog.get_table("fcsv")
+        old_gen = t.generation
+        resident = _resident_of(db, t.table_id, old_gen)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        db.sql("REFRESH FOREIGN TABLES fcsv")
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        mem1 = torch.cuda.memory_allocated()
+        if _resident_of(db, t.table_id, old_gen) or mem0 - mem1 < resident:
+            raise AssertionError(f"fsi: after REFRESH {mem0 - mem1} device bytes freed, "
+                                 f"{resident} were resident")
+        (cell,) = _e2e_cells(db, {c: a[:half] for c, a in sub.items()}, counters,
+                             ("Q1K_MINMAX",), table="fcsv")
+        lines.append(dict(part="refresh_fcsv", rows=half, file_cut_s=cut_s,
+                          refresh_ms=refresh_ms, resident_bytes=resident,
+                          device_bytes_freed=mem0 - mem1, query=cell))
+        db.sql("DROP TABLE fcsv")
+        db.sql("DROP TABLE fpq")
+    finally:
+        shutil.rmtree(files["root"], ignore_errors=True)
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if launched["radix_hist"] < 1 or launched["groupby_minmax"] < 1:
+        raise AssertionError(f"B2 / B3 did not launch in the fsi phase: {launched}")
+    return lines, total
+
+
+def _io_shape_files(root: str, rng) -> dict:
+    """The io_shapes phase's files: GeoJSON points and polygons, an ESRI
+    ASCII grid, XYZ points and a GeoTIFF."""
+    import os
+
+    from PIL import Image, TiffImagePlugin
+
+    n = 20_000
+    xs, ys = rng.uniform(-74.05, -73.75, n), rng.uniform(40.6, 40.9, n)
+    feats = [{"type": "Feature", "geometry": {"type": "Point", "coordinates": [x, y]},
+              "properties": {"k": int(k), "v": float(v)}}
+             for x, y, k, v in zip(xs.tolist(), ys.tolist(), rng.integers(0, 100, n).tolist(),
+                                   rng.random(n).tolist())]
+    polys = []
+    for i in range(300):
+        x0, y0, w = float(rng.uniform(0, 100)), float(rng.uniform(0, 100)), float(rng.uniform(1, 5))
+        ring = [[x0, y0], [x0 + w, y0], [x0 + w, y0 + w], [x0, y0 + w], [x0, y0]]
+        polys.append({"type": "Feature", "geometry": {"type": "Polygon", "coordinates": [ring]},
+                      "properties": {"tag": f"z{i % 37}"}})
+    files = {"points": os.path.join(root, "pts.geojson"),
+             "polygons": os.path.join(root, "polys.geojson"),
+             "asc": os.path.join(root, "grid.asc"), "xyz": os.path.join(root, "pts.xyz"),
+             "tif": os.path.join(root, "grid.tif")}
+    for key, fs in (("points", feats), ("polygons", polys)):
+        with open(files[key], "w") as f:
+            json.dump({"type": "FeatureCollection", "features": fs}, f)
+    grid = rng.integers(0, 1000, (150, 200)).astype(np.float64)
+    grid[rng.random(grid.shape) < 0.02] = -9999
+    with open(files["asc"], "w") as f:
+        f.write("ncols 200\nnrows 150\nxllcorner -74.0\nyllcorner 40.5\ncellsize 0.001\n"
+                "NODATA_value -9999\n")
+        for row in grid.astype(np.int64):
+            f.write(" ".join(map(str, row.tolist())) + "\n")
+    with open(files["xyz"], "w") as f:
+        for x, y, z in zip(rng.uniform(0, 10, 5000), rng.uniform(0, 10, 5000),
+                           rng.integers(0, 500, 5000)):
+            f.write(f"{x:.4f} {y:.4f} {z}\n")
+    im = Image.fromarray(rng.integers(0, 1000, (80, 100)).astype(np.int32))
+    ifd = TiffImagePlugin.ImageFileDirectory_v2()
+    ifd[33550], ifd.tagtype[33550] = (0.01, 0.01, 0.0), 12
+    ifd[33922], ifd.tagtype[33922] = (0.0, 0.0, 0.0, 5.0, 50.0, 0.0), 12
+    im.save(files["tif"], tiffinfo=ifd)
+    return files
+
+
+IO_SHAPE_QUERIES = [
+    ("gpts", "SELECT k, COUNT(*), SUM(v), MIN(ST_X(geom)), MAX(ST_Y(geom)) FROM gpts GROUP BY k"),
+    ("gpts", "SELECT COUNT(*) FROM gpts WHERE ST_DISTANCE(geom, 'POINT (-73.9 40.75)') < 0.05"),
+    ("gpolys", "SELECT tag, COUNT(*), SUM(ST_AREA(geom)) FROM gpolys GROUP BY tag"),
+    ("rast", "SELECT COUNT(*), COUNT(band_1_1), SUM(band_1_1), MIN(raster_lon), "
+             "MAX(raster_lat) FROM rast"),
+    ("rast", "SELECT CAST(band_1_1 AS INT) / 10 AS b, COUNT(*) FROM rast "
+             "WHERE band_1_1 IS NOT NULL GROUP BY b"),
+    ("xyz", "SELECT CAST(raster_lon AS INT), COUNT(*), SUM(band_1_1) FROM xyz GROUP BY 1"),
+    ("tif", "SELECT band_1_I, COUNT(*), MIN(raster_lon) FROM tif GROUP BY band_1_I"),
+    ("sti", "SELECT a % 50, COUNT(*), SUM(v), MAX(s) FROM sti GROUP BY 1"),
+]
+
+
+def run_io_shapes(counters):
+    """GeoJSON points and polygons, an ESRI ASCII grid, XYZ points and a
+    GeoTIFF, each COPY'd into a CUDA database and into the same port on the
+    CPU, and a stream importer of several batches into both: the same rows
+    on CUDA as on the CPU over IO_SHAPE_QUERIES, with B1 and B2 launched by
+    their GROUP BYs.  Launches counted from 0."""
+    import shutil
+
+    for c in counters:
+        c.launches = 0  # the io_shapes path starts here
+    root = _store_root("io")
+    rng = np.random.default_rng(SEED + 16)
+    lines = {}
+    try:
+        files = _io_shape_files(root, rng)
+        stream_rows = [(int(a), float(v), f"s{int(a) % 7}") for a, v in
+                       zip(rng.integers(0, 10_000, 30_000), rng.random(30_000))]
+        dbs = _twin_dbs()
+        for db in dbs:
+            t0 = time.perf_counter()
+            db.sql(f"COPY gpts FROM '{files['points']}'")
+            db.sql(f"COPY gpolys FROM '{files['polygons']}' WITH (source_type='geo_file')")
+            db.sql(f"COPY rast FROM '{files['asc']}' WITH (source_type='raster_file')")
+            db.sql(f"COPY xyz FROM '{files['xyz']}' WITH (source_type='raster_file')")
+            db.sql(f"COPY tif FROM '{files['tif']}' WITH (source_type='raster_file')")
+            db.sql("CREATE TABLE sti (a INT, v DOUBLE, s TEXT)")
+            imp = db.stream_importer("sti", batch_size=5000)
+            h2d0 = db.executor.h2d_bytes
+            imp.push_rows(stream_rows)
+            st = imp.close()
+            lines[db.device.type] = dict(import_s=time.perf_counter() - t0,
+                                         stream_batches=st.batches,
+                                         stream_rows=st.rows_loaded,
+                                         stream_h2d_bytes=db.executor.h2d_bytes - h2d0)
+        launched = {}
+        for table, q in IO_SHAPE_QUERIES:
+            before = [c.launches for c in counters]
+            got, want = (d.sql(q).rows() for d in dbs)
+            _same_on_both(q, got, want, False)
+            for k, d in zip(KERNEL_NAMES, [c.launches - b for c, b in zip(counters, before)]):
+                launched[k] = launched.get(k, 0) + d
+        if launched["lane_agg"] < 1 or launched["radix_hist"] < 1:
+            raise AssertionError(f"io_shapes: B1 / B2 did not launch: {launched}")
+        rows = {t: dbs[0].table_rows(t) for t in ("gpts", "gpolys", "rast", "xyz", "tif", "sti")}
+        # batches into a table past eager_staging_min_rows: each batch goes
+        # through load_table, which uploads the whole table again
+        big = dbs[0]
+        base = big.config.eager_staging_min_rows
+        big.sql("CREATE TABLE stb (a INT, v DOUBLE)")
+        big.load_table("stb", {"a": rng.integers(0, 1000, base).astype(np.int32),
+                               "v": rng.random(base)})
+        imp = big.stream_importer("stb", batch_size=10_000)
+        batches = []
+        for _ in range(3):
+            h2d0 = big.executor.h2d_bytes
+            t0 = time.perf_counter()
+            imp.push_rows([r[:2] for r in stream_rows[:10_000]])
+            torch.cuda.synchronize()
+            batches.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                                h2d_bytes=big.executor.h2d_bytes - h2d0,
+                                table_rows=big.table_rows("stb")))
+        imp.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(queries=len(IO_SHAPE_QUERIES), table_rows=rows, launches=launched,
+                stream_batches_past_staging=batches, **lines), [c.launches for c in counters]
+
+
+CAST_TARGETS = ("TINYINT", "SMALLINT", "INT", "BIGINT")
+
+
+def _bits(rows):
+    """Rows with each float as its exact hex (-0.0, NaN and every bit
+    compared)."""
+    return [tuple(v.hex() if isinstance(v, float) else v for v in r) for r in rows]
+
+
+def run_cast_shapes(n: int = 200_000):
+    """Faults F3 and F4 on CUDA against the CPU, bit for bit: every
+    FLOAT / DOUBLE -> integer CAST over the edges (+-1e300, +-3e9, +-inf,
+    NaN, 3e38, the targets' ends) and values around each target's range,
+    and ROUND / TRUNCATE of a FLOAT at half-way points and near FLT_MAX,
+    with 3, 1, 0 and -2 digits."""
+    rng = np.random.default_rng(SEED + 34)
+    edges = np.array([1e300, -1e300, 3e9, -3e9, np.inf, -np.inf, np.nan, 3e38, -3e38,
+                      2.0**63, -2.0**63, 2.0**31, -2.0**31 - 1, 127.9, -128.5, 32767.5,
+                      -32768.9, 0.0, -0.0, 1.5, -2.5])
+    d = np.concatenate([edges, rng.uniform(-2.5, 2.5, n) * 10.0 ** rng.integers(0, 20, n)])
+    f = np.concatenate([np.array([47.3185, 3e38, -3e38, 3.4e38, 1e-40, -0.0005], np.float32),
+                        (rng.integers(0, 100_000, d.shape[0] - 6) / 1000 + 0.0005)
+                        .astype(np.float32)])
+    with np.errstate(over="ignore"):
+        df = d.astype(np.float32)
+    dbs = _twin_dbs()
+    for db in dbs:
+        db.sql("CREATE TABLE c (id INT, d DOUBLE, df FLOAT, f FLOAT)")
+        db.load_table("c", {"id": np.arange(d.shape[0], dtype=np.int32), "d": d, "df": df,
+                            "f": f})
+    queries = [f"SELECT id, CAST(d AS {t}), CAST(df AS {t}) FROM c ORDER BY id"
+               for t in CAST_TARGETS]
+    queries += [f"SELECT id, ROUND(f, {k}), TRUNCATE(f, {k}) FROM c ORDER BY id"
+                for k in (3, 1, 0, -2)]
+    for q in queries:
+        got, want = (_bits(db.sql(q).rows()) for db in dbs)
+        if got != want:
+            bad = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"{q}: row {bad} {got[bad]} on CUDA, {want[bad]} on the CPU")
+    named = dbs[0].sql("SELECT CAST(d AS INT), CAST(d AS SMALLINT), CAST(df AS INT) FROM c "
+                       "WHERE id IN (0, 2, 7) ORDER BY id").rows()
+    rounded = dbs[0].sql("SELECT ROUND(f, 3), ROUND(f, 1) FROM c WHERE id < 2 ORDER BY id").rows()
+    if named[0][:2] != (2147483647, 32767) or rounded[0][0] != float(np.float32(47.319)) \
+            or rounded[1][1] != float(np.float32(3e38)):
+        raise AssertionError(f"cast_shapes: {named}, {rounded}")
+    return dict(rows=int(d.shape[0]), queries=len(queries), named=named, rounded=rounded)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -4650,13 +5218,37 @@ def main() -> None:
     for line in ddl_lines:
         emit({"phase": "ddl", **line})
     phase_s["ddl"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    persist_lines, persist_total = run_persist(db, host, counters)
+    for line in persist_lines:
+        emit({"phase": "persist", **line})
+    phase_s["persist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    copy_lines, copy_total, copied = run_copy(db, host, counters)
+    for line in copy_lines:
+        emit({"phase": "copy", **line})
+    phase_s["copy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fsi_lines, fsi_total = run_fsi(db, counters, copied)
+    for line in fsi_lines:
+        emit({"phase": "fsi", **line})
+    del copied
+    phase_s["fsi"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    line, io_total = run_io_shapes(counters)
+    emit({"phase": "io_shapes", **line})
+    phase_s["io_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    emit({"phase": "cast_shapes", **run_cast_shapes()})
+    phase_s["cast_shapes"] = time.perf_counter() - t0
     emit({"phase": "phase_seconds", **phase_s})
     # the kernels line counts the launches of the main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
                                   distinct_total, string_total, hash_total, win_total,
                                   win_shape_total, udf_total, udf_shape_total, dml_total,
                                   geo_total, geo_shape_total, arr_total, arr_shape_total,
-                                  ctl_total, up_total, ddl_total)]
+                                  ctl_total, up_total, ddl_total, persist_total, copy_total,
+                                  fsi_total, io_total)]
     if dict(zip(KERNEL_NAMES, geo_total))["radix_hist"] < 1:
         raise AssertionError("B2 did not launch in the geo phase (GEO_ZONE_JOIN)")
     del host

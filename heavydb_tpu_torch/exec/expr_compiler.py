@@ -519,10 +519,13 @@ class ExprCompiler:
         if name in ("ROUND", "TRUNCATE"):
             ti = e.args[0].type
             if ti.is_fp:
+                # scale, round and divide in float64, as the reference's
+                # promotion does, then back to the result's type
                 nd = vals[1].to(f64) if len(vals) > 1 else self._t(0.0, f64)
                 m = torch.pow(self._t(10.0, f64), nd)
-                x = vals[0] * m
-                return (torch.round(x) if name == "ROUND" else torch.trunc(x)) / m, valid
+                x = vals[0].to(f64) * m
+                x = (torch.round(x) if name == "ROUND" else torch.trunc(x)) / m
+                return x.to(torch_dtype(e.type.np_dtype())), valid
             if ti.is_decimal:
                 # zero out digits below 10^(scale-nd), half-up for ROUND
                 ndig = e.args[1].value if len(e.args) > 1 and isinstance(
@@ -587,10 +590,26 @@ def cast_value(val: torch.Tensor, src: T.TypeInfo, dst: T.TypeInfo):
         return val.to(i64) * (10**dst.scale)
     if src.is_time or dst.is_time:
         return _cast_time(val, src, dst)
-    if src.is_fp and (dst.is_integer or dst.is_boolean):
-        # trunc toward zero (LLVM fptosi semantics, matches sqlite CAST)
+    if src.is_fp and dst.is_integer:
+        # trunc toward zero (LLVM fptosi semantics, matches sqlite CAST),
+        # saturating at the target's range as XLA's convert does; NaN is 0
+        return _saturating_trunc(val, out_dt)
+    if src.is_fp and dst.is_boolean:
         return torch.trunc(val).to(out_dt)
     return val.to(out_dt)
+
+
+def _saturating_trunc(val, out_dt):
+    """trunc(val) converted to the integer dtype out_dt with every value
+    past its range clamped to the range's end and NaN taken as 0: the same
+    bits on the CPU and on CUDA, whose conversions differ out of range."""
+    info = torch.iinfo(out_dt)
+    t = torch.trunc(val.to(torch.float64))
+    hi = t >= float(info.max)  # float(int64 max) is 2^63, itself out of range
+    lo = t <= float(info.min)
+    out = torch.where(hi | lo | torch.isnan(t), 0.0, t).to(out_dt)
+    out = torch.where(hi, torch.tensor(info.max, dtype=out_dt, device=out.device), out)
+    return torch.where(lo, torch.tensor(info.min, dtype=out_dt, device=out.device), out)
 
 
 def _cast_time(val, src: T.TypeInfo, dst: T.TypeInfo):

@@ -1,7 +1,8 @@
-"""Native (C++) string dictionary extension.
+"""Native (C++) host extensions: the string dictionary and the CSV parser.
 
-The extension builds with g++ on first use; if the toolchain is
-unavailable the callers fall back to pure-Python implementations.
+Each builds with g++ from its source beside this file on first use; if the
+toolchain is unavailable the callers fall back to pure-Python (or pandas)
+implementations.
 """
 
 from __future__ import annotations
@@ -12,43 +13,53 @@ import threading
 
 _HERE = os.path.dirname(__file__)
 _LOCK = threading.Lock()
-_EXT = None
-_EXT_TRIED = False
+_EXTS: dict = {}
 
 
-def load_strdict_ext():
-    """CPython extension module (preferred) or None."""
-    global _EXT, _EXT_TRIED
+def _load_ext(stem: str, flags=()):
+    """The CPython extension built from `<stem>.cpp`, or None.  Built once
+    a process, under a lock, into a content-addressed `_<stem>_<sha>.so`
+    (git-ignored), so a stale or foreign build is never picked up."""
     with _LOCK:
-        if _EXT_TRIED:
-            return _EXT
-        _EXT_TRIED = True
+        if stem in _EXTS:
+            return _EXTS[stem]
+        _EXTS[stem] = None
         import hashlib
+        import importlib.util
         import sysconfig
 
-        src = os.path.join(_HERE, "strdict_ext.cpp")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
-        # content-addressed build output: a stale or foreign .so can never
-        # be picked up (mtime comparisons fail on fresh clones)
-        out = os.path.join(_HERE, f"_strdict_ext_{digest}.so")
+        src = os.path.join(_HERE, f"{stem}.cpp")
+        try:
+            with open(src, "rb") as f:
+                digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        except OSError:
+            return None
+        out = os.path.join(_HERE, f"_{stem}_{digest}.so")
         if not os.path.exists(out):
             inc = sysconfig.get_path("include")
             try:
                 subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", *flags,
                      f"-I{inc}", src, "-o", out],
                     check=True, capture_output=True, timeout=180,
                 )
             except Exception:
                 return None
         try:
-            import importlib.util
-
-            spec = importlib.util.spec_from_file_location("_strdict_ext", out)
+            spec = importlib.util.spec_from_file_location(f"_{stem}", out)
             mod = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mod)
-            _EXT = mod
+            _EXTS[stem] = mod
         except Exception:
-            _EXT = None
-        return _EXT
+            pass
+        return _EXTS[stem]
+
+
+def load_strdict_ext():
+    """The native string dictionary (strdict_ext.cpp) or None."""
+    return _load_ext("strdict_ext")
+
+
+def load_csv_ext():
+    """The native CSV parser (csv_ext.cpp, multi-threaded) or None."""
+    return _load_ext("csv_ext", ("-pthread",))

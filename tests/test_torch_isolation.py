@@ -20,6 +20,10 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import sys, heavydb_tpu_torch, heavydb_tpu_torch.kernels.gate\n"
         "import heavydb_tpu_torch.exec.radix_tier, heavydb_tpu_torch.kernels.tile_sort\n"
         "import heavydb_tpu_torch.kernels.radix_groupby\n"
+        "import heavydb_tpu_torch.storage.persist, heavydb_tpu_torch.storage.refresh\n"
+        "import heavydb_tpu_torch.io.csv_import, heavydb_tpu_torch.io.csv_export\n"
+        "import heavydb_tpu_torch.io.geo_import, heavydb_tpu_torch.io.raster_import\n"
+        "import heavydb_tpu_torch.io.stream, heavydb_tpu_torch.io.remote\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heavydb_tpu' or m.startswith('heavydb_tpu.')]\n"
         "print(','.join(bad))\n"
