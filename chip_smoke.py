@@ -215,11 +215,29 @@ printing JSON lines:
            UPDATE and an INSERT of one row (ms with the checkpoint, chunk
            bytes rewritten), a set_table_epoch rollback (the old rows
            against numpy, the rolled-back generation's device bytes freed),
-           DUMP and RESTORE of a 10^7-row table (the dropped table's device
-           bytes freed) and a query on it; then bench made on the device in
-           a second database and its first checkpoint (a device-to-host
-           copy a chunk)
-  copy     10^7 rows of bench's columns (cut from 10^8 for the script's
+           DUMP and RESTORE of a 5 x 10^6-row table (the dropped table's device
+           bytes freed) and a query on it; then bench made on the device at
+           5 x 10^6 rows (cut from 10^8 for the script's time) in a second
+           database and its first checkpoint (a device-to-host copy a
+           chunk); the first directory stays for the server phase
+  server   the port's server on CUDA over that directory (serve, in
+           process; start-up seconds): NGA03, PHM001, Q100_MINMAX, PHS002,
+           Q1K_MINMAX, Q10K, PHS003, BH002 and BH003 through
+           Connection.sql against numpy on their e2e routes (first and
+           warm ms beside the same query's warm ms in process, bytes of
+           JSON); BH004 and Q10M_AGGS wrapped in SELECT COUNT(*), SUM(...)
+           FROM (...) t, their inner Compound on the radix tier (B5 + B6);
+           sql_execute_df of Q1K_MINMAX against sql; four sessions of four
+           queries at once over TCP and as four threads in process; a
+           columnar load of 10^6 rows (seconds, bytes on the wire); an
+           INSERT into a small table that returns while another session
+           reads bench; PHS002 over HTTP; the device bytes back after the
+           shutdown.  Then a second server on the directory with a 1 MB
+           stream threshold: a session's wrapped Q10M_AGGS interrupted in
+           its waves while another session runs Q1K_MINMAX (the victim
+           raises, the survivor's rows equal numpy, no device bytes left);
+           the directory is removed
+  copy     5 x 10^6 rows of bench's columns (cut from 10^8 for the script's
            time) COPY'd TO a CSV and to parquet, then FROM the CSV through
            the native parser and through pandas and FROM the parquet: rows/s
            each way, Q1K_MINMAX's shape on each table against numpy (first
@@ -239,17 +257,19 @@ printing JSON lines:
            the edges and values around each target's range, ROUND /
            TRUNCATE of a FLOAT at half-way points and near FLT_MAX: the
            same bits on CUDA as on the CPU
-Then each new phase's seconds, the script's wall time, the kernel summary
-line (its launches are those of the e2e, sort, join, subq, distinct,
-strings, hash, window, window_shapes, udf, udf_shapes, dml, geo,
-geo_shapes, arrays, array_shapes, controls, upload, ddl, persist, copy,
-fsi and io_shapes phases), the card line, and the final {"ok": true,
-"device": ...} line.  Any failure exits non-zero.
+Then each new phase's seconds, the script's wall time, the env line
+again, the kernel summary line (its launches are those of the e2e, sort,
+join, subq, distinct, strings, hash, window, window_shapes, udf,
+udf_shapes, dml, geo, geo_shapes, arrays, array_shapes, controls, upload,
+ddl, persist, server, copy, fsi and io_shapes phases), the card line, and
+the final {"ok": true, "device": ...} line.  Any failure exits non-zero.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4546,8 +4566,8 @@ def run_ddl(db, host, counters):
 # the storage and import phases: everything they write goes under the
 # repo's git-ignored build/, and is removed at their end
 STORE_ROOT = "build/chip_store"
-STORE_MIN_FREE = 24 << 30  # two 10^8-row stores (~3.2 GB each), the exports, dumps
-COPY_ROWS = 10_000_000  # the copy and fsi phases' table, cut from 10^8 for the script's time
+STORE_MIN_FREE = 24 << 30  # a 10^8-row store (~3.2 GB), the server's tables, exports, dumps
+COPY_ROWS = 5_000_000  # the copy, fsi and DUMP tables, cut from 10^8 for the script's time
 
 
 def _store_root(name: str) -> str:
@@ -4647,10 +4667,13 @@ def run_persist(db, host, counters):
     route, against numpy), an UPDATE and an INSERT of one row (ms with the
     checkpoint, the chunk bytes rewritten), a set_table_epoch rollback
     (rows against numpy of the old values, the rolled-back generation's
-    device bytes freed), DUMP and RESTORE of a 10^7-row table and a query on
-    it; then bench made on the device (load_table_device) in a second
-    database on disk and its first checkpoint, each chunk's host copy
-    through one device-to-host copy.  Launches counted from 0."""
+    device bytes freed), DUMP and RESTORE of a COPY_ROWS-row table and a query on
+    it; then bench made on the device (load_table_device) at COPY_ROWS rows
+    in a second database on disk and its first checkpoint, each chunk's
+    host copy through one device-to-host copy.  Launches counted from 0.
+    Returns the lines, the launches and the first database's directory (bench back at its first epoch, equal to `host`),
+    which the server phase serves and the caller removes (with its parent,
+    STORE_ROOT/persist)."""
     import gc
     import os
     import shutil
@@ -4723,7 +4746,7 @@ def run_persist(db, host, counters):
         if pdb.sql("SELECT COUNT(*), SUM(x100) FROM bench").rows() != [(n, s100)]:
             raise AssertionError("persist: the rollback did not give the old rows")
         lines.append(dict(line, queries=cells))
-        # DUMP / RESTORE of a 10^7-row table, RESTORE over it
+        # DUMP / RESTORE of a COPY_ROWS-row table, RESTORE over it
         sub = {c: host[c][:COPY_ROWS] for c in BENCH_COLUMNS}
         pdb.sql(f"CREATE TABLE b7 ({schema})")
         pdb.load_table("b7", sub)
@@ -4746,13 +4769,14 @@ def run_persist(db, host, counters):
                           dump_bytes=os.path.getsize(dump), restore_s=restore_s,
                           device_bytes_freed=mem0 - mem1, resident_bytes=resident,
                           queries=_e2e_cells(pdb, sub, counters, ("Q1K_MINMAX",), table="b7")))
-        del pdb, sub
+        del pdb, sub, t
         gc.collect()
         torch.cuda.empty_cache()
-        # bench made on the device: its first checkpoint copies each chunk
-        # to the host once
+        # bench made on the device (load_table_device) in a second database,
+        # cut to COPY_ROWS rows in three fragments as bench's 10^8 rows are:
+        # its first checkpoint copies each chunk to the host once
         ddb = hdt.connect(os.path.join(root, "ddb"))
-        data = load_bench(ddb, ROWS, SEED + 1)
+        data = load_bench(ddb, COPY_ROWS, SEED + 1, fragment_rows=-(-COPY_ROWS // 3))
         dev_bytes = sum(a.numel() * a.element_size() for a in data.values())
         del data
         torch.cuda.synchronize()
@@ -4763,23 +4787,489 @@ def run_persist(db, host, counters):
         if not all(getattr(ch, "_np", 0) is not None for f in t.fragments
                    for ch in f.chunks.values()):
             raise AssertionError("persist: a device chunk was not copied to the host")
-        lines.append(dict(part="checkpoint_device_loaded", rows=ROWS, checkpoint_s=ckpt_s,
+        lines.append(dict(part="checkpoint_device_loaded", rows=COPY_ROWS,
+                          fragments=len(t.fragments), checkpoint_s=ckpt_s,
                           d2h_bytes=dev_bytes, **_store_layout(ddb, "bench")))
         del ddb, t
         gc.collect()
         torch.cuda.empty_cache()
-    finally:
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
     total = [c.launches for c in counters]
     launched = dict(zip(KERNEL_NAMES, total))
     if min(launched[k] for k in set().union(*(ROUTES[q] for q in QUERIES))) < 1:
         raise AssertionError(f"a kernel of the e2e routes never launched in persist: {launched}")
+    return lines, total, path
+
+
+# the e2e queries the server phase sends over TCP as they are; BH004 and
+# Q10M_AGGS (10^7 groups: gigabytes of JSON) go wrapped, so that their
+# result is one row while their inner Compound keeps the radix tier
+SERVER_QUERIES = ("NGA03", "PHM001", "Q100_MINMAX", "PHS002", "Q1K_MINMAX", "Q10K", "PHS003",
+                  "BH002", "BH003")
+SERVER_WRAPPED = {
+    "BH004": "SELECT COUNT(*), SUM(c) FROM (SELECT x10m, COUNT(*) AS c FROM bench "
+             "GROUP BY x10m) t",
+    "Q10M_AGGS": "SELECT COUNT(*), SUM(c), SUM(s), MIN(mn), MAX(mx) FROM (SELECT x10m, "
+                 "COUNT(*) AS c, SUM(x100) AS s, SUM(v) AS sv, MIN(x10k) AS mn, MAX(v) AS mx "
+                 "FROM bench WHERE x10 > 3 GROUP BY x10m) t",
+}
+SERVER_LOAD_ROWS = 1_000_000
+SERVER_SESSIONS = 4
+SERVER_ALLOC_SLACK = 2 << 20  # the caching allocator's rounding of a block
+SERVER_INTERRUPT_AFTER_MS = 200  # the victim's run time when it is interrupted
+SERVER_POLL_S = 0.005  # between get_queries_info polls, which hold the server's GIL
+
+
+class _Remote:
+    """A server's reply in the shape check_result reads: column(i),
+    column_raw(i) and col_count over the decoded JSON columns."""
+
+    def __init__(self, res):
+        self.res = res
+        self.col_count = len(res.columns)
+        self.row_count = res.row_count
+
+    def column(self, i):
+        return self.res.columns[i]
+
+    def column_raw(self, i):
+        return np.asarray(self.res.columns[i])
+
+
+def expected_wrapped(name, h):
+    """numpy answer of a SERVER_WRAPPED query: one row."""
+    _, cols = expected_arrays(name, h)
+    if name == "BH004":
+        return [(cols[0].shape[0], int(cols[0].sum()))]
+    cnt, s, _, mn, mx = cols
+    return [(cnt.shape[0], int(cnt.sum()), int(s.sum()), int(mn.min()), float(mx.max()))]
+
+
+def _served(srv):
+    """Serve a TCP or HTTP server on a thread; its address."""
+    import threading
+
+    threading.Thread(target=srv.serve_forever, kwargs={"poll_interval": 0.05},
+                     daemon=True).start()
+    return srv.server_address
+
+
+def _hang_up(*conns) -> None:
+    """Close client connections with their read files: a Connection's
+    close() leaves its socket open while the file it reads replies from
+    lives, and the server's handler thread with it."""
+    for c in conns:
+        c.close()
+        c.rfile.close()
+
+
+def _stop_serving(srv, engine, n_threads: int) -> None:
+    """Shut a server down and wait until its threads (serve_forever, the
+    handlers, the refresh scheduler) have ended: n_threads were alive
+    before it started."""
+    import threading
+
+    srv.shutdown()
+    srv.server_close()
+    engine.db.refresh_scheduler.stop()
+    deadline = time.perf_counter() + 60
+    while threading.active_count() > n_threads:
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"server: threads still alive {threading.enumerate()}")
+        time.sleep(0.01)
+
+
+def _device_bytes_settled() -> int:
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _wire_bytes(payload) -> int:
+    from heavydb_tpu_torch.server import protocol as P
+
+    return len(P.dumps({"id": 1, "result": payload}))
+
+
+def _over_tcp(engine, conn, name, q, host, counters, spy):
+    """One query through Connection.sql: the first run (rows against numpy,
+    each Compound's tier), warm runs over TCP beside the same query's warm
+    runs in process on the server's Database (decoded to Python values,
+    the rows encode_result sends), bytes of JSON; the launches of the TCP
+    runs and those of the in-process runs, each held to its e2e route on
+    its own."""
+    from heavydb_tpu_torch.server import protocol as P
+
+    reps = 3 if name in ARRAY_CHECKED else 5
+    before = [c.launches for c in counters]
+    del spy.runs[:]
+    t0 = time.perf_counter()
+    res = conn.sql(q)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    tiers = [r[0] for r in spy.runs]
+    if name in SERVER_WRAPPED:
+        got = [tuple(r) for r in res.rows()]
+        want = expected_wrapped(name, host)
+        if got != want:
+            raise AssertionError(f"server {name}: {got}, numpy {want}")
+        if tiers.count("radix") != 1:
+            raise AssertionError(f"server {name}: the inner Compound left the radix tier: "
+                                 f"{tiers}")
+        rows_out = len(got)
+    else:
+        rows_out = check_result(name, _Remote(res), host)
+    payload = dict(fields=res.fields, types=res.types, columns=res.columns,
+                   row_count=res.row_count, execution_time_ms=res.execution_time_ms)
+    tcp = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        conn.sql(q)
+        tcp.append((time.perf_counter() - t0) * 1e3)
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route(name, delta)  # the TCP runs alone, first and warm
+    before = [c.launches for c in counters]
+    local = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        rs = engine.db.sql(q)
+        [rs.column(i) for i in range(rs.col_count)]
+        local.append((time.perf_counter() - t0) * 1e3)
+    local_delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route(name, local_delta)
+    t0 = time.perf_counter()
+    P.dumps({"id": 1, "result": P.encode_result(rs)})
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    warm, in_process = statistics.median(tcp), statistics.median(local)
+    return dict(query=name, sql=q, rows_out=rows_out, first_ms=first_ms, warm_ms=warm,
+                warm_runs_ms=tcp, in_process_warm_ms=in_process, wire_ms=warm - in_process,
+                encode_ms=encode_ms, json_bytes=_wire_bytes(payload),
+                tiers=tiers, launches=dict(zip(KERNEL_NAMES, delta)),
+                in_process_launches=dict(zip(KERNEL_NAMES, local_delta)))
+
+
+def _sessions_at_once(engine, address, host, n=SERVER_SESSIONS, per=4) -> list:
+    """n sessions x per queries of ADMIT_8T's pair (Q1K_MINMAX, PHS002 in
+    turns) at once, over TCP and then as n threads on the server's Database
+    in process: rows against numpy, wall, p50 / p99 ms a query."""
+    import threading
+
+    from heavydb_tpu_torch.client.client import Connection
+
+    want = {q: expected(q, host) for q in ADMISSION_QUERIES}
+    out = []
+    for how in ("tcp", "in_process"):
+        conns = [Connection(*address) for _ in range(n)] if how == "tcp" else [None] * n
+        results, errors = [], []
+        barrier = threading.Barrier(n)
+
+        def worker(i):
+            try:
+                barrier.wait(timeout=60)
+                for j in range(per):
+                    name = ADMISSION_QUERIES[(i + j) % 2]
+                    t0 = time.perf_counter()
+                    if how == "tcp":
+                        rows = [tuple(r) for r in conns[i].sql(QUERIES[name]).rows()]
+                    else:
+                        rows = engine.db.sql(QUERIES[name]).rows()
+                    results.append((name, (time.perf_counter() - t0) * 1e3, rows))
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        if how == "tcp":
+            _hang_up(*conns)
+        if errors or len(results) != n * per:
+            raise AssertionError(f"server sessions ({how}): {errors or len(results)}")
+        for name, _, rows in results:
+            check_rows(name, rows, want[name], 1, ())
+        lat = {q: [ms for m, ms, _ in results if m == q] for q in ADMISSION_QUERIES}
+        out.append(dict(part="sessions", how=how, sessions=n, queries=len(results),
+                        wall_ms=wall,
+                        p50_ms={q: float(np.percentile(v, 50)) for q, v in lat.items()},
+                        p99_ms={q: float(np.percentile(v, 99)) for q, v in lat.items()}))
+    return out
+
+
+def _writes(engine, address, host) -> list:
+    """load_table_binary_columnar of SERVER_LOAD_ROWS rows of three columns
+    (seconds, bytes on the wire, the rows read back against numpy); then an
+    INSERT of one row into a small table from one session while another
+    session's batch reads bench: the INSERT returns while the reader runs
+    (table-level locks)."""
+    import threading
+
+    from heavydb_tpu_torch.client.client import Connection
+    from heavydb_tpu_torch.server import protocol as P
+
+    n = SERVER_LOAD_ROWS
+    cols = {"a": host["x1k"][:n], "b": host["x10m"][:n], "c": host["v"][:n]}
+    lines = []
+    c = Connection(*address)
+    try:
+        c.sql("CREATE TABLE wload (a INT, b INT, c FLOAT)")
+        wire = len(P.dumps({"id": 1, "method": "load_table_binary_columnar", "params": {
+            "session": c.session, "table": "wload",
+            "columns": {k: P.encode_array(np.asarray(v)) for k, v in cols.items()}}}))
+        t0 = time.perf_counter()
+        loaded = c.load_table("wload", cols)
+        load_s = time.perf_counter() - t0
+        got = [tuple(r) for r in c.sql("SELECT COUNT(*), SUM(a), MIN(b), MAX(c) "
+                                       "FROM wload").rows()]
+        want = [(n, int(cols["a"].sum(dtype=np.int64)), int(cols["b"].min()),
+                 float(cols["c"].max()))]
+        if loaded != n or got != want:
+            raise AssertionError(f"server load: {loaded} rows, {got}, numpy {want}")
+        raw = sum(int(v.nbytes) for v in cols.values())
+        lines.append(dict(part="load_table_binary_columnar", rows=n, seconds=load_s,
+                          raw_bytes=raw, wire_bytes=wire, wire_over_raw=wire / raw))
+        c.sql("CREATE TABLE wtiny (x INT)")
+        reader_q = ";\n".join([QUERIES["BH003"]] * 4 + [QUERIES["NGA03"]])
+        done = {}
+
+        def read():
+            r = Connection(*address)
+            try:
+                t0 = time.perf_counter()
+                done["rows"] = r.sql(reader_q).rows()
+                done["ms"] = (time.perf_counter() - t0) * 1e3
+                done["at"] = time.perf_counter()
+            finally:
+                _hang_up(r)
+
+        t = threading.Thread(target=read)
+        t.start()
+        deadline = time.perf_counter() + 120
+        while not any(i["query"] == reader_q[:200] for i in c.get_queries_info()):
+            if time.perf_counter() > deadline:
+                raise AssertionError("server writes: the reader never ran")
+            time.sleep(SERVER_POLL_S)
+        t0 = time.perf_counter()
+        c.sql("INSERT INTO wtiny VALUES (1)")
+        insert_end = time.perf_counter()
+        t.join(timeout=600)
+        if "at" not in done or [tuple(r) for r in done["rows"]] != [expected("NGA03", host)[()]]:
+            raise AssertionError(f"server writes: the reader gave {done.get('rows')}")
+        if not insert_end < done["at"]:
+            raise AssertionError("server writes: the INSERT waited for the reader of bench")
+        if tuple(c.sql("SELECT COUNT(*), SUM(x) FROM wtiny").rows()[0]) != (1, 1):
+            raise AssertionError("server writes: the INSERT is not read back")
+        lines.append(dict(part="insert_beside_reader", insert_ms=(insert_end - t0) * 1e3,
+                          reader_ms=done["ms"],
+                          reader_left_ms=(done["at"] - insert_end) * 1e3))
+        c.sql("DROP TABLE wload")
+        c.sql("DROP TABLE wtiny")
+    finally:
+        _hang_up(c)
+    return lines
+
+
+def _over_http(engine, host) -> dict:
+    """PHS002 through serve_http on the same engine: rows against numpy."""
+    import json
+    import types
+    import urllib.request
+
+    from heavydb_tpu_torch.server.http_server import serve_http
+
+    hs = serve_http(port=0, core=engine)
+    h, port = _served(hs)
+    base = f"http://{h}:{port}"
+    try:
+        def post(path, payload):
+            req = urllib.request.Request(base + path, json.dumps(payload).encode(),
+                                         {"Content-Type": "application/json"})
+            with urllib.request.urlopen(req) as r:
+                return r.status, json.loads(r.read())
+
+        _, out = post("/", {"method": "connect", "params": {}, "id": 1})
+        t0 = time.perf_counter()
+        code, res = post("/sql", {"session": out["result"], "query": QUERIES["PHS002"]})
+        ms = (time.perf_counter() - t0) * 1e3
+        rows = check_result("PHS002", _Remote(types.SimpleNamespace(
+            columns=res["columns"], row_count=res["row_count"])), host)
+        return dict(part="http", query="PHS002", status=code, rows_out=rows, ms=ms)
+    finally:
+        hs.shutdown()
+        hs.server_close()
+
+
+def _interrupted(path, host, counters) -> dict:
+    """A second server on the same directory, started with the stream
+    phase's 1 MB threshold (FORCED_THRESHOLD): one session's wrapped
+    Q10M_AGGS (its inner Compound in fragment waves) is interrupted once it
+    has run SERVER_INTERRUPT_AFTER_MS, while another session runs
+    Q1K_MINMAX in turns (its waves too).  The victim raises
+    QueryInterrupted; the survivor's rows equal numpy; the device bytes
+    after both are back, but for the scan-cache columns the runs kept; the
+    server's shutdown frees the rest."""
+    import threading
+
+    from heavydb_tpu_torch.client.client import Connection, ServerError
+    from heavydb_tpu_torch.config import Config
+    from heavydb_tpu_torch.server.server import serve
+
+    base = _device_bytes_settled()
+    n_threads = threading.active_count()
+    srv = serve(port=0, data_path=path, config=Config(stream_threshold_bytes=FORCED_THRESHOLD))
+    engine = srv.engine
+    address = _served(srv)
+    ex = engine.db.executor
+    want = expected("Q1K_MINMAX", host)
+    try:
+        mem0, cache0 = _device_bytes_settled(), ex.scan_cache.total_bytes
+        victim, survivor, admin = (Connection(*address) for _ in range(3))
+        outcome, survived, stop = {}, [], threading.Event()
+
+        def victim_run():
+            t0 = time.perf_counter()
+            try:
+                victim.sql(SERVER_WRAPPED["Q10M_AGGS"])
+                outcome["raised"] = None
+            except ServerError as e:
+                outcome["raised"] = (e.type, str(e))
+            outcome["at"] = time.perf_counter()
+            outcome["ms"] = (outcome["at"] - t0) * 1e3
+
+        def survivor_run():
+            try:
+                while not stop.is_set() or len(survived) < 2:
+                    t0 = time.perf_counter()
+                    rows = [tuple(r) for r in survivor.sql(QUERIES["Q1K_MINMAX"]).rows()]
+                    survived.append((time.perf_counter() - t0) * 1e3)
+                    # its AVG(v) adds FLOAT partials of the waves
+                    check_rows("Q1K_MINMAX", rows, want, 1, STREAM_F32_COLS["Q1K_MINMAX"])
+            except Exception as e:  # noqa: BLE001 - reported below
+                outcome["survivor_error"] = repr(e)
+
+        ts = [threading.Thread(target=survivor_run), threading.Thread(target=victim_run)]
+        for t in ts:
+            t.start()
+        deadline = time.perf_counter() + 300
+        sid = victim.session[:8]
+        while True:
+            live = [i for i in admin.get_queries_info() if i["session"] == sid]
+            if live and live[0]["elapsed_ms"] >= SERVER_INTERRUPT_AFTER_MS:
+                break
+            if "at" in outcome or time.perf_counter() > deadline:
+                raise AssertionError(f"server interrupt: the victim ended first: {outcome}")
+            time.sleep(SERVER_POLL_S)
+        t_int = time.perf_counter()
+        admin.call("interrupt", session=victim.session)
+        ts[1].join(timeout=600)
+        stop.set()
+        ts[0].join(timeout=600)
+        _hang_up(victim, survivor, admin)
+        if outcome.get("raised", (None,))[0] != "QueryInterrupted" \
+                or "survivor_error" in outcome:
+            raise AssertionError(f"server interrupt: {outcome}")
+        left = _device_bytes_settled() - mem0
+        kept = ex.scan_cache.total_bytes - cache0
+        if left > kept + SERVER_ALLOC_SLACK:
+            raise AssertionError(f"server interrupt: {left} B left on the card, the scan "
+                                 f"cache kept {kept} B")
+        line = dict(part="interrupt", victim=SERVER_WRAPPED["Q10M_AGGS"],
+                    raised=outcome["raised"], elapsed_at_interrupt_ms=live[0]["elapsed_ms"],
+                    ms_to_raise=(outcome["at"] - t_int) * 1e3, victim_ms=outcome["ms"],
+                    survivor_queries=len(survived), survivor_ms=survived,
+                    device_bytes_left=left, scan_cache_bytes_kept=kept)
+    finally:
+        _stop_serving(srv, engine, n_threads)
+    del srv, engine, ex
+    line["device_bytes_after_shutdown"] = _device_bytes_settled() - base
+    if line["device_bytes_after_shutdown"] > SERVER_ALLOC_SLACK:
+        raise AssertionError(f"server interrupt: {line['device_bytes_after_shutdown']} B "
+                             "left after the second server's shutdown")
+    return line
+
+
+def run_server(db, host, counters, path):
+    """The port's server on CUDA over the database on disk that the
+    persist phase wrote (bench at its first epoch, equal to `host`),
+    launches counted from 0: serve(port=0, data_path=path) in process
+    (start-up seconds: the reopen and the kernel gate), the e2e queries
+    through Connection.sql against numpy on their e2e routes (first and warm
+    ms beside the in-process warm ms, bytes of JSON), BH004 and Q10M_AGGS
+    wrapped (their inner Compound on the radix tier), sql_execute_df of
+    Q1K_MINMAX against sql, four sessions at once, a columnar load and an
+    INSERT beside a reader, one query over HTTP; the device bytes back to
+    their level before the phase after the shutdown; then the interrupt on
+    a second server (_interrupted).  Returns the lines and the launches."""
+    from heavydb_tpu_torch.client.client import Connection
+    from heavydb_tpu_torch.server.server import serve
+
+    import threading
+
+    for c in counters:
+        c.launches = 0  # the server path starts here
+    base = _device_bytes_settled()
+    n_threads = threading.active_count()
+    t0 = time.perf_counter()
+    srv = serve(port=0, data_path=path)
+    start_s = time.perf_counter() - t0
+    engine = srv.engine
+    address = _served(srv)
+    n = engine.db.table_rows("bench")
+    if n != host["x10"].shape[0]:
+        raise AssertionError(f"server: {n} rows of bench, numpy has {host['x10'].shape[0]}")
+    lines = [dict(part="start", start_s=start_s, rows=n, device=str(engine.db.device),
+                  device_bytes_after_start=torch.cuda.memory_allocated() - base)]
+    try:
+        c = Connection(*address)
+        with _RunSpy() as spy:
+            for name in SERVER_QUERIES:
+                lines.append(dict(part="query", **_over_tcp(engine, c, name, QUERIES[name],
+                                                            host, counters, spy)))
+            for name, q in SERVER_WRAPPED.items():
+                lines.append(dict(part="wrapped", **_over_tcp(engine, c, name, q, host,
+                                                              counters, spy)))
+            q = QUERIES["Q1K_MINMAX"]
+            tbl = c.sql_df(q)
+            arrow, sql = [], []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                tbl = c.sql_df(q)
+                arrow.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                c.sql(q)
+                sql.append((time.perf_counter() - t0) * 1e3)
+            check_rows("Q1K_MINMAX", list(zip(*(col.to_pylist() for col in tbl.columns))),
+                       expected("Q1K_MINMAX", host), 1, ())
+            lines.append(dict(part="sql_execute_df", query="Q1K_MINMAX", rows_out=tbl.num_rows,
+                              arrow_ms=statistics.median(arrow), sql_ms=statistics.median(sql)))
+        _hang_up(c)
+        lines += _sessions_at_once(engine, address, host)
+        lines += _writes(engine, address, host)
+        lines.append(_over_http(engine, host))
+    finally:
+        _stop_serving(srv, engine, n_threads)
+    del srv, engine
+    left = _device_bytes_settled() - base
+    if left > SERVER_ALLOC_SLACK:
+        raise AssertionError(f"server: {left} device bytes left after the shutdown")
+    lines.append(dict(part="shutdown", device_bytes_left=left))
+    lines.append(_interrupted(path, host, counters))
+    total = [c.launches for c in counters]
+    launched = dict(zip(KERNEL_NAMES, total))
+    if min(launched[k] for k in set().union(*(ROUTES[q] for q in QUERIES))) < 1:
+        raise AssertionError(f"a kernel of the e2e routes never launched in server: {launched}")
     return lines, total
 
 
 def run_copy(db, host, counters):
     """COPY on the CUDA database of the earlier phases, launches counted from
-    0: 10^7 rows of bench's columns (cut from 10^8 for the script's time)
+    0: COPY_ROWS of bench's rows (cut from 10^8 for the script's time)
     loaded as b7, COPY TO a CSV and to parquet, COPY FROM the CSV through
     the native parser and through pandas (no_native) and from the parquet,
     each table's rows/s and Q1K_MINMAX's shape on it against numpy (first
@@ -5088,8 +5578,9 @@ def main() -> None:
 
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    emit({"phase": "env", "card": card, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "nvcc": nvcc})
+    env = {"phase": "env", "card": card, "torch": torch.__version__,
+           "cuda": torch.version.cuda, "nvcc": nvcc}
+    emit(env)
     t0 = time.perf_counter()
     info = gate.kernel_gate(torch.device("cuda"))
     emit({"phase": "build", "build_s": info["seconds"],
@@ -5219,10 +5710,18 @@ def main() -> None:
         emit({"phase": "ddl", **line})
     phase_s["ddl"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    persist_lines, persist_total = run_persist(db, host, counters)
+    persist_lines, persist_total, store = run_persist(db, host, counters)
     for line in persist_lines:
         emit({"phase": "persist", **line})
     phase_s["persist"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        server_lines, server_total = run_server(db, host, counters, store)
+    finally:
+        shutil.rmtree(os.path.dirname(store), ignore_errors=True)
+    for line in server_lines:
+        emit({"phase": "server", **line})
+    phase_s["server"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     copy_lines, copy_total, copied = run_copy(db, host, counters)
     for line in copy_lines:
@@ -5247,8 +5746,8 @@ def main() -> None:
                                   distinct_total, string_total, hash_total, win_total,
                                   win_shape_total, udf_total, udf_shape_total, dml_total,
                                   geo_total, geo_shape_total, arr_total, arr_shape_total,
-                                  ctl_total, up_total, ddl_total, persist_total, copy_total,
-                                  fsi_total, io_total)]
+                                  ctl_total, up_total, ddl_total, persist_total, server_total,
+                                  copy_total, fsi_total, io_total)]
     if dict(zip(KERNEL_NAMES, geo_total))["radix_hist"] < 1:
         raise AssertionError("B2 did not launch in the geo phase (GEO_ZONE_JOIN)")
     del host
@@ -5280,6 +5779,7 @@ def main() -> None:
                        design_bound_ms=s["design_bound_ms"])
         rows.append(row)
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    emit(env)  # again, inside the tail of the output that is kept
     emit({"kernels": rows})
 
 

@@ -38,8 +38,9 @@ CREATE / DROP VIEW, VALIDATE; SHOW TABLES / CREATE TABLE / TABLE DETAILS /
 FUNCTIONS, DESCRIBE; users, roles, GRANT / REVOKE and row-level policies
 (storage/syscatalog.py; `sql(text, user=...)` checks privileges and puts
 the user's policy filters into the plan before it is optimized); SHOW
-QUERIES, KILL QUERY and SHOW USER SESSIONS over providers a server
-installs.  Query hints reach the executor (the watchdogs, a time limit,
+QUERIES, KILL QUERY and SHOW USER SESSIONS over the providers the port's
+server installs (server/server.py `HeavyTpuServer`: its sessions, their
+running queries, and an interrupt of a session's query).  Query hints reach the executor (the watchdogs, a time limit,
 `keep_result`: the result recycler, keyed by the scanned tables'
 generations); `enable_debug_timer` fills `last_query_timings`.  `load_table`
 uploads a table of `eager_staging_min_rows` rows or more at once when

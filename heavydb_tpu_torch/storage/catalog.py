@@ -66,6 +66,12 @@ class Catalog:
             self._by_id[tid] = t
             return t
 
+    def skip_ids_through(self, n: int) -> None:
+        """New tables take ids above n (called after the tables of a
+        database on disk are created, whose stores own ids up to n)."""
+        with self._lock:
+            self._next_id = itertools.count(n + 1)
+
     def drop_table(self, name: str, if_exists: bool = False):
         with self._lock:
             t = self._tables.pop(name.lower(), None)

@@ -407,7 +407,9 @@ class PersistentCatalogStore:
         for name in catalog.list_tables():
             t = catalog.get_table(name)
             tables.append({
-                "table_id": t.table_id,
+                # the id of the table's store directory, which a table
+                # reopened from disk keeps apart from its id in memory
+                "table_id": getattr(t, "disk_table_id", t.table_id),
                 "name": t.name,
                 "fragment_rows": t.fragment_rows,
                 "columns": [
@@ -479,4 +481,9 @@ class PersistentCatalogStore:
             if tm.get("sort_column"):
                 t.sort_column = tm["sort_column"]
             out.append(t)
+        # a new table's store directory is named by its id: ids above every
+        # store on disk, so that none writes into (or, dropped, removes)
+        # the store of a table reopened here
+        catalog.skip_ids_through(max([tm["table_id"] for tm in data["tables"]]
+                                     + [t.table_id for t in out], default=0))
         return out

@@ -24,6 +24,9 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import heavydb_tpu_torch.io.csv_import, heavydb_tpu_torch.io.csv_export\n"
         "import heavydb_tpu_torch.io.geo_import, heavydb_tpu_torch.io.raster_import\n"
         "import heavydb_tpu_torch.io.stream, heavydb_tpu_torch.io.remote\n"
+        "import heavydb_tpu_torch.server.server, heavydb_tpu_torch.server.http_server\n"
+        "import heavydb_tpu_torch.client.client, heavydb_tpu_torch.client.dbapi\n"
+        "import heavydb_tpu_torch.cli\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heavydb_tpu' or m.startswith('heavydb_tpu.')]\n"
         "print(','.join(bad))\n"

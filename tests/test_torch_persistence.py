@@ -587,3 +587,47 @@ def test_dump_archive_restores_in_the_other_package(tmp_path, writer):
     rdb.sql(f"RESTORE TABLE d FROM '{dump}'")
     q = "SELECT k, s, v FROM d ORDER BY rowid"
     assert rdb.sql(q).rows() == wdb.sql(q).rows()
+
+
+def _tables_after_reopen(pkg, p):
+    """Two tables, one dropped and another made (the survivors' ids in
+    memory now differ from their stores'), a reopen, a table made and
+    dropped again, then a RESTORE over a table, a table made and dropped
+    and a reopen: every table keeps its rows."""
+    db = pkg.connect(p)
+    db.sql("CREATE TABLE a (x INT)")
+    db.sql("INSERT INTO a VALUES (1), (2)")
+    db.sql("CREATE TABLE b (x INT)")
+    db.sql("INSERT INTO b VALUES (3)")
+    db.sql("DROP TABLE a")
+    db.sql("CREATE TABLE a2 (x INT)")
+    db.sql("INSERT INTO a2 VALUES (5), (6), (7)")
+    dump = os.path.join(os.path.dirname(p), pkg.name + "_b.tgz")
+    db.sql(f"DUMP TABLE b TO '{dump}'")
+    del db
+    db = pkg.connect(p)
+    db.sql("CREATE TABLE w (x INT)")
+    db.sql("INSERT INTO w VALUES (9)")
+    db.sql("DROP TABLE w")
+    db.sql(f"RESTORE TABLE b FROM '{dump}'")
+    db.sql("CREATE TABLE w2 (x INT)")
+    db.sql("INSERT INTO w2 VALUES (8)")
+    del db
+    db = pkg.connect(p)
+    db.sql("DROP TABLE w2")
+    del db
+    db = pkg.connect(p)
+    return [db.sql(f"SELECT COUNT(*), SUM(x) FROM {t}").rows() for t in ("a2", "b")]
+
+
+def test_new_tables_after_a_reopen_keep_the_stores_on_disk(tmp_path):
+    """Fault of the reference, repaired in the port: after a reopen a table
+    keeps its store directory's id apart from its id in memory, yet the
+    reference saves the id in memory into catalog.json and gives a new table
+    the next id in memory, whose store directory may be a reopened table's;
+    writing and dropping the new table then loses that table's rows.  The
+    port saves each table's store id and gives new tables ids above every
+    store on disk (storage/persist.py `PersistentCatalogStore.load`)."""
+    want = [[(3, 18)], [(1, 3)]]
+    assert _tables_after_reopen(PORT, str(tmp_path / "port" / "db")) == want
+    assert _tables_after_reopen(REF, str(tmp_path / "ref" / "db")) != want
