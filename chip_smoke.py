@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card (an H100); exits non-zero without one.  Phases, each
+Needs one CUDA card (an H100); exits non-zero without one.  (With
+--multihost-worker MODE PID NPROCS PORT it is one host of the multihost
+phase's cluster, which the script starts itself.)  Phases, each
 printing JSON lines:
 
   env      card, power limit, torch / CUDA / nvcc versions
@@ -144,7 +146,7 @@ printing JSON lines:
            (register_udfs) on B1 over 100 slots, against numpy, measured as
            the window cells
   udf_shapes  every built-in table function, the fits, k-means and PCA over
-           a CURSOR of ~10^6 bench rows, and a table function in a join, on
+           a CURSOR of ~5 x 10^5 bench rows, and a table function in a join, on
            CUDA against the port on the CPU holding those rows
   dml      tools/synthetic.py DML_STEPS on bench after every phase that
            reads it: UPDATE (~10^5 rows in each fragment), DELETE (~10^5
@@ -257,11 +259,33 @@ printing JSON lines:
            the edges and values around each target's range, ROUND /
            TRUNCATE of a FLOAT at half-way points and near FLT_MAX: the
            same bits on CUDA as on the CPU
+  multihost  parallel/* on this card, after the other phases: in process,
+           Config(num_shards=2) raises the reference's ValueError and
+           Q1K_MINMAX under num_shards=1 runs on its e2e route against
+           numpy; the five shard-map steps of parallel/dist_query.py on
+           Mesh([cuda:0] * 4) at 10^7 rows (half the rows on one key)
+           against numpy, the join and the shuffle with bins that hold
+           every row and with bins the skew overflows.  Then a 2-process
+           cluster on this card: two copies of this script started with
+           --multihost-worker, joined by a gloo group on localhost, each
+           host loading its half of the rig's 2 x 10^7-row fact table and
+           the other tables (tools/synthetic.py multihost_data /
+           load_multihost; fact declared with v FLOAT) and running
+           MULTIHOST_QUERIES twice (first, warm) against a vectorized numpy
+           oracle over the full data: wall, engine and exchange ms, bytes
+           sent, gathered and padded, kernel launches, device bytes; then
+           each host's partition of 2 x 10^6 rows written to a database
+           on disk under build/, both processes restarted
+           (check_table_consistency, the rows again) and a divergence
+           (host 1 deletes rows: every host raises NotSupported).  The
+           exchange runs on the host over gloo with both processes on one
+           card: no number of it is a multi-GPU figure
 Then each new phase's seconds, the script's wall time, the env line
 again, the kernel summary line (its launches are those of the e2e, sort,
 join, subq, distinct, strings, hash, window, window_shapes, udf,
 udf_shapes, dml, geo, geo_shapes, arrays, array_shapes, controls, upload,
-ddl, persist, server, copy, fsi and io_shapes phases), the card line, and
+ddl, persist, server, copy, fsi, io_shapes and multihost phases, the
+cluster hosts' included), the card line, and
 the final {"ok": true, "device": ...} line.  Any failure exits non-zero.
 """
 
@@ -278,6 +302,7 @@ import time
 import numpy as np
 import torch
 
+from heavydb_tpu_torch.tools import synthetic
 from heavydb_tpu_torch.tools.synthetic import (JOIN_QUERIES, QUERIES, SORT_QUERIES,
                                                load_bench, load_dims)
 
@@ -4028,9 +4053,11 @@ def run_window_shapes(counters, n: int = 20_000):
 
 
 # the table functions, on CUDA against the CPU: every built-in of
-# api._register_system_tfs; the fits read a CURSOR over ~10^6 rows of bench
-# (the CPU twin holds those rows of bench in the same order)
-UDF_CURSOR = "FROM bench WHERE x10m <= 100000"
+# api._register_system_tfs; the fits read a CURSOR over ~5 x 10^5 rows of
+# bench (cut from ~10^6 for the script's time; the CPU twin holds those rows
+# of bench in the same order)
+UDF_CURSOR_X10M = 50_000
+UDF_CURSOR = f"FROM bench WHERE x10m <= {UDF_CURSOR_X10M}"
 UDF_SHAPE_QUERIES = [
     "SELECT * FROM TABLE(generate_series(1, 20, 3)) ORDER BY 1",
     "SELECT y, SUM(num_iterations), MAX(x) FROM TABLE(tf_mandelbrot(64, 48)) GROUP BY y",
@@ -4055,7 +4082,7 @@ UDF_SHAPE_QUERIES = [
     f"x10, x100 {UDF_CURSOR})))",
     "SELECT model_name, kind FROM TABLE(ml_models()) ORDER BY model_name",
     "SELECT g.generate_series, COUNT(*), SUM(b.v) FROM TABLE(generate_series(1, 100)) g "
-    "JOIN bench b ON g.generate_series = b.x100 WHERE b.x10m <= 100000 GROUP BY 1",
+    f"JOIN bench b ON g.generate_series = b.x100 WHERE b.x10m <= {UDF_CURSOR_X10M} GROUP BY 1",
 ]
 
 
@@ -4066,7 +4093,7 @@ def run_udf_shapes(db, host, counters):
     and each kernel's launches in the phase."""
     import heavydb_tpu_torch as hdt
 
-    keep = host["x10m"] <= 100_000
+    keep = host["x10m"] <= UDF_CURSOR_X10M
     cpu = hdt.connect(device="cpu")
     cols = ("x10", "x100", "x1k", "x10m", "v")
     cpu.sql("CREATE TABLE bench (" + ", ".join(
@@ -5568,6 +5595,650 @@ def run_cast_shapes(n: int = 200_000):
     return dict(rows=int(d.shape[0]), queries=len(queries), named=named, rounded=rounded)
 
 
+# ---------------------------------------------------------------------------
+# multihost: parallel/* on the one card
+# ---------------------------------------------------------------------------
+
+MH_HOSTS = 2
+MH_ROWS = 20_000_000  # the rig's fact rows in all, 10^7 a host (the reference worker: 2 x 10^5)
+MH_PERSIST_ROWS = 2_000_000  # the restart's fact rows in all, 10^6 a host
+MH_PERSIST_QUERIES = ("MH_GROUPBY", "MH_STRING_GROUPBY", "MH_JOIN_GROUPBY", "MH_GROUPBY_K")
+MH_DQ_ROWS = 10_000_000  # the shard-map steps' rows
+MH_DQ_SHARDS = 4  # the shards of Mesh([cuda:0] * 4)
+MH_DQ_ROW_BLOCK = 1 << 21  # each destination bin: no overflow at MH_DQ_ROWS (<= 1.6M a bin)
+MH_DQ_SMALL_BLOCK = 1 << 19  # a bin the skewed rows overflow
+MH_WORKER_ARG = "--multihost-worker"
+MH_WORKER_THREADS = 4  # torch's CPU threads a worker: two workers on the host's 8 cores
+MH_COLLECTIVE_TIMEOUT_S = 120  # gloo's timeout: a dead peer fails the collective
+MH_CLUSTER_TIMEOUT_S = 240  # the wall-clock limit of a cluster's processes
+MH_TOL = 1e-4  # FLOAT sums and averages, relative (the reference worker's, floor 1)
+MH_WINDOW_TOL = 1e-3  # the reference worker's for the running window sums
+# fact's schema declared, with v FLOAT (4 bytes: MIN / MAX go to B3 at 400
+# slots); the reference worker's load_table infers DOUBLE for it
+MH_FACT_DDL = "CREATE TABLE fact (k INT, g INT, v FLOAT, s TEXT)"
+
+
+def _mh_close(got, want, tol=MH_TOL) -> bool:
+    if isinstance(want, float):
+        return got is not None and abs(got - want) <= max(abs(want), 1.0) * tol
+    return got == want
+
+
+def _mh_rows_equal(label, got, want, tol=MH_TOL) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} rows, numpy has {len(want)}")
+    for a, b in zip(got, want):
+        if len(a) != len(b) or not all(_mh_close(x, y, tol) for x, y in zip(a, b)):
+            raise AssertionError(f"{label}: {a} vs numpy's {b}")
+
+
+def _mh_groups(keys, size, ok, vals, minmax=False):
+    """Per key in [0, size): rows, and the count, float64 sum, min and max
+    (with minmax, else None) of vals over the rows where ok."""
+    rows = np.bincount(keys, minlength=size)
+    kk, vv = keys[ok], vals[ok].astype(np.float64)
+    cnt = np.bincount(kk, minlength=size)
+    tot = np.bincount(kk, weights=vv, minlength=size)
+    if not minmax:
+        return rows, cnt, tot, None, None
+    order = np.argsort(kk, kind="stable")
+    ks, vs = kk[order], vv[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]]) if ks.size else ks
+    mn = np.full(size, np.nan)
+    mx = np.full(size, np.nan)
+    if ks.size:
+        mn[ks[starts]] = np.minimum.reduceat(vs, starts)
+        mx[ks[starts]] = np.maximum.reduceat(vs, starts)
+    return rows, cnt, tot, mn, mx
+
+
+def _mh_name_rank(d):
+    """The names, each row's name code, and each row's rank of its name in
+    the names' sort order."""
+    vocab = np.array([f"name_{i}" for i in range(synthetic.MULTIHOST_NAMES)], object)
+    code = np.arange(d["k"].shape[0]) % synthetic.MULTIHOST_NAMES
+    rank = np.argsort(np.argsort(vocab.astype(str)))
+    return vocab, code, rank[code]
+
+
+def _mh_sorted_window(sel, keys):
+    """Rows of sel in lexsort order of keys (the last key first), and the
+    starts of each partition (keys[-1]) in that order."""
+    idx = np.flatnonzero(sel)
+    order = idx[np.lexsort(tuple(k[idx] for k in keys))]
+    part = keys[-1][order]
+    new_part = np.r_[True, part[1:] != part[:-1]]
+    start = np.maximum.accumulate(np.where(new_part, np.arange(order.size), 0))
+    return order, new_part, start
+
+
+MH_RAW = ("MH_TOPK", "MH_WINDOW", "MH_WINDOW_LAG_RANK", "MH_GLOBAL_WINDOW")
+
+
+def expected_multihost(label, d):
+    """numpy's answer over the full data d, vectorized: its rows, or for the
+    large results of MH_RAW what check_multihost holds their columns to."""
+    k, g, v = d["k"], d["g"], d["v"]
+    m = ~np.isnan(v)
+    v64 = v.astype(np.float64)
+    if label in MH_RAW:
+        return _mh_expected_raw(label, d)
+    if label == "MH_KEYLESS":
+        f = k < 200
+        fv = v64[f & m]
+        return [(int(f.sum()), float(fv.sum()), float(fv.mean()), float(fv.min()),
+                 float(fv.max()))]
+    if label in ("MH_GROUPBY", "MH_GROUPBY_K", "MH_JOIN_GROUPBY"):
+        keys, size = {"MH_GROUPBY": (g, 37), "MH_GROUPBY_K": (k, 400),
+                      "MH_JOIN_GROUPBY": (k % 11, 11)}[label]
+        n_rows, cnt, tot, mn, mx = _mh_groups(keys, size, m, v, label == "MH_GROUPBY_K")
+        live = np.flatnonzero(n_rows)
+        if label == "MH_GROUPBY":
+            return [(int(i), int(n_rows[i]), float(tot[i]), float(tot[i] / cnt[i])) for i in live]
+        if label == "MH_GROUPBY_K":
+            return [(int(i), int(n_rows[i]), float(tot[i]), float(mn[i]), float(mx[i]))
+                    for i in live]
+        return [(int(i), int(n_rows[i]), float(tot[i])) for i in live]
+    if label == "MH_STRING_GROUPBY":
+        vocab, code, _ = _mh_name_rank(d)
+        cnt = np.bincount(code, minlength=vocab.size)
+        return sorted((str(vocab[i]), int(cnt[i])) for i in np.flatnonzero(cnt))
+    if label == "MH_FULL_SORT":
+        sel = np.flatnonzero(m & (v > 1.5))
+        fo = sel[np.lexsort((k[sel], -v[sel]))]
+        return [(int(k[i]), float(v[i])) for i in fo]
+    if label == "MH_COUNT_DISTINCT":
+        pairs = np.unique(g.astype(np.int64) * 400 + k)
+        nd = np.bincount(pairs // 400, minlength=37)
+        n_rows = np.bincount(g, minlength=37)
+        return [(int(i), int(nd[i]), int(n_rows[i])) for i in np.flatnonzero(n_rows)]
+    if label == "MH_MEDIAN":
+        return [(i, float(np.median(v64[(g == i) & m]))) for i in range(5)]
+    if label == "MH_MINMAX_STRING":
+        vocab, code, _ = _mh_name_rank(d)
+        seen = np.bincount(g.astype(np.int64) * vocab.size + code,
+                           minlength=37 * vocab.size).reshape(37, vocab.size) > 0
+        return [(int(i), min(vocab[seen[i]]), max(vocab[seen[i]]))
+                for i in np.flatnonzero(seen.any(1))]
+    if label == "MH_KEYLESS_DISTINCT":  # the exact count; the estimate within 10 %
+        return int(np.unique(k[g < 30]).size)
+    if label == "MH_FACT_FACT_JOIN":
+        ok, w = d["ok"], d["w"].astype(np.float64)
+        per_cnt = np.bincount(ok, minlength=400)
+        per_w = np.bincount(ok, weights=w, minlength=400)
+        return [(int(per_cnt[k].sum()), float((np.where(m, v64, 0.0) * per_cnt[k]).sum()),
+                 float(per_w[k].sum()))]
+    if label == "MH_FACT_FACT_JOIN_GROUPBY":
+        hot = np.bincount(d["ok"][d["w"] > 0.5], minlength=400)
+        per_g = np.bincount(g, weights=hot[k], minlength=37)
+        return [(int(i), int(per_g[i])) for i in np.flatnonzero(per_g)]
+    if label == "MH_SHARD_LOAD":
+        return [(int(k.shape[0]),)]
+    raise AssertionError(f"no oracle for {label}")
+
+
+def _mh_expected_raw(label, d) -> dict:
+    k, g, v = d["k"], d["g"], d["v"]
+    m = ~np.isnan(v)
+    _, _, s_rank = _mh_name_rank(d)
+    int_null = np.iinfo(np.int32).min
+    if label == "MH_TOPK":
+        vv = np.where(m, v, -np.inf)
+        top = np.sort(np.partition(vv, vv.size - 25)[-25:])[::-1]
+        # rows tied on v may come from any of the tied rows: per value, the
+        # keys of every row holding it, and whether all of them are in
+        ties = {x: (np.sort(k[vv == x]), (top == x).sum() == (vv == x).sum())
+                for x in np.unique(top)}
+        return {"top": top, "ties": ties}
+    if label == "MH_WINDOW":
+        order, new_part, start = _mh_sorted_window(g < 6, (s_rank, k, g))
+        gs, ks, ss = g[order], k[order], s_rank[order]
+        vs = v[order].astype(np.float64)
+        peer_end = np.r_[(gs[1:] != gs[:-1]) | (ks[1:] != ks[:-1]) | (ss[1:] != ss[:-1]), True]
+        last = np.minimum.accumulate(np.where(peer_end, np.arange(order.size),
+                                              order.size)[::-1])[::-1]
+        cum = np.cumsum(np.where(np.isnan(vs), 0.0, vs))
+        cnt = np.cumsum(~np.isnan(vs))
+        base_cum = np.where(start > 0, cum[start - 1], 0.0)
+        base_cnt = np.where(start > 0, cnt[start - 1], 0)
+        run = cum[last] - base_cum[last]
+        run = np.where(cnt[last] - base_cnt[last] > 0, run, np.nan)
+        return {"g": gs, "k": ks, "rn": np.arange(order.size) - start + 1, "sum": run}
+    if label == "MH_WINDOW_LAG_RANK":
+        order, new_part, start = _mh_sorted_window((g < 4) & m, (v, s_rank, k, g))
+        gs, ks = g[order], k[order]
+        lag = np.where(new_part, int_null, np.r_[int_null, ks[:-1]])
+        new_key = new_part | np.r_[True, ks[1:] != ks[:-1]]
+        rank = np.maximum.accumulate(np.where(new_key, np.arange(order.size), 0)) - start + 1
+        rows = np.stack([gs, ks, lag, rank]).astype(np.int64)
+    else:  # MH_GLOBAL_WINDOW
+        idx = np.flatnonzero((k < 3) & m)
+        order = idx[np.lexsort((v[idx], s_rank[idx], k[idx]))]
+        rows = np.stack([k[order], np.arange(1, order.size + 1)]).astype(np.int64)
+    # rows tied on the ORDER BY come in any order: compared sorted
+    return {"rows": rows, "sorted": rows[:, np.lexsort(rows[::-1])]}
+
+
+def check_multihost(label, rs, want) -> int:
+    """Raise unless the distributed result equals want, numpy's answer
+    (expected_multihost): FLOAT sums within MH_TOL, the window sums within
+    MH_WINDOW_TOL, rows in ORDER BY order, peers in any order."""
+    if label in MH_RAW:
+        return _mh_check_raw(label, [rs.column_raw(i) for i in range(rs.col_count)], want)
+    rows = rs.rows()
+    if label == "MH_KEYLESS_DISTINCT":
+        exact, approx = rows[0]
+        if exact != want or not 0.9 * want <= approx <= 1.1 * want:
+            raise AssertionError(f"{label}: {rows} vs numpy's {want}")
+        return 1
+    _mh_rows_equal(label, rows, want)
+    return len(rows)
+
+
+def _mh_check_raw(label, got, want) -> int:
+    """The large results, column by column as arrays."""
+    n_got = got[0].shape[0]
+    if label == "MH_TOPK":
+        top = want["top"]
+        vals = got[1].astype(np.float32)
+        if n_got != top.size or not np.array_equal(vals, top):
+            raise AssertionError(f"{label}: values {vals} vs numpy's {top}")
+        for x, (keys, full) in want["ties"].items():
+            got_k = np.sort(got[0][vals == x])
+            if full and not np.array_equal(got_k, keys) or not np.isin(got_k, keys).all():
+                raise AssertionError(f"{label}: keys {got_k} at v={x}, numpy's {keys}")
+        return n_got
+    if label == "MH_WINDOW":
+        if n_got != want["g"].size:
+            raise AssertionError(f"{label}: {n_got} rows, numpy has {want['g'].size}")
+        seq = got[0].astype(np.int64) * 400 + got[1]
+        if np.any(np.diff(seq) < 0):
+            raise AssertionError(f"{label}: rows out of ORDER BY g, k order")
+        o = np.lexsort((got[3], got[0]))  # peers in any order: compare by (g, row_number)
+        gg, gk, gsum, grn = (c[o] for c in got)
+        if not (np.array_equal(gg, want["g"]) and np.array_equal(gk, want["k"])
+                and np.array_equal(grn, want["rn"])):
+            raise AssertionError(f"{label}: g, k or row_number differ from numpy's")
+        run = want["sum"]
+        nulls = np.isnan(run)
+        bad = (np.isnan(gsum) != nulls) | (~nulls & (np.abs(gsum - run) > np.maximum(
+            np.abs(run), 1.0) * MH_WINDOW_TOL))
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            raise AssertionError(f"{label}: running sum {gsum[i]} vs numpy's {run[i]}")
+        return n_got
+    have = np.stack(got).astype(np.int64)
+    if have.shape != want["rows"].shape:
+        raise AssertionError(f"{label}: {have.shape[1]} rows, numpy has "
+                             f"{want['rows'].shape[1]}")
+    if label == "MH_WINDOW_LAG_RANK" and not np.array_equal(have[:2], want["rows"][:2]):
+        raise AssertionError(f"{label}: rows out of ORDER BY g, k order")
+    if not np.array_equal(have[:, np.lexsort(have[::-1])], want["sorted"]):
+        raise AssertionError(f"{label}: rows differ from numpy's")
+    return n_got
+
+
+class _TimedRuntime:
+    """Times the runtime's gathers and exchanges from outside the package:
+    allgather_multi (which every gather, exchange and dictionary merge
+    calls) and allgather_scalar are wrapped on the instance."""
+
+    def __init__(self, rt):
+        self.ms = 0.0
+        self.calls = 0
+        self.sent = 0  # this host's payload bytes
+        self.gathered = 0  # every host's payload bytes, as received
+        self.padded = 0  # bytes of the padded gathers (one pow2 buffer a host)
+        multi, scalar = rt.allgather_multi, rt.allgather_scalar
+        hosts = rt.num_processes
+
+        def timed_multi(arrays):
+            t0 = time.perf_counter()
+            out = multi(arrays)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 2
+            self.sent += sum(np.asarray(a).nbytes for a in arrays)
+            per_host = [sum(parts[p].nbytes for parts in out) for p in range(hosts)]
+            self.gathered += sum(per_host)
+            self.padded += hosts * (1 << max(max(per_host).bit_length(), 4))
+            return out
+
+        def timed_scalar(x):
+            t0 = time.perf_counter()
+            out = scalar(x)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            self.sent += 8
+            self.gathered += 8 * hosts
+            self.padded += 8 * hosts
+            return out
+
+        rt.allgather_multi = timed_multi
+        rt.allgather_scalar = timed_scalar
+
+    def snap(self):
+        return (self.ms, self.calls, self.sent, self.gathered, self.padded)
+
+    def since(self, before) -> dict:
+        d = [a - b for a, b in zip(self.snap(), before)]
+        return dict(exchange_ms=d[0], collectives=d[1], sent_bytes=d[2],
+                    gathered_bytes=d[3], padded_bytes=d[4])
+
+
+def _mh_counters():
+    from heavydb_tpu_torch.kernels import (groupby_minmax, groupby_slots, lane_agg,
+                                           radix_groupby, radix_hist, tile_sort)
+
+    return [lane_agg.lane_agg, radix_hist.fused_hist, groupby_minmax.minmax_per_slot,
+            tile_sort.sort_tiles, radix_groupby.radix_partition, radix_groupby.radix_group,
+            groupby_slots.count_per_slot, groupby_slots.sum_f32_per_slot,
+            groupby_slots.sum_int_per_slot]
+
+
+def _mh_store(pid: int) -> str:
+    return os.path.abspath(os.path.join(STORE_ROOT, "multihost", f"host{pid}"))
+
+
+def multihost_worker(mode: str, pid: int, nprocs: int, port: int) -> None:
+    """One host of the cluster on this card: JSON lines on stdout.  mode
+    "queries": load its partition of the rig's tables, run every
+    MULTIHOST_QUERIES query against numpy over the full data, then write a
+    partition of MH_PERSIST_ROWS rows to a database on disk and record its
+    rows; "restart": reopen that database, check the cluster's consistency
+    and the recorded rows, then drop rows on host 1 and expect every host
+    to detect the divergence."""
+    t_start, entered = time.perf_counter(), time.time()
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.errors import NotSupported
+    from heavydb_tpu_torch.parallel.dist_engine import DistEngine
+    from heavydb_tpu_torch.parallel.multihost import MultiHostRuntime
+
+    torch.set_num_threads(MH_WORKER_THREADS)
+    rt = MultiHostRuntime()
+    rt.initialize(f"127.0.0.1:{port}", nprocs, pid, timeout_s=MH_COLLECTIVE_TIMEOUT_S)
+    timed = _TimedRuntime(rt)
+    counters = _mh_counters()
+    path = _mh_store(pid)
+    results = os.path.join(os.path.dirname(path), f"results{pid}.json")
+    if mode == "queries":
+        db = hdt.connect()
+    else:
+        t0 = time.perf_counter()
+        db = hdt.connect(path)
+        reopen_s = time.perf_counter() - t0
+    emit({"host": pid, "step": "start", "entered_unix_s": entered,
+          "connect_s": time.perf_counter() - t_start,
+          "device": str(db.device), "device_bytes": torch.cuda.memory_allocated()})
+    for c in counters:
+        c.launches = 0  # the main path starts here
+    if mode == "queries":
+        t0 = time.perf_counter()
+        data = synthetic.multihost_data(MH_ROWS)
+        make_s = time.perf_counter() - t0
+        dist = DistEngine(db, rt)
+        before = timed.snap()
+        t0 = time.perf_counter()
+        db.sql(MH_FACT_DDL)
+        synthetic.load_multihost(dist, data, pid, nprocs)
+        torch.cuda.synchronize()
+        emit({"host": pid, "step": "load", "rows": MH_ROWS, "make_s": make_s,
+              "load_s": time.perf_counter() - t0, **timed.since(before),
+              "local_rows": {t: db.catalog.get_table(t).num_rows
+                             for t in ("fact", "orders", "sharded")},
+              "device_bytes": torch.cuda.memory_allocated()})
+        for label, q in synthetic.MULTIHOST_QUERIES.items():
+            runs, outs = [], []
+            for _ in range(2):  # first and warm
+                b_ex, b_l = timed.snap(), [c.launches for c in counters]
+                t0 = time.perf_counter()
+                rs = dist.sql(q)
+                for i in range(rs.col_count):
+                    rs.column_raw(i)
+                wall = (time.perf_counter() - t0) * 1e3
+                outs.append(rs)
+                ex = timed.since(b_ex)
+                runs.append(dict(wall_ms=wall, engine_ms=wall - ex["exchange_ms"], **ex,
+                                 launches={n: c.launches - b for n, c, b
+                                           in zip(KERNEL_NAMES, counters, b_l) if c.launches > b}))
+            t0 = time.perf_counter()
+            want = expected_multihost(label, data)
+            n_out = [check_multihost(label, r, want) for r in outs][0]
+            emit({"host": pid, "query": label, "rows_out": n_out, "first": runs[0],
+                  "warm": runs[1], "check_s": time.perf_counter() - t0})
+            rt.barrier()  # the next query starts together: no host's check in its exchanges
+        del dist, data
+        # a partition on disk for the restart
+        pdata = synthetic.multihost_data(MH_PERSIST_ROWS, seed=7)
+        os.makedirs(path)
+        t0 = time.perf_counter()
+        pdist = DistEngine(hdt.connect(path), rt)
+        sel = slice(pid, None, nprocs)
+        pdist.load_table("fact", {c: pdata[c][sel] for c in ("k", "g", "v", "s")})
+        dim_k = np.arange(400, dtype=np.int32)
+        pdist.load_table("dim", {"k": dim_k, "nm": (dim_k % 11).astype(np.int32)},
+                         replicated=True)
+        load_s = time.perf_counter() - t0
+        recorded = {}
+        for label in MH_PERSIST_QUERIES:
+            rs = pdist.sql(synthetic.MULTIHOST_QUERIES[label])
+            check_multihost(label, rs, expected_multihost(label, pdata))
+            recorded[label] = rs.rows()
+        with open(results, "w") as f:
+            json.dump(recorded, f)
+        emit({"host": pid, "step": "persist", "rows": MH_PERSIST_ROWS, "load_checkpoint_s": load_s,
+              "store_bytes": sum(os.path.getsize(os.path.join(dp, f))
+                                 for dp, _, fs in os.walk(path) for f in fs)})
+    else:
+        dist = DistEngine(db, rt)  # dist_meta.json restores the partition record
+        if "fact" not in dist.partitioned or dist.global_rows.get("fact") != MH_PERSIST_ROWS:
+            raise AssertionError(f"restart: {dist.partitioned}, {dist.global_rows}")
+        t0 = time.perf_counter()
+        report = dist.check_table_consistency()
+        check_ms = (time.perf_counter() - t0) * 1e3
+        with open(results) as f:
+            want = json.load(f)
+        for label in MH_PERSIST_QUERIES:
+            got = dist.sql(synthetic.MULTIHOST_QUERIES[label]).rows()
+            _mh_rows_equal(f"restart {label}", got, [tuple(r) for r in want[label]])
+        if pid == 1:
+            db.sql("DELETE FROM fact WHERE g = 3")  # this host loses rows
+        try:
+            dist.check_table_consistency()
+            detected = None
+        except NotSupported as e:
+            detected = str(e)
+        if detected is None:
+            raise AssertionError("divergence: check_table_consistency passed after a "
+                                 "host lost rows")
+        emit({"host": pid, "step": "restart", "reopen_s": reopen_s, "consistency_ms": check_ms,
+              "hosts_ok": report["ok"], "rows_equal": list(MH_PERSIST_QUERIES),
+              "divergence": detected})
+    total = {n: c.launches for n, c in zip(KERNEL_NAMES, counters)}
+    if mode == "queries" and min(total[n] for n in ("lane_agg", "radix_hist",
+                                                    "groupby_minmax")) < 1:
+        raise AssertionError(f"host {pid}: B1, B2 or B3 never launched: {total}")
+    rt.shutdown()
+    emit({"host": pid, "step": "done", "launches": total, "seconds": time.perf_counter() - t_start,
+          "device_bytes": torch.cuda.memory_allocated(),
+          "peak_device_bytes": torch.cuda.max_memory_allocated()})
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mh_cluster(mode: str, nprocs: int = MH_HOSTS) -> list:
+    """Start nprocs copies of this script as the hosts of a cluster on this
+    card and wait for all; any failure or the wall-clock limit kills the
+    rest and raises.  Returns each host's JSON lines."""
+    import tempfile
+
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    for attempt in range(2):
+        port = _free_port()
+        spawned = time.time()
+        outs = [tempfile.TemporaryFile(mode="w+") for _ in range(nprocs)]
+        errs = [tempfile.TemporaryFile(mode="w+") for _ in range(nprocs)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), MH_WORKER_ARG,
+                                   mode, str(pid), str(nprocs), str(port)],
+                                  stdout=outs[pid], stderr=errs[pid], text=True, env=env)
+                 for pid in range(nprocs)]
+        deadline = time.monotonic() + MH_CLUSTER_TIMEOUT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if time.monotonic() > deadline or any(p.returncode not in (None, 0)
+                                                      for p in procs):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        texts = []
+        for o, e in zip(outs, errs):
+            o.seek(0)
+            e.seek(0)
+            texts.append((o.read(), e.read()))
+            o.close()
+            e.close()
+        if attempt == 0 and any("address already in use" in e.lower() for _, e in texts):
+            continue
+        bad = [(pid, p.returncode) for pid, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            detail = "\n".join(f"host {pid} rc {rc}:\n{texts[pid][0][-2000:]}\n"
+                               f"{texts[pid][1][-3000:]}" for pid, rc in bad)
+            raise AssertionError(f"multihost {mode}: hosts failed or timed out:\n{detail}")
+        hosts = [[json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+                 for out, _ in texts]
+        for lines in hosts:  # process start, imports and connect(), from the spawn
+            start = lines[0]
+            start["spawn_to_connected_s"] = start["entered_unix_s"] - spawned + start["connect_s"]
+        return hosts
+
+
+def _mh_dist_query() -> list:
+    """The five shard-map steps on Mesh([cuda:0] * 4) at MH_DQ_ROWS rows
+    against numpy; ms of each (host clock around a synchronised call)."""
+    from heavydb_tpu_torch.parallel import dist_query as DQ
+    from heavydb_tpu_torch.parallel.mesh import Mesh, row_sharding
+
+    S = MH_DQ_SHARDS
+    mesh = Mesh([torch.device("cuda", 0)] * S)
+    n = MH_DQ_ROWS
+    rng = np.random.default_rng(SEED + 5)
+    keys = rng.integers(0, 1000, n).astype(np.int32)
+    keys[::2] = 7  # skew: one key on half the rows, in every shard
+    vals = rng.random(n).astype(np.float32)
+    blocks = row_sharding(mesh).shard_slices(n)
+    nrows = np.array([sl.stop - sl.start - 1000 * s for s, sl in enumerate(blocks)], np.int32)
+    live = np.zeros(n, bool)
+    for sl, r in zip(blocks, nrows):
+        live[sl.start:sl.start + r] = True
+    dev = torch.device("cuda", 0)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    tk, tv, tn = t(keys), t(vals), t(nrows)
+    lines = []
+
+    def run(name, fn, *args):
+        fn(*args)
+        torch.cuda.synchronize()
+        reps = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            reps.append((time.perf_counter() - t0) * 1e3)
+        line = {"step": "dist_query", "function": name, "rows": n, "shards": S,
+                "ms": statistics.median(reps)}
+        lines.append(line)
+        return [o.cpu().numpy() for o in out], line
+
+    want_c = np.bincount(keys[live], minlength=1000)
+    want_s = np.bincount(keys[live], weights=vals[live].astype(np.float64), minlength=1000)
+    (c, s), _ = run("distributed_groupby_sum_count",
+                    DQ.distributed_groupby_sum_count(mesh, 1000), tk, tv, tn)
+    if not (np.array_equal(c, want_c) and np.allclose(s, want_s, rtol=1e-5)):
+        raise AssertionError("distributed_groupby_sum_count disagrees with numpy")
+    (c, s), _ = run("distributed_groupby_reduce_scatter",
+                    DQ.distributed_groupby_reduce_scatter(mesh, 1000), tk, tv, tn)
+    if not (np.array_equal(c[:1000], want_c) and not c[1000:].any()
+            and np.allclose(s[:1000], want_s, rtol=1e-5)):
+        raise AssertionError("distributed_groupby_reduce_scatter disagrees with numpy")
+    payload = np.arange(n, dtype=np.int64)
+    order = np.argsort(-np.where(live, vals, -np.inf), kind="stable")[:100]
+    (tv_, tp), _ = run("distributed_topk", DQ.distributed_topk(mesh, 100), tv,
+                       t(payload), tn)
+    if not (np.array_equal(tv_, vals[order]) and np.array_equal(tp, payload[order])):
+        raise AssertionError("distributed_topk disagrees with numpy")
+    # join: probe (key, group, value) against a build key set of even keys
+    pg = rng.integers(0, 64, n).astype(np.int32)
+    bk = rng.permutation(np.arange(0, 1000, 2)).astype(np.int64)
+    bk = np.resize(bk, n // 100)  # repeated build keys, 10^5 rows
+    bn = np.array([sl.stop - sl.start for sl in row_sharding(mesh).shard_slices(bk.size)],
+                  np.int32)
+    hit = live & np.isin(keys, bk)
+    want_jc = np.bincount(pg[hit], minlength=64)
+    want_js = np.bincount(pg[hit], weights=vals[hit].astype(np.float64), minlength=64)
+    hp = DQ.shard_hash(tk, S).cpu().numpy()
+    hb = DQ.shard_hash(t(bk), S).cpu().numpy()
+
+    def overflow(row_block):
+        over = 0
+        for h, lv, size in ((hp, live, n), (hb, np.ones(bk.size, bool), bk.size)):
+            for sl in row_sharding(mesh).shard_slices(size):
+                top = np.bincount(h[sl][lv[sl]], minlength=S).max()
+                over += max(int(top) - row_block, 0)
+        return over
+
+    for row_block in (MH_DQ_ROW_BLOCK, MH_DQ_SMALL_BLOCK):
+        (c, s, o), line = run("distributed_join_groupby",
+                              DQ.distributed_join_groupby(mesh, row_block, 64),
+                              tk.to(torch.int64), t(pg), tv, tn, t(bk), t(bn))
+        line.update(row_block=row_block, overflow=int(o[0]))
+        if int(o[0]) != overflow(row_block) or (o != o[0]).any():
+            raise AssertionError(f"distributed_join_groupby: overflow {o} vs numpy's "
+                                 f"{overflow(row_block)}")
+        if row_block == MH_DQ_ROW_BLOCK and not (
+                o[0] == 0 and np.array_equal(c, want_jc) and np.allclose(s, want_js, rtol=1e-5)):
+            raise AssertionError("distributed_join_groupby disagrees with numpy")
+    for row_block in (MH_DQ_ROW_BLOCK, MH_DQ_SMALL_BLOCK):
+        (rk, rv, rc, need), line = run("hash_repartition", DQ.hash_repartition(mesh, row_block),
+                                       tk, tv, tn)
+        line.update(row_block=row_block, needed=int(need[0]))
+        want_need = 0
+        for s, sl in enumerate(blocks):
+            idx = np.arange(sl.start, sl.start + nrows[s])
+            want_need += int(np.bincount(hp[idx], minlength=S).max())
+        if (need != want_need).any():
+            raise AssertionError(f"hash_repartition: overflow {need} vs numpy's {want_need}")
+        for r in range(S):  # shard r's rows, each sender's in its order
+            for s, sl in enumerate(blocks):
+                idx = np.arange(sl.start, sl.start + nrows[s])
+                mine = idx[hp[idx] == r][:row_block]
+                base = (r * S + s) * row_block
+                cnt = int(rc[r * S + s])
+                if not (cnt == mine.size and np.array_equal(rk[base:base + cnt], keys[mine])
+                        and np.array_equal(rv[base:base + cnt], vals[mine])):
+                    raise AssertionError(f"hash_repartition: shard {r}'s rows from shard {s}")
+    return lines
+
+
+def run_multihost(counters) -> tuple:
+    """The multihost phase: in process (num_shards on one card, the
+    shard-map steps on Mesh([cuda:0] * 4)), then a 2-process cluster on
+    this card, then its restart and a divergence."""
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.config import Config
+    from heavydb_tpu_torch.errors import NotSupported
+
+    lines = []
+    want = ValueError if torch.cuda.device_count() < 2 else NotSupported
+    try:
+        hdt.connect(config=Config(num_shards=2))
+        raise AssertionError("num_shards=2 on one card did not raise")
+    except want as e:
+        lines.append({"step": "num_shards_2", "raised": type(e).__name__, "message": str(e)})
+    db = hdt.connect(config=Config(num_shards=1))
+    data = load_bench(db, MH_DQ_ROWS, SEED + 3)
+    host = {c: a.cpu().numpy() for c, a in data.items()}
+    del data
+    before = [c.launches for c in counters]
+    t0 = time.perf_counter()
+    rs = db.sql(QUERIES["Q1K_MINMAX"])
+    n_out = check_result("Q1K_MINMAX", rs, host)
+    ms = (time.perf_counter() - t0) * 1e3
+    warm, _, _ = warm_ms(db, QUERIES["Q1K_MINMAX"])
+    delta = [c.launches - b for c, b in zip(counters, before)]
+    check_route("Q1K_MINMAX", delta)
+    lines.append({"step": "num_shards_1", "query": "Q1K_MINMAX", "rows": MH_DQ_ROWS,
+                  "rows_out": n_out, "mesh": repr(db.executor.mesh), "first_ms": ms,
+                  "warm_ms": warm, "launches": dict(zip(KERNEL_NAMES, delta))})
+    del db, host
+    torch.cuda.empty_cache()
+    lines += _mh_dist_query()
+    torch.cuda.empty_cache()
+    total = list(delta)
+    store = _store_root("multihost")
+    try:
+        for mode in ("queries", "restart"):
+            t0 = time.perf_counter()
+            hosts = _mh_cluster(mode)
+            lines.append({"step": f"cluster_{mode}", "hosts": len(hosts),
+                          "seconds": time.perf_counter() - t0})
+            for host_lines in hosts:
+                lines += host_lines
+                done = next(ln for ln in host_lines if ln.get("step") == "done")
+                total = [a + done["launches"][n] for a, n in zip(total, KERNEL_NAMES)]
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    return lines, total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     card = smi()
@@ -5740,7 +6411,6 @@ def main() -> None:
     t0 = time.perf_counter()
     emit({"phase": "cast_shapes", **run_cast_shapes()})
     phase_s["cast_shapes"] = time.perf_counter() - t0
-    emit({"phase": "phase_seconds", **phase_s})
     # the kernels line counts the launches of the main-path phases
     total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
                                   distinct_total, string_total, hash_total, win_total,
@@ -5753,6 +6423,15 @@ def main() -> None:
     del host
     emit({"phase": "hot_key", **run_hot_key(db, counters)})
     del db
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mh_lines, mh_total = run_multihost(counters)
+    for line in mh_lines:
+        emit({"phase": "multihost", **line})
+    phase_s["multihost"] = time.perf_counter() - t0
+    emit({"phase": "phase_seconds", **phase_s})
+    # the cluster's hosts ran the port's kernels in their own processes
+    total = [a + b for a, b in zip(total, mh_total)]
     rows = []
     rg_info = radix_groupby.kernel_info()
     for (name, src, replaces, tag), n_launched in zip(KERNELS, total):
@@ -5787,6 +6466,9 @@ if __name__ == "__main__":
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device", file=sys.stderr)
         sys.exit(2)
+    if sys.argv[1:2] == [MH_WORKER_ARG]:  # a host of the multihost phase's cluster
+        multihost_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5]))
+        sys.exit(0)
     main()
     print(smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

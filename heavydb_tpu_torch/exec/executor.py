@@ -267,6 +267,26 @@ class Executor:
         # the hash tier's NDV estimates by (table, generation, key fields),
         # pruned by drop_stale
         self._ndv_cache: Dict[tuple, Optional[int]] = {}
+        self.mesh = self._make_mesh(self.config.num_shards)
+
+    def _make_mesh(self, n: Optional[int]):
+        """The 1-D mesh of Config.num_shards shards (None for one).  Every
+        shard must be the Database's own device (the CPU's virtual shards,
+        or one card): then a shard's row block is a view of the column and
+        a Compound over the whole column gives the rows the shards' merge
+        would.  Several cards in one process raise: run one process a card
+        under DistEngine."""
+        if not n or n <= 1:
+            return None
+        from heavydb_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(n, self.device.type)
+        if mesh.distinct_devices() != [self.device]:
+            raise NotSupported(
+                f"a mesh over {len(mesh.distinct_devices())} cards in one process "
+                "(num_shards > 1 on CUDA): run one process a card and join them "
+                "with heavydb_tpu_torch.parallel.dist_engine.DistEngine")
+        return mesh
 
     # ------------------------------------------------------------------
     # entry

@@ -59,6 +59,12 @@ STATIONS points (about Citi Bike's count) uniform over the box.  SRID
 the loader makes each coordinate as the codec does (storage/table.py
 geoint_compress) and inserts the physical rows.
 
+The multi-host rig's tables (`multihost_data`, `load_multihost`; the
+reference's tests/multihost_worker.py): `fact (k INT, g INT, v FLOAT, s
+TEXT)` partitioned across hosts, `dim (k, nm)` replicated, the skewed
+`orders (ok, w)` partitioned, and `sharded (k, v)` routed by its SHARD
+KEY; MULTIHOST_QUERIES run on them through DistEngine.
+
 The array table (`load_arrays`): `arr (vals INT[], w DOUBLE)`, ARRAY_ROWS
 rows of 0 .. ARRAY_MAX_LEN elements uniform in [0, ARRAY_VALUES), 2 %
 NULL arrays and 1 % NULL elements; w uniform in [0, 1).
@@ -276,6 +282,45 @@ WINDOW_QUERIES = {
 UDF_QUERIES = {
     "UDF_GROUP": "SELECT x100, COUNT(*), SUM(HYPOT(v, x10k)) FROM bench GROUP BY x100",
 }
+# the distributed queries of the reference's multi-host rig
+# (tests/multihost_worker.py), in its order, over `multihost_data`'s tables
+# partitioned across hosts (`fact`, `orders`, `sharded` routed by SHARD
+# KEY) and `dim` replicated; MH_GROUPBY_K (400 slots: B2, and B3 for MIN /
+# MAX, in each leaf) added last
+MULTIHOST_QUERIES = {
+    "MH_KEYLESS": "SELECT count(*), sum(v), avg(v), min(v), max(v) FROM fact WHERE k < 200",
+    "MH_GROUPBY": "SELECT g, count(*), sum(v), avg(v) FROM fact GROUP BY g ORDER BY g",
+    "MH_JOIN_GROUPBY": "SELECT d.nm, count(*), sum(f.v) FROM fact f JOIN dim d "
+                       "ON f.k = d.k GROUP BY d.nm ORDER BY d.nm",
+    "MH_STRING_GROUPBY": "SELECT s, count(*) FROM fact GROUP BY s ORDER BY s",
+    "MH_TOPK": "SELECT k, v FROM fact ORDER BY v DESC NULLS LAST LIMIT 25",
+    "MH_FULL_SORT": "SELECT k, v FROM fact WHERE v > 1.5 ORDER BY v DESC NULLS LAST, k",
+    "MH_COUNT_DISTINCT": "SELECT g, count(DISTINCT k), count(*) FROM fact "
+                         "GROUP BY g ORDER BY g",
+    "MH_MEDIAN": "SELECT g, approx_median(v) FROM fact WHERE g < 5 GROUP BY g ORDER BY g",
+    "MH_MINMAX_STRING": "SELECT g, min(s), max(s) FROM fact GROUP BY g ORDER BY g",
+    "MH_KEYLESS_DISTINCT": "SELECT count(DISTINCT k), approx_count_distinct(k) FROM fact "
+                           "WHERE g < 30",
+    "MH_FACT_FACT_JOIN": "SELECT count(*), sum(f.v), sum(o.w) FROM fact f JOIN orders o "
+                         "ON f.k = o.ok",
+    "MH_FACT_FACT_JOIN_GROUPBY": "SELECT f.g, count(*) FROM fact f JOIN orders o "
+                                 "ON f.k = o.ok WHERE o.w > 0.5 GROUP BY f.g ORDER BY f.g",
+    "MH_WINDOW": "SELECT g, k, sum(v) OVER (PARTITION BY g ORDER BY k, s), "
+                 "row_number() OVER (PARTITION BY g ORDER BY k, s) "
+                 "FROM fact WHERE g < 6 ORDER BY g, k, s",
+    "MH_WINDOW_LAG_RANK": "SELECT g, k, lag(k) OVER (PARTITION BY g ORDER BY k, s, v), "
+                          "rank() OVER (PARTITION BY g ORDER BY k) "
+                          "FROM fact WHERE g < 4 AND v IS NOT NULL ORDER BY g, k, s, v",
+    "MH_GLOBAL_WINDOW": "SELECT k, row_number() OVER (ORDER BY k, s, v) "
+                        "FROM fact WHERE k < 3 AND v IS NOT NULL ORDER BY k, s, v",
+    "MH_SHARD_LOAD": "SELECT count(*) FROM sharded",
+    "MH_GROUPBY_K": "SELECT k, count(*), sum(v), min(v), max(v) FROM fact "
+                    "GROUP BY k ORDER BY k",
+}
+MULTIHOST_SHARDED_DDL = ("CREATE TABLE sharded (k INT, v FLOAT, SHARD KEY (k)) "
+                         "WITH (shard_count=8)")
+MULTIHOST_NAMES = 23
+MULTIHOST_ORDERS = 2_000
 TRIPS_ROWS = 10_000_000
 NYC_BOX = (-74.26, -73.70, 40.49, 40.92)  # lon min, lon max, lat min, lat max
 POINT_NULL_SHARE = 0.01
@@ -371,6 +416,39 @@ def load_strings(db, n: int, seed: int, fragment_rows: int = FRAGMENT_ROWS,
            f"x10 INT, x100 INT, x1k INT, v FLOAT) WITH (fragment_size={fragment_rows})")
     db.load_table_device("lstr", data, dicts=vocab)
     return data, vocab
+
+
+def multihost_data(n: int, seed: int = 42) -> Dict[str, np.ndarray]:
+    """The multi-host rig's full dataset, drawn in the reference worker's
+    order (tests/multihost_worker.py): fact `k` in [0, 400), `g` in [0, 37),
+    `v` FLOAT uniform in [0, 1) with 10 % NaN, `s` name_{i % 23}; then the
+    orders `ok` (half of them key 0, the rest uniform in [0, 400)) and `w`
+    uniform in [0, 1).  A host loads rows pid::nprocs of each."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 400, n).astype(np.int32)
+    g = rng.integers(0, 37, n).astype(np.int32)
+    v = np.where(rng.random(n) < 0.1, np.nan, rng.random(n)).astype(np.float32)
+    vocab = np.array([f"name_{i}" for i in range(MULTIHOST_NAMES)], object)
+    s = vocab[np.arange(n) % MULTIHOST_NAMES]
+    n_o = MULTIHOST_ORDERS
+    ok = np.where(rng.random(n_o) < 0.5, 0, rng.integers(0, 400, n_o)).astype(np.int32)
+    w = rng.random(n_o).astype(np.float32)
+    return {"k": k, "g": g, "v": v, "s": s, "ok": ok, "w": w}
+
+
+def load_multihost(dist, data: Dict[str, np.ndarray], pid: int, nprocs: int) -> None:
+    """Each host's part of the rig's tables through DistEngine `dist`: rows
+    pid::nprocs of fact and orders, dim (k in [0, 400), nm = k % 11)
+    replicated, and `sharded` routed from the full k, v by its SHARD KEY."""
+    sel = slice(pid, None, nprocs)
+    dist.load_table("fact", {c: data[c][sel] for c in ("k", "g", "v", "s")})
+    dim_k = np.arange(400, dtype=np.int32)
+    dist.load_table("dim", {"k": dim_k, "nm": (dim_k % 11).astype(np.int32)},
+                    replicated=True)
+    dist.load_table("orders", {"ok": data["ok"][sel], "w": data["w"][sel]})
+    dist.db.sql(MULTIHOST_SHARDED_DDL)
+    dist.load_table("sharded", {"k": data["k"], "v": data["v"]}, create=False,
+                    route_by_shard_key=True)
 
 
 def register_udfs(db) -> None:

@@ -1,6 +1,7 @@
 """heavydb_tpu_torch stands alone: importing it loads neither jax nor any
-heavydb_tpu module, no import statement in the port or in chip_smoke.py
-names them, and connect() never quietly falls back to the CPU."""
+heavydb_tpu module, no import statement in the port, in chip_smoke.py or
+in the port's cluster workers names them, and connect() never quietly
+falls back to the CPU."""
 
 import ast
 import os
@@ -27,6 +28,8 @@ def test_import_loads_no_jax_and_no_reference_module():
         "import heavydb_tpu_torch.server.server, heavydb_tpu_torch.server.http_server\n"
         "import heavydb_tpu_torch.client.client, heavydb_tpu_torch.client.dbapi\n"
         "import heavydb_tpu_torch.cli\n"
+        "import heavydb_tpu_torch.parallel.mesh, heavydb_tpu_torch.parallel.dist_query\n"
+        "import heavydb_tpu_torch.parallel.multihost, heavydb_tpu_torch.parallel.dist_engine\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'heavydb_tpu' or m.startswith('heavydb_tpu.')]\n"
         "print(','.join(bad))\n"
@@ -45,6 +48,8 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    for worker in ("torch_multihost_worker.py", "torch_multihost_persist_worker.py"):
+        yield os.path.join(ROOT, "tests", worker)
 
 
 def _forbidden(name: str) -> bool:
