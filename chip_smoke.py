@@ -259,8 +259,18 @@ printing JSON lines:
            the edges and values around each target's range, ROUND /
            TRUNCATE of a FLOAT at half-way points and near FLT_MAX: the
            same bits on CUDA as on the CPU
+  sharded  Config.num_shards' path in one process, after subq on the e2e
+           Database: NGA03, PHM001, Q100_MINMAX, PHS002, Q1K_MINMAX, Q10K,
+           BH004, Q10M_AGGS, TOPK_V and JOIN_DIM1K on the executor's mesh
+           set to Mesh([cuda:0] * 4) (each shard's block a view of the
+           resident column, a leaf a shard, the merge), against numpy:
+           the recorded mode and tiers, the route's kernels launched at
+           least once a shard, warm ms beside the unsharded warm ms, the
+           peak; then the mesh put back.  On two or more cards the same
+           under Config(num_shards=cards) over distinct cards with each
+           card's busy ms; on one card a line says that part did not run
   multihost  parallel/* on this card, after the other phases: in process,
-           Config(num_shards=2) raises the reference's ValueError and
+           Config(num_shards=cards + 1) raises the reference's ValueError and
            Q1K_MINMAX under num_shards=1 runs on its e2e route against
            numpy; the five shard-map steps of parallel/dist_query.py on
            Mesh([cuda:0] * 4) at 10^7 rows (half the rows on one key)
@@ -282,7 +292,7 @@ printing JSON lines:
            card: no number of it is a multi-GPU figure
 Then each new phase's seconds, the script's wall time, the env line
 again, the kernel summary line (its launches are those of the e2e, sort,
-join, subq, distinct, strings, hash, window, window_shapes, udf,
+join, subq, sharded, distinct, strings, hash, window, window_shapes, udf,
 udf_shapes, dml, geo, geo_shapes, arrays, array_shapes, controls, upload,
 ddl, persist, server, copy, fsi, io_shapes and multihost phases, the
 cluster hosts' included), the card line, and
@@ -2543,6 +2553,137 @@ class _RunSpy:
         finally:
             self.claims_on = False
         return out, ms, list(self.runs), list(self.claims)
+
+
+# sharded: Config.num_shards' path in one process (the executor's mesh)
+SHARDED_SHARDS = 4  # Mesh([cuda:0] * 4): the one card four times
+# each cell's query, how it shards, and the tier each leaf runs ("select":
+# the top-k); the merge takes the tier of the keys' ranges
+SHARDED_CELLS = {
+    "NGA03": ("aggregate", "keyless"), "PHM001": ("aggregate", "perfect"),
+    "Q100_MINMAX": ("aggregate", "perfect"), "PHS002": ("aggregate", "perfect"),
+    "Q1K_MINMAX": ("aggregate", "perfect"), "Q10K": ("aggregate", "perfect"),
+    "BH004": ("aggregate", "radix"), "Q10M_AGGS": ("aggregate", "radix"),
+    "TOPK_V": ("topk", "select"), "JOIN_DIM1K": ("join", "perfect"),
+}
+
+
+def _sharded_query(name):
+    return QUERIES.get(name) or SORT_QUERIES.get(name) or JOIN_QUERIES[name]
+
+
+def _sharded_check(name, rs, host, dims) -> int:
+    if name in QUERIES:
+        # an AVG over a FLOAT column merges FLOAT SUM partials, as streamed
+        return check_result(name, rs, host, set(F32_RESULT_COLS.get(name, ()))
+                            | STREAM_F32_COLS.get(name, set()))
+    if name in SORT_QUERIES:
+        return check_sort(name, rs, host)
+    return check_join(name, rs, host, dims)
+
+
+def _busy_by_card(db, q) -> dict:
+    """Device ms of one warm run on each card (torch.profiler's CUDA
+    events by device index)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        db.sql_device(q)
+        torch.cuda.synchronize()
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + e.time_range.elapsed_us() / 1e3
+    return {f"cuda:{k}": v for k, v in sorted(busy.items())}
+
+
+def _sharded_cells(db, host, dims, counters, shards: int, unsharded: dict) -> list:
+    """Each SHARDED_CELLS query on db's mesh: the rows against numpy, the
+    recorded mode and each leaf's tier, launches of its first run (each
+    kernel of its route at least once a shard), first and warm ms (median
+    of 5) and the peak device bytes above what was allocated before, beside
+    `unsharded`'s (query -> (warm ms, peak bytes))."""
+    ex = db.executor
+    out = []
+    for name, (kind, tier) in SHARDED_CELLS.items():
+        q = _sharded_query(name)
+        before = [c.launches for c in counters]
+        t0 = time.perf_counter()
+        rs = db.sql(q)
+        rs.column_raw(0)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        delta = [c.launches - b for c, b in zip(counters, before)]
+        runs = list(ex.shard_runs)
+        nrows = _sharded_check(name, rs, host, dims)
+        if [(r.mode, r.kind) for r in runs] != [("sharded", kind)] \
+                or runs[0].shards != shards or set(runs[0].tiers) != {tier}:
+            raise AssertionError(f"sharded {name}: ran {runs}, expected a {kind} leaf "
+                                 f"on each of {shards} shards on the {tier} tier")
+        check_route(name, delta)
+        short = [k for k, d in zip(KERNEL_NAMES, delta) if k in ROUTES[name] and d < shards]
+        if short:
+            raise AssertionError(f"sharded {name}: {short} launched fewer than once a "
+                                 f"shard: {dict(zip(KERNEL_NAMES, delta))}")
+        warm, reps, peak = warm_ms(db, q)
+        out.append(dict(query=name, mode=runs[0].mode, kind=kind, shards=runs[0].shards,
+                        tiers=runs[0].tiers, merge_tier=runs[0].merge_tier,
+                        leaf_runs=runs[0].leaf_runs, rows_out=nrows,
+                        first_with_decode_ms=first_ms, warm_ms=warm, warm_runs_ms=reps,
+                        unsharded_warm_ms=unsharded.get(name, (None,))[0], peak_bytes=peak,
+                        unsharded_peak_bytes=unsharded.get(name, (None, None))[1],
+                        launches=dict(zip(KERNEL_NAMES, delta))))
+    return out
+
+
+def run_sharded(db, host, dims, counters):
+    """The sharded phase, on the e2e Database (bench's 10^8 rows and the join
+    phase's dimension tables, before any statement changes them): each
+    SHARDED_CELLS query unsharded (warm ms, median of 5, and peak), then with the
+    executor's mesh set to Mesh([cuda:0] * 4), as the reference's test
+    reads `executor.mesh`: every block a view of the resident column, the
+    leaves one after another on the card, the merge there; then the mesh put
+    back.  Launch counters from 0 before the phase.  Where the machine has
+    two or more cards, the same queries under Config(num_shards=cards) on a
+    new Database over distinct cards, with each card's busy ms; on one card
+    a line saying that part did not run.  Returns the lines and each
+    kernel's launches in the phase."""
+    import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.config import Config
+    from heavydb_tpu_torch.parallel.mesh import Mesh
+
+    ex = db.executor
+    unsharded = {}
+    for name in SHARDED_CELLS:
+        warm, _, peak = warm_ms(db, _sharded_query(name))
+        unsharded[name] = (warm, peak)
+    for c in counters:
+        c.launches = 0  # the sharded path starts here
+    ex.mesh = Mesh([torch.device("cuda", 0)] * SHARDED_SHARDS)
+    try:
+        lines = [dict(part="mesh", mesh=repr(ex.mesh), **cell) for cell in
+                 _sharded_cells(db, host, dims, counters, SHARDED_SHARDS, unsharded)]
+    finally:
+        ex.mesh = None
+    total = [c.launches for c in counters]
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        lines.append(dict(part="distinct_cards", ran=False,
+                          reason=f"{cards} CUDA device: a mesh over distinct cards needs "
+                                 "two or more, so no multi-GPU figure is taken"))
+        return lines, total
+    db2 = hdt.connect(config=Config(num_shards=cards))
+    load_bench(db2, ROWS, SEED + 1)
+    load_dims(db2, SEED + 2)
+    for c in counters:
+        c.launches = 0
+    for cell in _sharded_cells(db2, host, dims, counters, cards, {}):
+        cell["busy_ms_by_card"] = _busy_by_card(db2, _sharded_query(cell["query"]))
+        lines.append(dict(part="distinct_cards", mesh=repr(db2.executor.mesh), **cell))
+    total = [a + c.launches for a, c in zip(total, counters)]
+    del db2
+    torch.cuda.empty_cache()
+    return lines, total
 
 
 def run_subq(db, host, dims, counters):
@@ -6191,18 +6332,19 @@ def _mh_dist_query() -> list:
 def run_multihost(counters) -> tuple:
     """The multihost phase: in process (num_shards on one card, the
     shard-map steps on Mesh([cuda:0] * 4)), then a 2-process cluster on
-    this card, then its restart and a divergence."""
+    this card, then its restart and a divergence.  (The executor's
+    sharded path in one process is the sharded phase's.)"""
     import heavydb_tpu_torch as hdt
     from heavydb_tpu_torch.config import Config
-    from heavydb_tpu_torch.errors import NotSupported
 
     lines = []
-    want = ValueError if torch.cuda.device_count() < 2 else NotSupported
+    n = torch.cuda.device_count() + 1  # 2 on one card
     try:
-        hdt.connect(config=Config(num_shards=2))
-        raise AssertionError("num_shards=2 on one card did not raise")
-    except want as e:
-        lines.append({"step": "num_shards_2", "raised": type(e).__name__, "message": str(e)})
+        hdt.connect(config=Config(num_shards=n))
+        raise AssertionError(f"num_shards={n} on {n - 1} cards did not raise")
+    except ValueError as e:
+        lines.append({"step": f"num_shards_{n}", "raised": type(e).__name__,
+                      "message": str(e)})
     db = hdt.connect(config=Config(num_shards=1))
     data = load_bench(db, MH_DQ_ROWS, SEED + 3)
     host = {c: a.cpu().numpy() for c, a in data.items()}
@@ -6303,6 +6445,11 @@ def main() -> None:
     subq_lines, subq_total = run_subq(db, host, dims, counters)
     for line in subq_lines:
         emit({"phase": "subq", **line})
+    t0 = time.perf_counter()
+    sharded_lines, sharded_total = run_sharded(db, host, dims, counters)
+    for line in sharded_lines:
+        emit({"phase": "sharded", **line})
+    sharded_s = time.perf_counter() - t0
     del dims
     emit({"phase": "set_shapes", **run_set_shapes()})
     distinct_lines, distinct_total = run_distinct(db, host, counters)
@@ -6313,7 +6460,7 @@ def main() -> None:
     for line in string_lines:
         emit({"phase": "strings", **line})
     emit({"phase": "string_shapes", **run_string_shapes(counters)})
-    phase_s = {}
+    phase_s = {"sharded": sharded_s}
     t0 = time.perf_counter()
     hash_lines, hash_total = run_hash(db, host, counters)
     for line in hash_lines:
@@ -6412,7 +6559,7 @@ def main() -> None:
     emit({"phase": "cast_shapes", **run_cast_shapes()})
     phase_s["cast_shapes"] = time.perf_counter() - t0
     # the kernels line counts the launches of the main-path phases
-    total = [sum(t) for t in zip(total, sort_total, join_total, subq_total,
+    total = [sum(t) for t in zip(total, sort_total, join_total, subq_total, sharded_total,
                                   distinct_total, string_total, hash_total, win_total,
                                   win_shape_total, udf_total, udf_shape_total, dml_total,
                                   geo_total, geo_shape_total, arr_total, arr_shape_total,

@@ -47,8 +47,8 @@ spec, segmented scans, the batch emitted in sorted order or the outputs
 scattered back), with the string tables of its arguments and a rank
 table for each dictionary-string ORDER BY key; it is never streamed.
 Scalar UDFs reach the expression compiler through each Compound's plan.
-Every tensor lives on the executor's one explicit device.  A subquery
-left after substitution raises NotSupported.
+Every tensor lives on the executor's explicit device (a shard's, on a
+mesh).  A subquery left after substitution raises NotSupported.
 
 Per-query controls, as the reference's: the interrupt hook, the timer, the
 query hints and the dynamic watchdog's deadline are per thread, as are the
@@ -65,6 +65,15 @@ the monotonic clock and never waits for the device.  The static watchdog
 refuses a projection over more rows than `watchdog_max_projected_rows`
 (`enable_watchdog` or the `watchdog` hint; `no_watchdog` lifts it).
 
+On a mesh of more than one shard (Config.num_shards, or `mesh` set), as
+the reference row-shards every scan over its mesh: each decomposable
+aggregate, ORDER BY ... LIMIT k over a Scan and join probing a Scan runs
+a leaf a shard over the shard's row block, on the shard's device (a view
+of the resident column when the shards share the Database's device,
+else a copy resident there; one host thread a device), and the leaves'
+results merge on the Database's device; every other node runs there,
+gathered (`_try_sharded_compound`, `_try_sharded_topk`, `shard_runs`).
+
 A large column uploads in chunks through a ring of reused staging buffers
 (pinned on CUDA, each reused only after its copy's event), with no full
 padded host copy, the pad tail filled on the device, and an integer column
@@ -78,6 +87,8 @@ kernels, which kernels/_build.py already caches under build/kernels.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import math
 import threading
@@ -104,6 +115,7 @@ from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.ops import sort as S
+from heavydb_tpu_torch.parallel.mesh import shard_blocks
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
 from heavydb_tpu_torch.plan.builder import _const_cast
@@ -229,6 +241,9 @@ class Executor:
     # aux tables and cache patches
     waves_run = _PerThread(int)
     h2d_bytes = _PerThread(int)
+    # the calling thread's last execute() on a mesh: how each Compound and
+    # top-k Sort ran (ShardRun: sharded or gathered, and its tiers)
+    shard_runs = _PerThread(list)
 
     # a column of at least _STAGE_MIN_BYTES uploads in pieces of
     # _STAGE_CHUNK_BYTES through _STAGE_BUFFERS reused staging buffers
@@ -239,8 +254,8 @@ class Executor:
     def __init__(self, db):
         self.db = db
         self.config = db.config
-        self.device = db.device
         self._tls = threading.local()
+        self.device = db.device
         self.resource_mgr: Optional[ResourceMgr] = None
         if self.config.enable_executor_resource_mgr:
             self.resource_mgr = ResourceMgr(self.config.max_concurrent_queries,
@@ -252,8 +267,11 @@ class Executor:
         self._stage_lock = threading.Lock()
         self.kernel_cache: Dict[tuple, object] = {}
         # the device tables of dictionary strings and join translations
-        # (`_aux_array`), by a key that carries their dictionaries' sizes
+        # (`_aux_array`), by a key that carries their dictionaries' sizes;
+        # built under a lock, since shard threads fill the same transient
+        # dictionaries
         self.aux_cache: Dict[tuple, object] = {}
+        self._aux_lock = threading.RLock()
         budget = self.config.device_cache_bytes
         if budget == 0:
             budget = default_device_budget(self.device)
@@ -270,23 +288,56 @@ class Executor:
         self.mesh = self._make_mesh(self.config.num_shards)
 
     def _make_mesh(self, n: Optional[int]):
-        """The 1-D mesh of Config.num_shards shards (None for one).  Every
-        shard must be the Database's own device (the CPU's virtual shards,
-        or one card): then a shard's row block is a view of the column and
-        a Compound over the whole column gives the rows the shards' merge
-        would.  Several cards in one process raise: run one process a card
-        under DistEngine."""
+        """The 1-D mesh of Config.num_shards shards (None for one): n
+        virtual shards of the CPU, or n distinct cards, the Database's
+        first (more cards than the machine has raise the reference's
+        ValueError)."""
         if not n or n <= 1:
             return None
-        from heavydb_tpu_torch.parallel.mesh import make_mesh
+        from heavydb_tpu_torch.parallel.mesh import Mesh, make_mesh
 
         mesh = make_mesh(n, self.device.type)
-        if mesh.distinct_devices() != [self.device]:
-            raise NotSupported(
-                f"a mesh over {len(mesh.distinct_devices())} cards in one process "
-                "(num_shards > 1 on CUDA): run one process a card and join them "
-                "with heavydb_tpu_torch.parallel.dist_engine.DistEngine")
-        return mesh
+        if self.device.type != "cuda":
+            return mesh
+        cards = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        return Mesh([self.device] + [c for c in cards if c != self.device][:n - 1])
+
+    @property
+    def device(self) -> torch.device:
+        """The device the calling thread's work runs on: a shard's while
+        the thread runs that shard (`_on_device`), else the Database's."""
+        return getattr(self._tls, "shard_device", None) or self._home
+
+    @device.setter
+    def device(self, d) -> None:
+        self._home = torch.device(d)
+
+    @property
+    def mesh(self):
+        """The 1-D mesh each Compound's scan is row-sharded over (None: the
+        Database's device alone)."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh) -> None:
+        """Run on `mesh` from the next query.  Its first device must be the
+        Database's, which keeps results, merges and dictionary tables;
+        every other distinct CUDA device passes the kernel gate now, so
+        that nothing is built in the middle of a query.  The row blocks of
+        an earlier mesh leave the scan cache."""
+        if mesh is not None:
+            if mesh.devices[0] != self._home:
+                raise ValueError(f"the mesh's first device {mesh.devices[0]} is not "
+                                 f"the Database's ({self._home})")
+            for d in mesh.distinct_devices()[1:]:
+                if d.type == "cuda":
+                    from heavydb_tpu_torch.kernels.gate import kernel_gate
+
+                    kernel_gate(d)
+        for key, _ in self.scan_cache.items():
+            if _is_block_key(key):
+                self.scan_cache.pop(key)
+        self._mesh = mesh
 
     # ------------------------------------------------------------------
     # entry
@@ -298,6 +349,7 @@ class Executor:
         no room)."""
         self.join_runs = []
         self.window_runs = []
+        self.shard_runs = []
         hints = self.exec_hints
         limit_ms = 0
         if self.config.enable_dynamic_watchdog or hints.get("dynamic_watchdog") \
@@ -695,6 +747,13 @@ class Executor:
                         cat = torch.cat([cat, pad])
                     cols.append(cat)
                     continue
+            if arr is None and fkey is None and self._sharded() and not self._views():
+                # a node that runs gathered, over the shards' resident row
+                # blocks copied to the Database's device (not cached)
+                gathered = self._gathered_column(t, cd, size)
+                if gathered is not None:
+                    cols.append(gathered)
+                    continue
             if arr is None and cd.type.is_none_string:
                 # TEXT ENCODING NONE scans as ids of the table's lazy
                 # dictionary of this generation (the reference's
@@ -820,7 +879,6 @@ class Executor:
             cols = inp.cols if not off else [
                 None if c is None else c[off:] for c in inp.cols]
             return B.Batch(list(cols), n_out, list(node.types))
-        key_specs = [(asc, nf) for _, asc, nf in node.keys]
         key_idxs = [i for i, _, _ in node.keys]
         limit_total = (node.limit or 0) + (node.offset or 0)
         composite_specs = None
@@ -828,10 +886,16 @@ class Executor:
             composite_specs = self._composite_sort_plan(node, child)
         topk_eligible = (
             node.limit is not None
-            and 0 < limit_total <= 16384
+            and 0 < limit_total <= _TOPK_MAX
             and ((len(node.keys) == 1
                   and not node.types[key_idxs[0]].is_dict_string)
                  or composite_specs is not None))
+        if node.limit is not None and 0 < limit_total <= _TOPK_MAX \
+                and child.id not in memo and self._sharded():
+            st = self._try_sharded_topk(node, child, limit_total, topk_eligible,
+                                        composite_specs)
+            if st is not None:
+                return st
         # ORDER BY ... LIMIT over fragment waves, without the whole input
         if topk_eligible and child.id not in memo:
             st = self._try_stream_topk(node, child, limit_total, composite_specs)
@@ -843,10 +907,15 @@ class Executor:
             return B.Batch(inp.cols, 0, list(node.types))
         if topk_eligible:
             return self._exec_topk(node, inp, limit_total, specs=composite_specs)
+        return self._sorted_rows(node, child, inp, node.offset or 0, node.limit)
 
-        # the full sort; dictionary strings sort by their lexicographic rank
+    def _sorted_rows(self, node: R.Sort, child, inp: B.Batch, off: int,
+                     limit: Optional[int]) -> B.Batch:
+        """The full sort of inp's rows (dictionary strings by their
+        lexicographic rank, a stable sort), rows [off, off + limit) kept."""
+        n = inp.nrows
         key_tvs = []
-        for idx in key_idxs:
+        for idx, _, _ in node.keys:
             ti = inp.types[idx]
             val = inp.cols[idx]
             valid = derive_valid(val, ti) if ti.nullable else None
@@ -856,12 +925,11 @@ class Executor:
                 safe = val.clamp(0, tbl.shape[0] - 1).to(torch.int64)
                 val = torch.where(val >= 0, tbl[safe], -1)
             key_tvs.append((val, valid))
-        perm, _, _ = S.sort_permutation(key_tvs, key_specs,
+        perm, _, _ = S.sort_permutation(key_tvs, [(asc, nf) for _, asc, nf in node.keys],
                                         self._in_domain(inp.padded, n))
-        off = node.offset or 0
         n_out = max(n - off, 0)
-        if node.limit is not None:
-            n_out = min(n_out, node.limit)
+        if limit is not None:
+            n_out = min(n_out, limit)
         # gather only the rows the result keeps (the reference slices
         # c[off : off + bucket(n_out)] when there is an offset)
         take = perm[off: off + B.bucket(n_out)]
@@ -908,32 +976,12 @@ class Executor:
         rule: a Scan, or a non-aggregate Compound over one, of 2+
         fragments, past the stream threshold)."""
         cfg = self.config
-        thr = cfg.stream_threshold_bytes
-        if thr < 0:
+        thr = self._stream_threshold()
+        src = _topk_source(child)
+        if thr < 0 or src is None or len(src[0].table.fragments) < 2:
             return None
-        if thr == 0:
-            thr = (self.scan_cache.budget_bytes or (11 << 30)) // 2
-        if isinstance(child, R.Scan):
-            scan, compound = child, None
-        elif (isinstance(child, R.Compound) and not child.is_aggregate
-              and not child.join_levels and len(child.inputs) == 1
-              and isinstance(child.inputs[0], R.Scan)):
-            scan, compound = child.inputs[0], child
-        else:
-            return None
+        scan, compound, scan_needed, row_bytes = src
         t = scan.table
-        if len(t.fragments) < 2:
-            return None
-        if compound is None:
-            scan_needed = set(range(scan.arity))
-        else:
-            scan_needed = set()
-            for e in _iter_node_exprs(compound):
-                scan_needed |= {r.field_idx for r in E.collect_input_refs(e)}
-        if any(_scan_field_type(t, f).is_array for f in scan_needed):
-            return None
-        row_bytes = max(sum(_scan_field_type(t, f).np_dtype().itemsize
-                            for f in scan_needed), 1)
         if t.num_rows * row_bytes <= thr:
             return None
         frag_ids = None
@@ -977,6 +1025,12 @@ class Executor:
         cat = B.concat_batches(winners)
         cat.types = list(node.types)
         return self._exec_topk(node, cat, k_total, specs=composite_specs)
+
+    def _stream_threshold(self) -> int:
+        """Config.stream_threshold_bytes resolved: 0 is half the scan
+        cache's budget; -1 never streams."""
+        thr = self.config.stream_threshold_bytes
+        return (self.scan_cache.budget_bytes or (11 << 30)) // 2 if thr == 0 else thr
 
     def _exec_topk(self, node: R.Sort, inp: B.Batch, k_total: int,
                    apply_offset: bool = True, specs=None) -> B.Batch:
@@ -1031,11 +1085,21 @@ class Executor:
         ident = self._try_identity_projection(node, memo)
         if ident is not None:
             return ident
+        if self._sharded():
+            out = self._try_sharded_compound(node, memo)
+            if out is not None:
+                return out
         sp = self._stream_plan(node)
         if sp is not None:
-            return self._exec_compound_streamed(node, sp)
-        batches, plan = self._prepare_compound(node, memo)
-        return self._run_compound(node, batches, plan)
+            out, tier = self._exec_compound_streamed(node, sp), "waves"
+        else:
+            batches, plan = self._prepare_compound(node, memo)
+            out = self._run_compound(node, batches, plan)
+            tier = _tier_of(plan)
+        if self._sharded():
+            self.shard_runs.append(ShardRun(f"Compound#{node.id}", "compound", "gathered",
+                                            [tier]))
+        return out
 
     def _try_identity_projection(self, node: R.Compound, memo):
         """Pure column-subset/reorder projections ALIAS the child's device
@@ -1153,13 +1217,7 @@ class Executor:
         if isinstance(inp, R.TableData):
             # the merge of a streamed Compound's partial rows: held to the
             # free memory, never streamed
-            work_row = (sum(ti.np_dtype().itemsize for ti in inp.types)
-                        + self._tier_row_bytes(node, inp.num_rows))
-            free = free_device_bytes(self.device, inp.num_rows * work_row)
-            if free is not None and inp.num_rows * work_row > free:
-                raise DeviceMemoryExceeded(
-                    f"merging {inp.num_rows} partial rows x {work_row} B needs "
-                    f"more than the {free} B free on {self.device}")
+            self._check_merge_memory(node, inp.num_rows, inp.types)
             return None
         if not isinstance(inp, R.Scan):
             return None
@@ -1179,7 +1237,7 @@ class Executor:
         work_row = row_bytes + self._tier_row_bytes(node, sum(rows))
         free = free_device_bytes(self.device, sum(rows) * work_row)
         by_memory = free is not None and sum(rows) * work_row > free
-        thr = self.config.stream_threshold_bytes
+        thr = self._stream_threshold()
         if thr < 0 or len(t.fragments) < 2 or not decomposable(node):
             if by_memory:
                 raise DeviceMemoryExceeded(
@@ -1187,8 +1245,6 @@ class Executor:
                     f"{free} B free on {self.device}, and this query cannot "
                     "run in fragment waves")
             return None
-        if thr == 0:
-            thr = (self.scan_cache.budget_bytes or (11 << 30)) // 2
         if by_memory:
             if max(rows) * work_row > free // 2:
                 raise DeviceMemoryExceeded(
@@ -1199,6 +1255,18 @@ class Executor:
         elif t.num_rows * col_bytes <= thr:
             return None
         return StreamPlan(thr, row_bytes, work_row, by_memory, frag_ids)
+
+    def _check_merge_memory(self, node: R.Compound, nrows: int, types) -> None:
+        """DeviceMemoryExceeded when a merge Compound over nrows partial
+        rows (their columns and the group-by tier's working bytes) would
+        not fit the free memory."""
+        work_row = (sum(ti.np_dtype().itemsize for ti in types)
+                    + self._tier_row_bytes(node, nrows))
+        free = free_device_bytes(self.device, nrows * work_row)
+        if free is not None and nrows * work_row > free:
+            raise DeviceMemoryExceeded(
+                f"merging {nrows} partial rows x {work_row} B needs "
+                f"more than the {free} B free on {self.device}")
 
     def _exec_compound_streamed(self, node: R.Compound, sp: "StreamPlan") -> B.Batch:
         """Execute in fragment waves: per-wave Compound with decomposed
@@ -1241,6 +1309,391 @@ class Executor:
                          arrays, [getattr(wt, "dict_ref", None) for wt in wave_targets])
         merge_node = make_merge_node(node, wave_aggs, fin, td)
         return self._exec(merge_node, {}, set(range(merge_node.arity)))
+
+    # ---- sharded execution (a mesh of more than one shard) ----
+    # The reference row-shards every scanned column over its mesh and lets
+    # XLA partition each Compound.  Here each shard's row block of the probe
+    # Scan (`parallel/mesh.shard_blocks`) is a view of the resident column
+    # when every shard is the Database's device, else its own copy resident
+    # on the shard's device; each shard runs a leaf over its block on its
+    # device, and the leaves' results meet on the Database's device.
+    def _sharded(self) -> bool:
+        return self._mesh is not None and self._mesh.size > 1
+
+    def _views(self) -> bool:
+        """Every shard is the Database's device: a block is a view."""
+        return self._mesh.distinct_devices() == [self._home]
+
+    @contextlib.contextmanager
+    def _on_device(self, dev: torch.device):
+        """The calling thread's work runs on dev (its tensors, kernels,
+        aux tables and memory checks; CUDA's current device) inside."""
+        prev = getattr(self._tls, "shard_device", None)
+        self._tls.shard_device = dev
+        try:
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    yield
+            else:
+                yield
+        finally:
+            self._tls.shard_device = prev
+
+    def _on_shards(self, blocks, fn) -> list:
+        """fn(lo, hi) over each block on its device, the results in block
+        order.  The blocks of one device run one after another; with more
+        than one device, one host thread a device runs them at the same
+        time, carrying the query's interrupt hook, deadline and hints, and
+        a checkpoint raised in one stops the others.  The threads' counters
+        and records (h2d_bytes, waves_run, join_runs, last_stream) add to
+        the caller's; the first error raised is raised here."""
+        by_dev: Dict[torch.device, List[int]] = {}
+        for i, b in enumerate(blocks):
+            by_dev.setdefault(b.device, []).append(i)
+        out: list = [None] * len(blocks)
+
+        def run(dev, idxs):
+            with self._on_device(dev):
+                for i in idxs:
+                    self._checkpoint()
+                    out[i] = fn(blocks[i].lo, blocks[i].hi)
+
+        if len(by_dev) == 1:
+            run(*next(iter(by_dev.items())))
+            return out
+        check, deadline, hints = self.interrupt_check, self._deadline, self.exec_hints
+        stop = threading.Event()
+        errors: List[BaseException] = []
+        lock = threading.Lock()
+
+        def shard_thread(dev, idxs):
+            # a pool thread may take a second device's shards: its records
+            # start empty for each
+            self.interrupt_check = lambda: stop.is_set() or bool(check and check())
+            self._deadline, self.exec_hints = deadline, hints
+            self.h2d_bytes, self.waves_run, self.join_runs, self.last_stream = 0, 0, [], None
+            try:
+                run(dev, idxs)
+            except Exception as e:  # raised again by the caller, below
+                with lock:
+                    errors.append(e)
+                stop.set()
+            return self.h2d_bytes, self.waves_run, self.join_runs, self.last_stream
+
+        with concurrent.futures.ThreadPoolExecutor(len(by_dev)) as pool:
+            stats = [f.result() for f in [pool.submit(shard_thread, d, idxs)
+                                          for d, idxs in by_dev.items()]]
+        for h2d, waves, joins, last in stats:
+            self.h2d_bytes += h2d
+            self.waves_run += waves
+            self.join_runs.extend(joins)
+            if last is not None:
+                self.last_stream = last
+        if errors:
+            raise errors[0]
+        return out
+
+    def _blocks_to_run(self, scan: R.Scan, filter_cond) -> list:
+        """The shards' non-empty row blocks of a scan that overlap a
+        fragment the filter's chunk stats leave (a block spans parts of
+        fragments); the first block when none does, so that a keyless
+        aggregate still has its row."""
+        t = scan.table
+        blocks = [b for b in shard_blocks(self._mesh, t.num_rows) if b.hi > b.lo]
+        if filter_cond is not None and len(t.fragments) > 1:
+            frag_ids = self._surviving_fragments(scan, filter_cond)
+            if frag_ids is not None:
+                gstart = np.cumsum([0] + [f.num_rows for f in t.fragments])
+                spans = [(int(gstart[f]), int(gstart[f + 1])) for f in frag_ids]
+                blocks = [b for b in blocks
+                          if any(a < b.hi and b.lo < e for a, e in spans)] or blocks[:1]
+        return blocks
+
+    def _scan_rows(self, scan: R.Scan, needed, lo: int, hi: int, keep: bool) -> B.Batch:
+        """Rows [lo, hi) of a Scan's needed columns on this thread's
+        device, null-padded to their bucket, uploaded through
+        `_staged_put` from the fragments they cross: a shard's row block,
+        kept in the scan cache under its range and device (`keep`), or a
+        wave of one, for this run only."""
+        t = scan.table
+        m = hi - lo
+        size = B.bucket(m)
+        dev = self.device
+        gstart = np.cumsum([0] + [f.num_rows for f in t.fragments])
+        cols: List[Optional[torch.Tensor]] = []
+        for i in range(scan.arity):
+            if i not in needed:
+                cols.append(None)
+            elif i >= len(t.columns):  # the virtual rowid: global positions
+                rid = torch.full((size,), T.bigint().null_sentinel(), dtype=torch.int64,
+                                 device=dev)
+                rid[:m] = torch.arange(lo, hi, dtype=torch.int64, device=dev)
+                cols.append(rid)
+            else:
+                cd = t.columns[i]
+                key = _block_key(t, cd.col_id, lo, hi, dev)
+                arr = self.scan_cache.get(key) if keep else None
+                if arr is None:
+                    if cd.type.is_none_string:
+                        _, ids = t.lazy_text_dict(cd.col_id)
+                        parts = [ids[lo:hi]]
+                        ti, rng = T.text_dict(nullable=cd.type.nullable), None
+                    else:
+                        parts = [np.asarray(f.chunks[cd.col_id])[max(lo, a) - a:min(hi, e) - a]
+                                 for f, a, e in zip(t.fragments, gstart[:-1], gstart[1:])
+                                 if a < hi and lo < e]
+                        ti, rng = cd.type, t.column_range(cd.col_id)
+                    arr = self._staged_put(parts, size, ti, rng)
+                    if keep:
+                        self.scan_cache[key] = arr
+                cols.append(arr)
+        return B.Batch(cols, m, list(scan.types))
+
+    def _gathered_column(self, t, cd, size: int) -> Optional[torch.Tensor]:
+        """A column whose shards' row blocks are all resident, copied from
+        their devices onto the Database's and null-padded to size, for a
+        node that runs gathered; None when a block is not resident."""
+        arrs = []
+        for b in shard_blocks(self._mesh, t.num_rows):
+            if b.hi > b.lo:
+                blk = self.scan_cache.get(_block_key(t, cd.col_id, b.lo, b.hi, b.device))
+                if blk is None:
+                    return None
+                arrs.append(blk[:b.hi - b.lo].to(self._home))
+        if not arrs:
+            return None
+        arrs.append(torch.full((size - t.num_rows,), cd.type.null_sentinel(),
+                               dtype=arrs[0].dtype, device=self._home))
+        return torch.cat(arrs)
+
+    def _resident_rows(self, scan: R.Scan, needed, row_bytes: int,
+                       work_bytes: int) -> Optional[B.Batch]:
+        """On a mesh of the Database's device alone: the needed columns over
+        the whole table, resident there (uploaded now unless their bytes
+        with work_bytes pass the free memory), of which the blocks are
+        views; None elsewhere (blocks resident on their devices, or waves
+        uploaded one at a time)."""
+        if not self._views():
+            return None
+        t = scan.table
+        size = B.bucket(t.num_rows)
+        resident = all(self.scan_cache.get((t.table_id, t.generation, t.columns[f].col_id,
+                                            size, None)) is not None
+                       for f in needed if f < len(t.columns))
+        need = work_bytes + (0 if resident else t.num_rows * row_bytes)
+        free = free_device_bytes(self._home, need)
+        if free is not None and need > free:
+            return None
+        return self._exec_scan(scan, needed)
+
+    def _block_rows(self, scan: R.Scan, needed, block, lo: int, hi: int,
+                    full: Optional[B.Batch]) -> B.Batch:
+        """Rows [lo, hi) of a shard's block (block = its (lo, hi)) on this
+        thread's device: a view of `full` or of the resident block, the
+        block itself (made resident), or a wave uploaded for this run."""
+        def view(b, a):
+            return B.Batch([None if c is None else c[lo - a:hi - a] for c in b.cols],
+                           hi - lo, list(b.types))
+
+        if full is not None:
+            return view(full, 0)
+        if self._views():
+            return self._scan_rows(scan, needed, lo, hi, keep=False)
+        if (lo, hi) == tuple(block):
+            return self._scan_rows(scan, needed, lo, hi, keep=True)
+        t = scan.table
+        cols = [None] * scan.arity
+        for f in needed:
+            if f < len(t.columns):
+                cols[f] = self.scan_cache.get(_block_key(t, t.columns[f].col_id, *block,
+                                                         self.device))
+        if all(cols[f] is not None for f in needed):
+            return view(B.Batch(cols, block[1] - block[0], list(scan.types)), block[0])
+        return self._scan_rows(scan, needed, lo, hi, keep=False)
+
+    def _shard_waves(self, node: R.Compound, m: int, row_bytes: int) -> list:
+        """The row ranges [a, b) of a shard's block of m rows its leaf runs
+        over: the whole block, or waves when the block's needed column
+        bytes pass the stream threshold or its rows with the tier's working
+        bytes pass the free memory of this thread's device (the rule of
+        `_stream_plan`, over the block; a block splits at any row)."""
+        work_row = row_bytes + self._tier_row_bytes(node, m)
+        free = free_device_bytes(self.device, m * work_row)
+        by_memory = free is not None and m * work_row > free
+        thr = self._stream_threshold()
+        if thr < 0:
+            if by_memory:
+                raise DeviceMemoryExceeded(
+                    f"a shard's {m} rows x {work_row} B need more than the {free} B "
+                    f"free on {self.device}, and streaming is off")
+            return [(0, m)]
+        if by_memory:
+            thr = min(thr, free * row_bytes // work_row)
+        elif m * row_bytes <= thr:
+            return [(0, m)]
+        step = max(1, thr // 2 // row_bytes)
+        waves = [(a, min(a + step, m)) for a in range(0, m, step)]
+        self.last_stream = StreamPlan(thr, row_bytes, work_row, by_memory, [], len(waves))
+        return waves
+
+    def _try_sharded_compound(self, node: R.Compound, memo) -> Optional[B.Batch]:
+        """Run an aggregate or join Compound as one leaf a shard over the
+        probe Scan's row blocks, each on its shard's device, when it has the
+        shape that shards: its first input a Scan with rows and no array
+        column read from it; an aggregate decomposable
+        (`partial_agg.decomposable`, the stream rule's); joins with an
+        equality at each level and none FULL, whose build sides run once on
+        the Database's device and are copied to every other distinct device
+        (the reference keeps such tables replicated), with the probe kept
+        first by the runtime reorder.  An aggregate leaf is `make_leaf_node`
+        on the tier `_plan_compound` picks for its block, streamed in waves
+        past the threshold or the device's memory (`_shard_waves`); the
+        partials merge on the Database's device through `make_merge_node`.
+        A join's projected rows are concatenated there in shard order.
+        None: the Compound runs gathered."""
+        from heavydb_tpu_torch.plan.optimizer import _reorder_joins
+
+        scan = node.inputs[0]
+        if not isinstance(scan, R.Scan) or scan.table.num_rows == 0:
+            return None
+        if (not decomposable(node)) if node.is_aggregate else not node.join_levels:
+            return None
+        offsets = _input_offsets(node)
+        for li, (kind, cond) in enumerate(node.join_levels):
+            lo = offsets[li + 1]
+            if kind == "FULL" or (cond is not None and not _split_join_condition(
+                    cond, lo, lo + node.inputs[li + 1].arity)[0]):
+                return None  # build rows unmatched on every shard; a spatial join
+        t = scan.table
+        needed = _input_fields(node, offsets)[0]
+        if any(_scan_field_type(t, f).is_array for f in needed):
+            return None
+        builds = []
+        if node.join_levels:
+            per_input = _input_fields(node, offsets)
+            builds = [self._exec_input(node, i, memo, per_input[i], offsets)
+                      for i in range(1, len(node.inputs))]
+            _reorder_joins(node, sizes=[t.num_rows] + [b.nrows for b in builds])
+            order = node.__dict__.pop("_reordered", None)
+            if order:
+                if order[0] != 0:
+                    return None  # another input probes: gathered
+                builds = [builds[i - 1] for i in order[1:]]
+                offsets = _input_offsets(node)
+            self._static_watchdog(node, t.num_rows)
+        leaf, wave_aggs, fin = make_leaf_node(node) if node.is_aggregate else (node, None, None)
+        blocks = self._blocks_to_run(scan, node.filter_cond)
+        row_bytes = max(sum(_scan_field_type(t, f).np_dtype().itemsize for f in needed), 1)
+        m = max(b.hi - b.lo for b in blocks)
+        full = self._resident_rows(scan, needed, row_bytes,
+                                   m * self._tier_row_bytes(leaf, m) if node.is_aggregate else 0)
+        replicas = {d: builds if d == self._home else [_batch_to(b, d) for b in builds]
+                    for d in {b.device for b in blocks}}
+
+        def leaf_runs(lo, hi):
+            waves = [(0, hi - lo)] if node.join_levels else \
+                self._shard_waves(leaf, hi - lo, row_bytes)
+            outs = []
+            for a, b in waves:
+                self._checkpoint()
+                batches = [self._block_rows(scan, needed, (lo, hi), lo + a, lo + b, full)] \
+                    + replicas[self.device]
+                plan = self._plan_compound(leaf, batches, offsets)
+                outs.append((self._run_compound(leaf, batches, plan), _tier_of(plan)))
+                if len(waves) > 1:
+                    self.waves_run += 1
+            return outs
+
+        runs = [r for rs in self._on_shards(blocks, leaf_runs) for r in rs]
+        tiers = [tier for _, tier in runs]
+        parts = [_batch_to(out, self._home, live=True) for out, _ in runs]
+        del runs  # the merge frees the partials once they are concatenated
+        merge_tier = None
+        if node.is_aggregate:
+            out, merge_tier = self._merge_partials(node, leaf, wave_aggs, fin, parts)
+        else:
+            out = B.concat_batches(parts)
+            out.types = list(node.types)
+            parts.clear()
+        self.shard_runs.append(ShardRun(
+            f"Compound#{node.id}", "join" if node.join_levels else "aggregate", "sharded",
+            tiers, merge_tier, len(blocks), len(tiers)))
+        return out
+
+    def _merge_partials(self, node, leaf, wave_aggs, fin, parts):
+        """The leaves' partial rows, on the Database's device, merged by
+        `make_merge_node` (the waves' path) over a partial-rows source that
+        carries the group keys' ranges, so that the merge takes the tier
+        their slots give.  `parts` is emptied once concatenated, so that the
+        partials are freed before the merge runs.  Returns the result and
+        the merge's tier."""
+        cat = B.concat_batches(parts)
+        parts.clear()
+        td = R.TableData(leaf.fields, [wt.type for wt in leaf.target_exprs], [],
+                         [getattr(wt, "dict_ref", None) for wt in leaf.target_exprs])
+        td.field_ranges = _group_ranges(node)
+        merge = make_merge_node(node, wave_aggs, fin, td)
+        self._check_merge_memory(merge, cat.nrows, td.types)
+        batches, plan = self._prepare_compound(merge, {td.id: cat})
+        return self._run_compound(merge, batches, plan), _tier_of(plan)
+
+    def _try_sharded_topk(self, node: R.Sort, child, k_total: int, topk: bool,
+                          specs) -> Optional[B.Batch]:
+        """ORDER BY ... LIMIT k over a Scan, or a non-aggregate Compound on
+        one Scan, shard by shard: each shard keeps its k best rows (the
+        top-k select when `topk`, else the stable full sort's first k), in
+        waves past the stream threshold as `_try_stream_topk` runs them;
+        those rows meet on the Database's device in shard order, and one
+        last select takes the global k with the reference's tie order (the
+        row order).  None when the child has another shape."""
+        src = _topk_source(child)
+        if src is None or src[0].table.num_rows == 0:
+            return None
+        scan, compound, needed, row_bytes = src
+        t = scan.table
+        if compound is not None:
+            self._static_watchdog(compound, t.num_rows)
+        cfg = self.config
+        blocks = self._blocks_to_run(scan, compound.filter_cond if compound else None)
+        full = self._resident_rows(scan, needed, row_bytes, 0)
+        thr = self._stream_threshold()
+
+        def best(batch, final):
+            if topk:
+                return self._exec_topk(node, batch, k_total, apply_offset=final, specs=specs)
+            if final:
+                return self._sorted_rows(node, child, batch, node.offset or 0, node.limit)
+            return self._sorted_rows(node, child, batch, 0, k_total)
+
+        def shard_best(lo, hi):
+            step = hi - lo
+            if thr >= 0 and (hi - lo) * row_bytes > thr:
+                step = max(1, min(thr // 2 // row_bytes, cfg.topk_stream_row_cap))
+            waves = [(a, min(a + step, hi)) for a in range(lo, hi, step)]
+            winners = []
+            for a, b in waves:
+                self._checkpoint()
+                batch = self._block_rows(scan, needed, (lo, hi), a, b, full)
+                if compound is not None:
+                    batch = self._run_compound(compound, [batch],
+                                               self._plan_compound(compound, [batch]))
+                if len(waves) > 1:
+                    self.waves_run += 1
+                if batch.nrows:
+                    winners.append(best(batch, False))
+            return len(waves), winners
+
+        results = self._on_shards(blocks, shard_best)
+        winners = [_batch_to(w, self._home, live=True) for _, ws in results for w in ws]
+        self.shard_runs.append(ShardRun(
+            f"Sort#{node.id}", "topk", "sharded", ["select" if topk else "sort"] * len(winners),
+            "select" if topk else "sort", len(blocks), sum(n for n, _ in results)))
+        if not winners:
+            return B.from_host_columns([np.empty(0, ti.np_dtype()) for ti in node.types],
+                                       0, node.types, self.device)
+        cat = B.concat_batches(winners)
+        cat.types = list(node.types)
+        return best(cat, True)
 
     def _tier_row_bytes(self, node: R.Compound, nrows: Optional[int] = None) -> int:
         """Device bytes a row of the Compound's group-by holds beside its
@@ -1322,29 +1775,9 @@ class Executor:
         own field offset), its inputs reordered by their sizes at run time
         when it joins, and its plan."""
         offsets = _input_offsets(node)
-        # group / filter / join refs are over the combined input domain; an
-        # aggregate's targets read its outputs, so they are left out
-        if node.is_aggregate:
-            exprs = list(node.group_exprs) + list(node.aggs) + [
-                c for _, c in node.join_levels if c is not None] + (
-                [node.filter_cond] if node.filter_cond is not None else [])
-        else:
-            exprs = list(_iter_node_exprs(node))
-        per_input = [set() for _ in node.inputs]
-        for e in exprs:
-            for r in E.collect_input_refs(e):
-                i = input_of_field(offsets, r.field_idx)[0]
-                per_input[i].add(r.field_idx - offsets[i])
-        batches = []
-        for i, inp in enumerate(node.inputs):
-            frag_ids = None
-            if isinstance(inp, R.Scan) and node.filter_cond is not None \
-                    and len(inp.table.fragments) > 1:
-                frag_ids = self._surviving_fragments(inp, node.filter_cond, offsets[i])
-            if frag_ids is not None:
-                batches.append(self._exec_scan(inp, per_input[i], frag_ids))
-            else:
-                batches.append(self._exec(inp, memo, per_input[i]))
+        per_input = _input_fields(node, offsets)
+        batches = [self._exec_input(node, i, memo, per_input[i], offsets)
+                   for i in range(len(node.inputs))]
         if len(node.inputs) > 1:
             # the runtime half of the reference's FromTableReordering: the
             # inputs' real (post-filter, where probed) sizes pick the probe
@@ -1360,6 +1793,17 @@ class Executor:
                 batches = [batches[i] for i in order]
                 offsets = _input_offsets(node)
         return batches, self._plan_compound(node, batches, offsets)
+
+    def _exec_input(self, node: R.Compound, i: int, memo, needed, offsets) -> B.Batch:
+        """Input i of a Compound, its needed fields only; a Scan's fragments
+        skipped by the filter's chunk stats."""
+        inp = node.inputs[i]
+        if isinstance(inp, R.Scan) and node.filter_cond is not None \
+                and len(inp.table.fragments) > 1:
+            frag_ids = self._surviving_fragments(inp, node.filter_cond, offsets[i])
+            if frag_ids is not None:
+                return self._exec_scan(inp, needed, frag_ids)
+        return self._exec(inp, memo, needed)
 
     def _selectivity_sizes(self, node, batches, offsets, sizes):
         """Post-filter row count per join input: the rows of each input that
@@ -1494,16 +1938,7 @@ class Executor:
                              distinct_force_sort=not cfg.enable_hash_groupby,
                              udfs=getattr(self.db, "_udfs", {}))
         probe = batches[0]
-        # the static watchdog (the reference's pre-execution check): a
-        # projection over more rows than the limit is refused
-        hints = self.exec_hints
-        watchdog = (cfg.enable_watchdog or hints.get("watchdog")) \
-            and not hints.get("no_watchdog")
-        if watchdog and not node.is_aggregate \
-                and probe.nrows > cfg.watchdog_max_projected_rows:
-            raise WatchdogException(
-                f"projection over {probe.nrows:,} rows exceeds the watchdog "
-                f"limit ({cfg.watchdog_max_projected_rows:,})")
+        self._static_watchdog(node, probe.nrows)
         if node.filter_cond is not None and node.join_levels \
                 and not any(k == "FULL" for k, _ in node.join_levels):
             self._split_filter(node, offsets, plan)
@@ -1579,6 +2014,19 @@ class Executor:
             plan.group_cap = 1
         plan.aux_specs.update(_expr_aux_specs(_iter_node_exprs(node)))
         return plan
+
+    def _static_watchdog(self, node: R.Compound, nrows: int) -> None:
+        """The static watchdog (the reference's pre-execution check): a
+        projection over more rows than the limit is refused."""
+        cfg = self.config
+        hints = self.exec_hints
+        watchdog = (cfg.enable_watchdog or hints.get("watchdog")) \
+            and not hints.get("no_watchdog")
+        if watchdog and not node.is_aggregate \
+                and nrows > cfg.watchdog_max_projected_rows:
+            raise WatchdogException(
+                f"projection over {nrows:,} rows exceeds the watchdog "
+                f"limit ({cfg.watchdog_max_projected_rows:,})")
 
     def _split_filter(self, node: R.Compound, offsets, plan) -> None:
         """Filter push-down into the join pipeline (the reference's
@@ -1799,6 +2247,8 @@ class Executor:
 
     def _get_kernel(self, node, batches, plan):
         key = self._kernel_key(node, batches, plan)
+        if self.device != self._home:
+            key += (str(self.device),)  # a shard's program on its own device
         hit = self.kernel_cache.get(key)
         if hit is None:
             hit = build_compound_kernel(node, batches, plan, self.device)
@@ -1868,16 +2318,21 @@ class Executor:
     def _cached(self, key, make):
         """aux_cache[key], made on the host by make() and copied to the
         device (a tuple of tables copies each table and keeps any other
-        item as it is) on a miss."""
+        item as it is) on a miss.  A shard's device keeps its own copy."""
+        if self.device != self._home:
+            key += (str(self.device),)
         hit = self.aux_cache.get(key)
         if hit is None:
-            host = make()
-            if isinstance(host, tuple):
-                hit = tuple(self._to_device(h) if isinstance(h, np.ndarray) else h
-                            for h in host)
-            else:
-                hit = self._to_device(host)
-            self.aux_cache[key] = hit
+            with self._aux_lock:
+                hit = self.aux_cache.get(key)
+                if hit is None:
+                    host = make()
+                    if isinstance(host, tuple):
+                        hit = tuple(self._to_device(h) if isinstance(h, np.ndarray) else h
+                                    for h in host)
+                    else:
+                        hit = self._to_device(host)
+                    self.aux_cache[key] = hit
         return hit
 
     def _strpred_table(self, pred: E.DictStrPredicate):
@@ -2598,6 +3053,24 @@ class JoinRun:
 
 
 @dataclasses.dataclass
+class ShardRun:
+    """How a Compound or a top-k Sort ran on a mesh: `mode` "sharded" (a
+    leaf a shard, `kind` aggregate / join / topk) or "gathered" (`kind`
+    compound, on the Database's device); `tiers` the group-by tier of each
+    leaf run ("select" / "sort" for a top-k's shard rows; "waves" for a
+    streamed gathered Compound), `merge_tier` the merge's, `shards` the
+    shards that ran, `leaf_runs` the leaves run (waves included)."""
+
+    node: str
+    kind: str
+    mode: str
+    tiers: List[str]
+    merge_tier: Optional[str] = None
+    shards: int = 0
+    leaf_runs: int = 0
+
+
+@dataclasses.dataclass
 class _KernelLayout:
     batch_cols: list = None  # [(batch_idx, [col_idx...])...]
     nrows_batches: list = None
@@ -2605,6 +3078,73 @@ class _KernelLayout:
 
 
 _NO_PACK = object()
+
+# ORDER BY ... LIMIT takes the top-k select (and shards) up to this many rows
+_TOPK_MAX = 16384
+
+
+def _tier_of(plan) -> str:
+    return plan.group_strategy[0] if plan.group_strategy else "projection"
+
+
+def _input_fields(node: R.Compound, offsets) -> List[set]:
+    """Each input's fields a Compound reads (local to the input).  Group,
+    filter and join refs are over the combined input domain; an
+    aggregate's targets read its outputs, so they are left out."""
+    if node.is_aggregate:
+        exprs = list(node.group_exprs) + list(node.aggs) + [
+            c for _, c in node.join_levels if c is not None] + (
+            [node.filter_cond] if node.filter_cond is not None else [])
+    else:
+        exprs = list(_iter_node_exprs(node))
+    per_input = [set() for _ in node.inputs]
+    for e in exprs:
+        for r in E.collect_input_refs(e):
+            i = input_of_field(offsets, r.field_idx)[0]
+            per_input[i].add(r.field_idx - offsets[i])
+    return per_input
+
+
+def _topk_source(child):
+    """(scan, compound or None, the scan's needed fields, their bytes a row)
+    of a top-k Sort's child that streams or shards: a Scan, or a
+    non-aggregate Compound with no join over one, reading no array column;
+    None for another child."""
+    if isinstance(child, R.Scan):
+        scan, compound = child, None
+        needed = set(range(scan.arity))
+    elif (isinstance(child, R.Compound) and not child.is_aggregate
+          and not child.join_levels and len(child.inputs) == 1
+          and isinstance(child.inputs[0], R.Scan)):
+        scan, compound = child.inputs[0], child
+        needed = set()
+        for e in _iter_node_exprs(compound):
+            needed |= {r.field_idx for r in E.collect_input_refs(e)}
+    else:
+        return None
+    t = scan.table
+    if any(_scan_field_type(t, f).is_array for f in needed):
+        return None
+    return (scan, compound, needed,
+            max(sum(_scan_field_type(t, f).np_dtype().itemsize for f in needed), 1))
+
+
+def _block_key(t, col_id: int, lo: int, hi: int, device) -> tuple:
+    """The scan-cache key of a shard's row block [lo, hi) of a column on a
+    device (a non-None fifth part: `_old_entries` drops it)."""
+    return (t.table_id, t.generation, col_id, B.bucket(hi - lo), ("rows", lo, hi, str(device)))
+
+
+def _is_block_key(key) -> bool:
+    return isinstance(key[4], tuple) and key[4][:1] == ("rows",)
+
+
+def _batch_to(b: B.Batch, device, live: bool = False) -> B.Batch:
+    """b's columns on device (no copy where they are); `live`: only the
+    bucket of its live rows."""
+    n = B.bucket(max(b.nrows, 1)) if live else None
+    return B.Batch([None if c is None else c[:n].to(device) for c in b.cols],
+                   b.nrows, list(b.types))
 
 
 def _names_table(key, table_id: int) -> bool:

@@ -65,6 +65,10 @@ def column_range(node: R.RelNode, field_idx: int) -> Optional[IntRange]:
                 return IntRange(0, 0, ti.nullable) if node.table.num_rows == 0 else None
             return IntRange(int(mn), int(mx), has_nulls)
         return None
+    if isinstance(node, R.TableData):
+        # a sharded merge's partial rows carry the leaf keys' ranges
+        fr = getattr(node, "field_ranges", None)
+        return fr[field_idx] if fr is not None and field_idx < len(fr) else None
     if isinstance(node, (R.Filter, R.Sort)):
         return column_range(node.inputs[0], field_idx)
     if isinstance(node, R.Project):

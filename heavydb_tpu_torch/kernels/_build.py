@@ -193,7 +193,20 @@ def launch_info(call, what: str) -> dict:
                 blocks_per_sm=out[3], threads=out[4])
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counter) -> None:
+    """Add one to a wrapper's launch count (`counter.launches`) under a
+    lock: the shards of a mesh launch from one host thread a device."""
+    with _COUNT_LOCK:
+        counter.launches += 1
+
+
 def stream_ptr(device) -> int:
+    """The current stream of `device`.  A launch sets CUDA's current device
+    to its tensors' device around the call (`torch.cuda.device`): the
+    runtime launches on the calling thread's current device."""
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
@@ -362,11 +375,12 @@ def launch_streams(name: str, gid, mask, streams, num_slots: int, plan,
                 ss.out[j] = o.data_ptr()
             p = plan([op for _, op in chunk])
             cbuf = counts if c0 == 0 else torch.zeros_like(counts)
-            check(fn(gid.data_ptr(), mptr, n, num_slots, ctypes.byref(ss),
-                     cbuf.data_ptr(), TIER_MODES[p.tier], p.cluster, p.threads,
-                     p.smem_bytes, sp), name)
+            with torch.cuda.device(dev):
+                check(fn(gid.data_ptr(), mptr, n, num_slots, ctypes.byref(ss),
+                         cbuf.data_ptr(), TIER_MODES[p.tier], p.cluster, p.threads,
+                         p.smem_bytes, sp), name)
             if counter is not None:
-                counter.launches += 1
+                count_launch(counter)
     res = [counts]
     for (v, op), o in zip(streams, outs):
         res.append(decode_keys(o, v.dtype) if op in ("min", "max") else o)

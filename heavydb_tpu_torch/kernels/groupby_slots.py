@@ -112,14 +112,15 @@ def launch(kind: str, gid, values, mask, num_slots: int, counter=None):
     n = gid.shape[0]
     if n:
         fn = _build.entry("groupby_slots")[kind]
-        _build.check(fn(gid.data_ptr(),
-                        mask.data_ptr() if mask is not None else None,
-                        values.data_ptr() if values is not None else None,
-                        _build.DT_CODES[str(vdt)[6:]] if vdt is not None else -1,
-                        n, num_slots, out.data_ptr(), _build.stream_ptr(dev)),
-                     f"{kind}_per_slot")
+        with torch.cuda.device(dev):
+            _build.check(fn(gid.data_ptr(),
+                            mask.data_ptr() if mask is not None else None,
+                            values.data_ptr() if values is not None else None,
+                            _build.DT_CODES[str(vdt)[6:]] if vdt is not None else -1,
+                            n, num_slots, out.data_ptr(), _build.stream_ptr(dev)),
+                         f"{kind}_per_slot")
         if counter is not None:
-            counter.launches += 1
+            _build.count_launch(counter)
     return out.to(torch.float32) if kind == "sum_f32" else out
 
 

@@ -182,12 +182,13 @@ def radix_partition(gid, streams, num_slots: int, pbits: int):
 
     def run(keys, outs, ins, dst_hb, offsets, cursor, pass_, what):
         ss = _stream_set(ins, outs, ops)
-        _build.check(fn.partition(
-            keys.data_ptr(), n, num_slots, pbits, p2, counts.data_ptr(),
-            None if offsets is None else offsets.data_ptr(),
-            None if cursor is None else cursor.data_ptr(),
-            None if dst_hb is None else dst_hb.data_ptr(), ctypes.byref(ss),
-            pass_, sp), f"radix_partition {what}")
+        with torch.cuda.device(dev):
+            _build.check(fn.partition(
+                keys.data_ptr(), n, num_slots, pbits, p2, counts.data_ptr(),
+                None if offsets is None else offsets.data_ptr(),
+                None if cursor is None else cursor.data_ptr(),
+                None if dst_hb is None else dst_hb.data_ptr(), ctypes.byref(ss),
+                pass_, sp), f"radix_partition {what}")
 
     run(gid, [], [], None, None, None, 0, "histogram")
     offsets = torch.cumsum(counts, 0) - counts
@@ -200,7 +201,7 @@ def radix_partition(gid, streams, num_slots: int, pbits: int):
         run(gid, s_parts, vals, s_hb, offsets, cursor, 1, "level 1")
         cursor.copy_(offsets)
         run(s_hb, parts, s_parts, hb, offsets, cursor, 2, "level 2")
-    radix_partition.launches += 1
+    _build.count_launch(radix_partition)
     return hb, parts, counts, offsets
 
 
@@ -231,23 +232,25 @@ def radix_group(hb, parts, ops, counts, offsets, cap: int):
         # skips the partitions the first launch took
         grids = (P, _build.grid_for(P, dev, 1, 1))
         for (lo, hi), grid in zip(GROUP_LAUNCHES, grids):
-            _build.check(fn.group(hb.data_ptr(), ctypes.byref(ss_parts), None,
-                                  counts.data_ptr(), offsets.data_ptr(), P,
-                                  lo, hi, GROUP_TILE, stage_hb.data_ptr(),
-                                  stage_len.data_ptr(), ng_part.data_ptr(),
-                                  flag.data_ptr(), None, cap, None, None, 0,
-                                  grid, sp), "radix_group")
-        radix_group.launches += 1
+            with torch.cuda.device(dev):
+                _build.check(fn.group(hb.data_ptr(), ctypes.byref(ss_parts), None,
+                                      counts.data_ptr(), offsets.data_ptr(), P,
+                                      lo, hi, GROUP_TILE, stage_hb.data_ptr(),
+                                      stage_len.data_ptr(), ng_part.data_ptr(),
+                                      flag.data_ptr(), None, cap, None, None, 0,
+                                      grid, sp), "radix_group")
+        _build.count_launch(radix_group)
     ng64 = ng_part.to(torch.int64)
     goff = torch.cumsum(ng64, 0) - ng64
     num_groups = ng64.sum()
     if n:
-        _build.check(fn.group(None, None, ctypes.byref(ss_stage),
-                              counts.data_ptr(), offsets.data_ptr(), P, 0, 0,
-                              GROUP_TILE, stage_hb.data_ptr(),
-                              stage_len.data_ptr(), ng_part.data_ptr(), None,
-                              goff.data_ptr(), cap, gid_out.data_ptr(),
-                              len_out.data_ptr(), 1, P, sp), "radix_group compact")
+        with torch.cuda.device(dev):
+            _build.check(fn.group(None, None, ctypes.byref(ss_stage),
+                                  counts.data_ptr(), offsets.data_ptr(), P, 0, 0,
+                                  GROUP_TILE, stage_hb.data_ptr(),
+                                  stage_len.data_ptr(), ng_part.data_ptr(), None,
+                                  goff.data_ptr(), cap, gid_out.data_ptr(),
+                                  len_out.data_ptr(), 1, P, sp), "radix_group compact")
     totals = []
     for v, op, o in zip(parts, ops, keys_out):
         if op in ("min", "max"):

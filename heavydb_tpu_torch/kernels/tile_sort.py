@@ -75,10 +75,11 @@ def sort_tiles(key, payloads=(), rows_per_tile: int = 4096):
         ps.out[j] = o.data_ptr()
     if key.shape[0]:
         fn = _build.entry("tile_sort")
-        _build.check(fn(key.data_ptr(), key_out.data_ptr(), ctypes.addressof(ps),
-                        key.shape[0], rows_per_tile, None,
-                        _build.stream_ptr(key.device)), "tile_sort")
-        sort_tiles.launches += 1
+        with torch.cuda.device(key.device):
+            _build.check(fn(key.data_ptr(), key_out.data_ptr(), ctypes.addressof(ps),
+                            key.shape[0], rows_per_tile, None,
+                            _build.stream_ptr(key.device)), "tile_sort")
+        _build.count_launch(sort_tiles)
     return [key_out] + outs
 
 

@@ -9,13 +9,16 @@ blocks of ceil(size / n) rows, one a shard, or a whole copy on each.
 On the CPU, make_mesh gives n virtual shards, all the CPU device: the role
 that --xla_force_host_platform_device_count plays for the reference.  A
 Mesh may also be built from any list of devices, repeats included, as
-jax.sharding.Mesh can (four shards on one card, say).
+jax.sharding.Mesh can (four shards on one card, say).  `shard_blocks`
+places a scan's rows on the mesh as the executor runs them
+(Config.num_shards): a block of ceil(rows / n) rows a shard, on the
+shard's device; blocks cross fragment boundaries.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +50,24 @@ class Mesh:
 
     def __repr__(self):
         return f"Mesh({self.devices.tolist()}, {self.axis_names})"
+
+
+class Block(NamedTuple):
+    """A shard's rows [lo, hi) of a scan, and the device they live on."""
+
+    shard: int
+    lo: int
+    hi: int
+    device: torch.device
+
+
+def shard_blocks(mesh: Mesh, rows: int) -> List[Block]:
+    """Each shard's row block of a scan of `rows` rows, from the row
+    sharding's `shard_slices`: the last blocks shorter, or empty when rows
+    < shards.  On a mesh whose shards repeat one device a block is a view
+    of the column there; on distinct devices it is the device's own copy."""
+    return [Block(s, sl.start, sl.stop, mesh.devices[s])
+            for s, sl in enumerate(row_sharding(mesh).shard_slices(rows))]
 
 
 def make_mesh(n_devices: Optional[int] = None, device_type: str = "cuda") -> Mesh:

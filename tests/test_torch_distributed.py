@@ -18,7 +18,6 @@ from heavydb_tpu.config import Config as JConfig
 from heavydb_tpu.parallel import dist_query as jdq
 from heavydb_tpu.parallel.mesh import make_mesh as jmake_mesh
 from heavydb_tpu_torch.config import Config as TConfig
-from heavydb_tpu_torch.errors import NotSupported
 from heavydb_tpu_torch.parallel import dist_query as tdq
 from heavydb_tpu_torch.parallel.mesh import (SHARD_AXIS, Mesh, make_mesh, replicated,
                                              row_sharding)
@@ -91,14 +90,17 @@ def test_make_mesh_needs_the_cards():
 
 
 def test_several_cards_in_one_process_raise(monkeypatch):
-    """Shards on distinct cards: NotSupported, pointing to DistEngine; one
-    card short: the reference's ValueError; one shard: no mesh."""
+    """Shards on distinct cards: a mesh of the cards, the Database's first
+    (the sharded path runs on it; tests/test_torch_sharded.py); one card
+    short: the reference's ValueError; one shard: no mesh."""
     ex = hdt_torch.connect(device="cpu").executor
-    ex.device = torch.device("cuda", 0)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotSupported, match="DistEngine"):
-        ex._make_mesh(2)
+    for home, other in ((0, 1), (1, 0)):
+        ex.device = torch.device("cuda", home)
+        mesh = ex._make_mesh(2)
+        assert mesh.devices.tolist() == [torch.device("cuda", home), torch.device("cuda", other)]
+        assert len(mesh.distinct_devices()) == 2
     with pytest.raises(ValueError, match="requested 3 devices, only 2 available"):
         ex._make_mesh(3)
     assert ex._make_mesh(1) is None
