@@ -42,7 +42,8 @@ QUERIES, KILL QUERY and SHOW USER SESSIONS over the providers the port's
 server installs (server/server.py `HeavyTpuServer`: its sessions, their
 running queries, and an interrupt of a session's query).  Query hints reach the executor (the watchdogs, a time limit,
 `keep_result`: the result recycler, keyed by the scanned tables'
-generations); `enable_debug_timer` fills `last_query_timings`.  `load_table`
+generations); `enable_debug_timer` fills the calling thread's
+`last_query_timings`.  `load_table`
 uploads a table of `eager_staging_min_rows` rows or more at once when
 `eager_device_staging` says so (None: on CUDA).
 
@@ -82,6 +83,7 @@ from heavydb_tpu_torch.errors import (BinderError, CatalogError, NotSupported, S
 from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec.executor import Executor, _iter_node_exprs
 from heavydb_tpu_torch.exec.result_set import ResultSet, from_batch
+from heavydb_tpu_torch.kernels import launch_counts
 from heavydb_tpu_torch.ops.groupby import torch_dtype
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
@@ -96,7 +98,7 @@ from heavydb_tpu_torch.storage.persist import (PersistentCatalogStore, TableStor
 from heavydb_tpu_torch.storage.syscatalog import SysCatalog
 from heavydb_tpu_torch.storage.table import (ChunkStats, ColumnDescriptor, LazyDeviceChunk, Table,
                                              from_physical, to_physical)
-from heavydb_tpu_torch.utils.timer import NullTimer, QueryTimer
+from heavydb_tpu_torch.utils.timer import NULL_TIMER, QueryTimer
 
 
 def resolve_device(device=None) -> torch.device:
@@ -140,8 +142,9 @@ class Database:
         # the result recycler: (plan key, scanned tables' generations) ->
         # ResultSet, for queries with the keep_result hint
         self._result_cache: Dict[tuple, ResultSet] = {}
-        # the last SELECT's scope timings (enable_debug_timer), or None
-        self.last_query_timings: Optional[dict] = None
+        # each thread's last SELECT's timer (`last`) and the `parse` node
+        # its text's first SELECT takes (enable_debug_timer)
+        self._timings = threading.local()
         self._views: Dict[str, A.Select] = {}
         self._transient_dicts: Dict[int, object] = {}
         self._transient_by_key: Dict[tuple, tuple] = {}
@@ -259,30 +262,51 @@ class Database:
         out = None
         self._user_tls.user = user
         try:
-            for st in parse_many(text):
+            for st in self._parse(text):
                 if user is not None:
                     self.syscatalog.check_statement(user, st, _stmt_tables(st))
                 # a statement runs with no hints and no timer but its own
                 self.executor.exec_hints = {}
-                self.executor.timer = NullTimer()
+                self.executor.timer = NULL_TIMER
                 out = self._execute_statement(st)
                 if not isinstance(st, (A.Select, A.Explain)):
                     self._persist_after_statement()
                     self._drop_stale()
         finally:
             self._user_tls.user = None
+            self._timings.parse = None
         return out
+
+    def _parse(self, text: str) -> list:
+        """parse_many(text) inside the `parse` scope.  With the debug timer
+        on, its node becomes the first child of the text's first SELECT's
+        `query` root (`_run_select`)."""
+        timer = QueryTimer() if self.config.enable_debug_timer else NULL_TIMER
+        with timer.scope("parse"):
+            stmts = parse_many(text)
+        self._timings.parse = timer.root
+        return stmts
+
+    @property
+    def last_query_timings(self) -> Optional[dict]:
+        """The scope tree of the calling thread's last SELECT
+        (enable_debug_timer), read now: after its columns reached the host
+        it holds their `egress`.  None with the timer off, or after a
+        recycled result."""
+        timer = getattr(self._timings, "last", None)
+        return timer.to_dict() if timer is not None else None
 
     def sql_device(self, text: str):
         """Execute a SELECT and return the device-resident result Batch plus
         a decode callback — separates device compute from result egress.
         The SELECT's hints reach the executor as in `sql`."""
-        stmts = parse_many(text)
+        with NULL_TIMER.scope("parse"):
+            stmts = parse_many(text)
         if len(stmts) != 1 or not isinstance(stmts[0], A.Select):
             raise SqlError("sql_device takes exactly one SELECT")
         plan = optimize(self._plan_select(stmts[0]))
         self.executor.exec_hints = stmts[0].hints or {}
-        self.executor.timer = NullTimer()
+        self.executor.timer = NULL_TIMER
         batch = self.executor.execute(plan)
 
         def decode() -> ResultSet:
@@ -645,17 +669,23 @@ class Database:
     # SELECT: hints, timers, row-level policies, the result recycler
     # ------------------------------------------------------------------
     def _run_select(self, sel: A.Select) -> ResultSet:
-        """A SELECT under its hints, with the `query` / `plan` / `execute` /
-        `fetch` scopes timed when `enable_debug_timer` is on.  On CUDA the
-        `execute` scope ends at the Compound's control read, which waits
-        for the device; `fetch` only wraps the device result (its columns
-        reach the host when first read)."""
-        timer = QueryTimer() if self.config.enable_debug_timer else NullTimer()
+        """A SELECT under its hints, with the `query` / `parse` / `plan` /
+        `execute` / `fetch` scopes timed when `enable_debug_timer` is on.
+        On CUDA the `execute` scope ends at the Compound's control read,
+        which waits for the device; `fetch` only wraps the device result.
+        Its columns reach the host when first read, in the `egress` scope
+        that then joins the root.  The root carries the query's counters
+        (`_query_counters`)."""
+        timer = QueryTimer() if self.config.enable_debug_timer else NULL_TIMER
         ex = self.executor
         ex.timer = timer
         ex.exec_hints = sel.hints or {}
         cache_key = None
+        if timer.enabled:
+            before = _query_counters(ex)
         with timer.scope("query"):
+            timer.add(getattr(self._timings, "parse", None))
+            self._timings.parse = None
             with timer.scope("plan"):
                 plan = self._plan_select(sel)
                 user = getattr(self._user_tls, "user", None)
@@ -666,16 +696,24 @@ class Database:
                 cache_key = self._result_cache_key(plan)
                 hit = self._result_cache.get(cache_key) if cache_key is not None else None
                 if hit is not None:
-                    self.last_query_timings = None
+                    self._timings.last = None
                     return hit
             with timer.scope("execute"):
                 batch = ex.execute(plan)
             with timer.scope("fetch"):
                 rs = self._fix_array_cols(from_batch(batch, plan.fields, plan.types,
-                                                     self._result_dicts(plan)), plan)
+                                                     self._result_dicts(plan), timer), plan)
+        if timer.enabled:
+            # on the root, outside its time
+            after = _query_counters(ex)
+            launches = {k: n - before["launches"].get(k, 0)
+                        for k, n in after.pop("launches").items()
+                        if n != before["launches"].get(k, 0)}
+            timer.note(**{k: v - before[k] for k, v in after.items()},
+                       **({"launches": launches} if launches else {}))
         if cache_key is not None:
             self._result_cache[cache_key] = rs
-        self.last_query_timings = timer.to_dict()
+        self._timings.last = timer
         return rs
 
     def _inject_rls(self, plan, user: str):
@@ -1605,6 +1643,13 @@ def _iter_all_exprs(node):
 def _string_result(name: str, values: List[str]) -> ResultSet:
     return ResultSet([name], [T.TypeInfo(T.SQLTypeKind.TEXT, False)],
                      [np.array(values, object)], [None])
+
+
+def _query_counters(ex) -> dict:
+    """The calling thread's executor counters and each hand kernel's
+    launches: the root of a SELECT's tree carries their change."""
+    return {"h2d_bytes": ex.h2d_bytes, "waves_run": ex.waves_run,
+            "kernel_builds": ex.kernel_builds, "launches": launch_counts()}
 
 
 def _stmt_tables(st) -> list:

@@ -17,7 +17,8 @@ count, each join level's exact needed capacity, duplicate-build and
 hash-miss flags, the radix tier's overflow bits, the hash tier's
 unresolved rows and the error flags; the control scalars also ride packed
 in one int64 tensor ('ctrl_vec') that the executor reads with a single
-host copy.
+host copy.  Each join level runs in the caller's timer's `join#<level>`
+scope, its builds in `build` and its probes and expansions in `probe`.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.plan import exprs as E
+from heavydb_tpu_torch.utils.timer import NULL_TIMER
 
 # the reference's uint64 constants as int64 bit patterns (ops/groupby.py)
 _SM_GOLDEN, _SM_MUL1, _SM_MUL2 = G._SM_GOLDEN, G._SM_MUL1, G._SM_MUL2
@@ -221,7 +223,8 @@ def _pack_keys(tvs, jp, n: int):
 
 
 def build_compound_kernel(node, batches, plan, device):
-    """Returns (kernel_fn, layout).  kernel_fn(*args) -> dict."""
+    """Returns (kernel_fn, layout).  kernel_fn(*args, timer=...) -> dict;
+    `timer` (utils/timer.py) takes the join levels' scopes."""
     from heavydb_tpu_torch.exec.executor import _KernelLayout
 
     strategy = plan.group_strategy
@@ -247,7 +250,7 @@ def build_compound_kernel(node, batches, plan, device):
     distinct_force_sort = plan.distinct_force_sort
     udfs = plan.udfs
 
-    def kernel(*args):
+    def kernel(*args, timer=NULL_TIMER):
         it = iter(args)
         cols = {bi: {ci: next(it) for ci in present} for bi, present in batch_cols}
         nrows = [next(it) for _ in range(n_inputs)]
@@ -258,8 +261,9 @@ def build_compound_kernel(node, batches, plan, device):
             dom.restrict(pre_mask)
             dom.trivial = False
         for li, jp in enumerate(joins):
-            _join_level(dom, li, jp, caps[li], paddeds[li + 1],
-                        build_filters.get(li + 1, ()), out)
+            with timer.scope(f"join#{li}"):
+                _join_level(dom, li, jp, caps[li], paddeds[li + 1],
+                            build_filters.get(li + 1, ()), out, timer)
 
         # ---- filter ----
         if filter_rest is not None:
@@ -351,21 +355,25 @@ def _probe_keys(dom: _Domain, jp):
     return pkey, dom.mask if pvalid is None else dom.mask & pvalid
 
 
-def _sorted_or_hash(jp, li, bkey, bvalid, nrows_b, pb, pkey, pvalid_m, out):
+def _sorted_or_hash(jp, li, bkey, bvalid, nrows_b, pb, pkey, pvalid_m, out, timer):
     """Probe through a sorted build, or the hash table over it (a key that
     claims no slot sets join_hash_miss_<li>; the executor reruns the level
     sorted).  Returns (lo, cnt, build rows in match order)."""
-    build = J.build_sorted(bkey, bvalid, nrows_b)
-    if jp.hash_fallback or _join_hash_slots(pb) > _JOIN_HASH_MAX_SLOTS:
-        lo, cnt = J.probe_counts(build, pkey, pvalid_m)
-    else:
-        table = J.build_hash_table(build, _join_hash_slots(build.keys_sorted.shape[0]))
-        out[f"join_hash_miss_{li}"] = table.unresolved
-        lo, cnt = J.probe_counts_hash(table, pkey, pvalid_m)
+    table = None
+    with timer.scope("build"):
+        build = J.build_sorted(bkey, bvalid, nrows_b)
+        if not (jp.hash_fallback or _join_hash_slots(pb) > _JOIN_HASH_MAX_SLOTS):
+            table = J.build_hash_table(build, _join_hash_slots(build.keys_sorted.shape[0]))
+            out[f"join_hash_miss_{li}"] = table.unresolved
+    with timer.scope("probe"):
+        if table is None:
+            lo, cnt = J.probe_counts(build, pkey, pvalid_m)
+        else:
+            lo, cnt = J.probe_counts_hash(table, pkey, pvalid_m)
     return lo, cnt, build.rows_sorted
 
 
-def _geo_candidates(dom: _Domain, li: int, jp, pb: int, filters, out):
+def _geo_candidates(dom: _Domain, li: int, jp, pb: int, filters, out, timer):
     """The grid-bucket spatial join's candidates (exec/geo_join.py): each
     probe row keys on its own cell, each build row registers under
     len(offsets) neighbouring cells (a replicated build of the existing
@@ -405,7 +413,7 @@ def _geo_candidates(dom: _Domain, li: int, jp, pb: int, filters, out):
     if bvalid is not None:
         bok = bok & bvalid
     lo, cnt, rows = _sorted_or_hash(jp, li, bkeys, bok.repeat(reps), reps * pb, reps * pb,
-                                    pkey, pvalid_m, out)
+                                    pkey, pvalid_m, out, timer)
     # a replicated key's payload index -> its build row
     return lo, cnt, rows % pb
 
@@ -420,10 +428,12 @@ def _surviving_per_row(eff, ok, cap: int):
     return pref[ends.clamp(max=cap)] - pref[starts.clamp(max=cap)]
 
 
-def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
+def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out, timer):
     """Join level li: input li + 1 is the build side over the current
     domain.  SEMI / ANTI refine the mask; the others expand the domain
-    (or keep it, for a unique build) and carry every input through."""
+    (or keep it, for a unique build) and carry every input through.  The
+    J.build_* calls run in `timer`'s `build` scope, the probes and
+    expansions in `probe`."""
     bi = li + 1
     dev = dom.device
     needed_key = f"join_needed_{li}"
@@ -439,19 +449,22 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
         pkey, pvalid_m = _probe_keys(dom, jp)
         bkey, bvalid = _build_keys(dom, jp, bi, pb, filters)
         if jp.key_min is not None:
-            pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
-                                     jp.key_range)
-            lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
+            with timer.scope("build"):
+                pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
+                                         jp.key_range)
+            with timer.scope("probe"):
+                lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
             rows_by_slot = pbuild.payload
         else:
             lo, cnt, rows_by_slot = _sorted_or_hash(
-                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out)
+                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out, timer)
         if jp.residual:
             # residual conditions (TPC-H Q4 / Q21's correlated comparisons,
             # hash-pack rechecks) need the candidate pairs: expand, test,
             # then count each probe row's surviving pairs
-            pidx, bidx, out_mask, _, needed = J.expand_matches(
-                lo, cnt, rows_by_slot, dom.mask, cap, False)
+            with timer.scope("probe"):
+                pidx, bidx, out_mask, _, needed = J.expand_matches(
+                    lo, cnt, rows_by_slot, dom.mask, cap, False)
             out[needed_key] = needed
             saved = (dict(dom.idx), dict(dom.matched), dom.size)
             dom.remap(pidx)
@@ -478,32 +491,37 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
         lo = torch.zeros(dom.size, dtype=torch.int32, device=dev)
         cnt = torch.where(dom.mask, dom.nrows[bi], 0).to(torch.int32)
         rows_by_slot = _iota(pb, dev)
-        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
-            lo, cnt, rows_by_slot, dom.mask, cap, False)
+        with timer.scope("probe"):
+            pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+                lo, cnt, rows_by_slot, dom.mask, cap, False)
     elif jp.geo is not None:
-        lo, cnt, rows_by_slot = _geo_candidates(dom, li, jp, pb, filters, out)
-        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
-            lo, cnt, rows_by_slot, dom.mask, cap, False)
+        lo, cnt, rows_by_slot = _geo_candidates(dom, li, jp, pb, filters, out, timer)
+        with timer.scope("probe"):
+            pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+                lo, cnt, rows_by_slot, dom.mask, cap, False)
     else:
         pkey, pvalid_m = _probe_keys(dom, jp)
         bkey, bvalid = _build_keys(dom, jp, bi, pb, filters)
         unique = None
         if jp.key_min is not None:
             # dense-range positional build: the probe is gathers
-            pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
-                                     jp.key_range)
-            if jp.unique_build:
-                # PK-FK: slot -> build row composed on the build side
-                unique = J.probe_perfect_unique(pbuild, pkey, pvalid_m,
-                                                jp.key_range, dom.mask)
-            else:
-                lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
-                rows_by_slot = pbuild.payload
+            with timer.scope("build"):
+                pbuild = J.build_perfect(bkey, bvalid, dom.nrows[bi], jp.key_min,
+                                         jp.key_range)
+            with timer.scope("probe"):
+                if jp.unique_build:
+                    # PK-FK: slot -> build row composed on the build side
+                    unique = J.probe_perfect_unique(pbuild, pkey, pvalid_m,
+                                                    jp.key_range, dom.mask)
+                else:
+                    lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
+                    rows_by_slot = pbuild.payload
         else:
             lo, cnt, rows_by_slot = _sorted_or_hash(
-                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out)
+                jp, li, bkey, bvalid, dom.nrows[bi], pb, pkey, pvalid_m, out, timer)
             if jp.unique_build:
-                bidx_u, matched_u = J.probe_unique(lo, cnt, rows_by_slot, dom.mask)
+                with timer.scope("probe"):
+                    bidx_u, matched_u = J.probe_unique(lo, cnt, rows_by_slot, dom.mask)
                 unique = (bidx_u, cnt, matched_u)
         if unique is not None:
             # at most one match a probe row: the identity domain (a
@@ -522,8 +540,9 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
             dom.tv_cache.clear()
             dom.restrict(jp.residual)
             return
-        pidx, bidx, out_mask, m_new, needed = J.expand_matches(
-            lo, cnt, rows_by_slot, dom.mask, cap, left_outer and not left_resid)
+        with timer.scope("probe"):
+            pidx, bidx, out_mask, m_new, needed = J.expand_matches(
+                lo, cnt, rows_by_slot, dom.mask, cap, left_outer and not left_resid)
     out[needed_key] = needed
     prev_idx, prev_matched = dict(dom.idx), dict(dom.matched)
     prev_mask, prev_size = dom.mask, dom.size
@@ -535,7 +554,8 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out):
     if jp.kind == "FULL":
         # one slot per build row, valid for the unmatched real ones, the
         # probe-side fields NULL there: inner + left-null + right-null
-        bm = J.build_matched_flags(lo, cnt, rows_by_slot, pvalid_m, pb)
+        with timer.scope("probe"):
+            bm = J.build_matched_flags(lo, cnt, rows_by_slot, pvalid_m, pb)
         extra = _iota(pb, dev)
         extra_valid = (extra < dom.nrows[bi]) & ~bm
         for i in list(dom.idx):

@@ -53,8 +53,13 @@ mesh).  A subquery left after substitution raises NotSupported.
 Per-query controls, as the reference's: the interrupt hook, the timer, the
 query hints and the dynamic watchdog's deadline are per thread, as are the
 records of the calling thread's last query (`join_runs`, `window_runs`,
-`last_stream`) and its counters (`waves_run`, `h2d_bytes`), so that
-concurrent callers of one Database never see each other's (`_PerThread`).
+`last_stream`) and its counters (`waves_run`, `h2d_bytes`,
+`kernel_builds`), so that concurrent callers of one Database never see
+each other's (`_PerThread`).  The timer's scopes here (utils/timer.py):
+each node's `<Node>#<id>`; in a Compound, `kernel_build` on a kernel-cache
+miss, `aux_build` on an aux-table miss, `control_read`, `retry` around
+each attempt past the first, and the kernel's `join#<level>` with its
+`build` and `probe` (exec/compound_kernel.py).
 `execute` sets the deadline (the `query_time_limit(ms)` or
 `dynamic_watchdog` hint, or `enable_dynamic_watchdog`) and takes an
 admission grant from the resource manager (exec/resource_mgr.py) for the
@@ -122,7 +127,7 @@ from heavydb_tpu_torch.plan.builder import _const_cast
 from heavydb_tpu_torch.plan.select_planner import _node_dict_ref
 from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_budget
 from heavydb_tpu_torch.storage.table import torch_to_np_dtype
-from heavydb_tpu_torch.utils.timer import NullTimer
+from heavydb_tpu_torch.utils.timer import NOOP, NULL_TIMER
 
 # capacity retries of one Compound: a sort-tier or radix cap miss converges
 # in one retry (num_groups is exact), a radix hard overflow takes one more
@@ -227,7 +232,7 @@ class Executor:
     # returning True to stop), the scope timer, the query hints and the
     # dynamic watchdog's monotonic deadline
     interrupt_check = _PerThread(lambda: None)
-    timer = _PerThread(NullTimer)
+    timer = _PerThread(lambda: NULL_TIMER)
     exec_hints = _PerThread(dict)
     _deadline = _PerThread(lambda: None)
     # the calling thread's last execute(): each join Compound's builds,
@@ -238,9 +243,11 @@ class Executor:
     last_stream = _PerThread(lambda: None)
     # the calling thread's counters: fragment waves run by streamed
     # Compounds and top-k Sorts; host-to-device bytes of scanned columns,
-    # aux tables and cache patches
+    # aux tables and cache patches; Compound programs built (kernel-cache
+    # misses)
     waves_run = _PerThread(int)
     h2d_bytes = _PerThread(int)
+    kernel_builds = _PerThread(int)
     # the calling thread's last execute() on a mesh: how each Compound and
     # top-k Sort ran (ShardRun: sharded or gathered, and its tiers)
     shard_runs = _PerThread(list)
@@ -1122,30 +1129,45 @@ class Executor:
         return B.Batch(cols, inp.nrows, list(node.types))
 
     def _run_compound(self, node: R.Compound, batches, plan) -> B.Batch:
-        # retry ladder: _postprocess returns None after updating the plan
-        # when the run missed its output capacity or must change tier
+        # retry ladder: an attempt returns the rungs that updated the plan
+        # when the run missed its output capacity or must change tier; each
+        # attempt past the first runs in a `retry` scope that notes them
+        # (`cause`), and the Compound's scope notes its tier, retries and
+        # whether a program was built
+        builds, rungs = self.kernel_builds, None
         for attempt in range(MAX_RETRIES + 1):
-            self._checkpoint()
-            if plan.joins:
-                self._check_join_memory(node, batches, plan)
-            kernel, layout = self._get_kernel(node, batches, plan)
-            try:
-                outs = kernel(*self._kernel_args(batches, plan, layout))
-            except RT.RadixUnsupported:
-                # the compiled aggregate shape diverged from the radix
-                # tier's static stream plan: reroute to the sort tier
-                if plan.group_strategy[0] != "radix":
-                    raise
-                plan.group_strategy = ("sort", None)
-                continue
-            result = self._postprocess(node, plan, outs)
-            if result is not None:
+            with self.timer.scope("retry") if attempt else NOOP:
+                if rungs:
+                    self.timer.note(cause=rungs)
+                out = self._attempt_compound(node, batches, plan)
+            if isinstance(out, B.Batch):
+                self.timer.note(tier=_tier_of(plan), retries=attempt,
+                                kernel_built=self.kernel_builds > builds)
                 if plan.joins:
                     self.join_runs.append(JoinRun(
                         [_build_form(jp, b.padded) for jp, b in zip(plan.joins, batches[1:])],
                         list(plan.caps), attempt))
-                return result
+                return out
+            rungs = out
         raise ExecutionError("capacity retry ladder did not converge")
+
+    def _attempt_compound(self, node: R.Compound, batches, plan):
+        """One run of the Compound's program: its Batch, or the names of
+        the ladder's rungs that changed the plan for another run."""
+        self._checkpoint()
+        if plan.joins:
+            self._check_join_memory(node, batches, plan)
+        kernel, layout = self._get_kernel(node, batches, plan)
+        try:
+            outs = kernel(*self._kernel_args(batches, plan, layout), timer=self.timer)
+        except RT.RadixUnsupported:
+            # the compiled aggregate shape diverged from the radix
+            # tier's static stream plan: reroute to the sort tier
+            if plan.group_strategy[0] != "radix":
+                raise
+            plan.group_strategy = ("sort", None)
+            return ["radix_unsupported"]
+        return self._postprocess(node, plan, outs)
 
     def _join_bytes(self, node: R.Compound, batches, plan) -> int:
         """Device bytes a join Compound's kernel holds, from its inputs and
@@ -2251,8 +2273,10 @@ class Executor:
             key += (str(self.device),)  # a shard's program on its own device
         hit = self.kernel_cache.get(key)
         if hit is None:
-            hit = build_compound_kernel(node, batches, plan, self.device)
+            with self.timer.scope("kernel_build"):
+                hit = build_compound_kernel(node, batches, plan, self.device)
             self.kernel_cache[key] = hit
+            self.kernel_builds += 1
         return hit
 
     def _kernel_args(self, batches, plan, layout):
@@ -2326,12 +2350,13 @@ class Executor:
             with self._aux_lock:
                 hit = self.aux_cache.get(key)
                 if hit is None:
-                    host = make()
-                    if isinstance(host, tuple):
-                        hit = tuple(self._to_device(h) if isinstance(h, np.ndarray) else h
-                                    for h in host)
-                    else:
-                        hit = self._to_device(host)
+                    with self.timer.scope("aux_build"):
+                        host = make()
+                        if isinstance(host, tuple):
+                            hit = tuple(self._to_device(h) if isinstance(h, np.ndarray)
+                                        else h for h in host)
+                        else:
+                            hit = self._to_device(host)
                     self.aux_cache[key] = hit
         return hit
 
@@ -2900,7 +2925,9 @@ class Executor:
                 ) else 0
         return (B.pad_to(out, padn, T.tinyint(False)),)
 
-    def _postprocess(self, node, plan, outs) -> Optional[B.Batch]:
+    def _postprocess(self, node, plan, outs):
+        """The Compound's Batch from its program's outputs, or the names
+        of the retry ladder's rungs that changed the plan."""
         d = outs
         # keyless aggregate with no join and no error flags has a STATIC
         # output (1 row): no control read at all
@@ -2909,29 +2936,30 @@ class Executor:
                 and not any(k.startswith("err_") for k in d):
             return B.Batch(list(d["cols"]), 1, list(node.types))
         # ALL control scalars in ONE device->host copy
-        host = dict(zip(ctrl_keys(d), d["ctrl_vec"].tolist()))
+        with self.timer.scope("control_read"):
+            host = dict(zip(ctrl_keys(d), d["ctrl_vec"].tolist()))
         if host.get("err_count_distinct_overflow"):
             # a COUNT(DISTINCT) hash claim table ran out of rounds: run
             # again on the sorted form
             plan.distinct_force_sort = True
-            return None
+            return ["distinct_overflow"]
         if host.get("err_div_by_zero"):
             raise DivisionByZero("division by zero")
         # the join rungs: a build key that claimed no hash slot -> the
         # sorted build; a duplicate key under a unique build -> expansion;
         # an expansion past its cap -> the exact capacity
-        retry = False
+        rungs = []
         for li, jp in enumerate(plan.joins):
             if host.get(f"join_hash_miss_{li}", 0) > 0:
                 jp.hash_fallback = True
-                retry = True
-        if retry:
-            return None
+                rungs.append("join_hash_miss")
+        if rungs:
+            return rungs
         for li, jp in enumerate(plan.joins):
             if jp.unique_build and host.get(f"join_dup_{li}"):
                 jp.unique_build = False
                 plan.caps[li] = jp.fallback_cap
-                retry = True
+                rungs.append("join_dup")
                 continue
             needed = int(host[f"join_needed_{li}"])
             if needed > plan.caps[li]:
@@ -2940,19 +2968,19 @@ class Executor:
                         f"join level {li} needs {needed} rows, more than the "
                         f"{_MAX_JOIN_DOMAIN} its int32 row indices address")
                 plan.caps[li] = B.bucket(needed)
-                retry = True
+                rungs.append("join_cap")
         strategy = plan.group_strategy[0] if plan.group_strategy else None
         if strategy == "hash":
             if int(host["hash_unresolved"]) > 0:
                 # a key found no free slot in any claim round: a table four
                 # times as large
                 plan.group_cap *= 4
-                retry = True
+                rungs.append("hash_unresolved")
         elif strategy == "sort":
             ng = int(host["num_groups"])
             if ng > plan.group_cap:
                 plan.group_cap = B.bucket(ng)
-                retry = True
+                rungs.append("group_cap")
         elif strategy == "radix":
             ng = int(host["num_groups"])
             ovf = int(host["radix_overflow"])
@@ -2961,13 +2989,13 @@ class Executor:
                 # the results are invalid; rerun on the sort tier
                 plan.group_strategy = ("sort", None)
                 plan.group_cap = B.bucket(max(ng, 8))
-                retry = True
+                rungs.append("radix_overflow")
             elif ovf & 2 or ng > plan.group_cap:
                 # output cap exceeded; num_groups is exact: one retry
                 plan.group_cap = B.bucket(ng)
-                retry = True
-        if retry:
-            return None
+                rungs.append("group_cap")
+        if rungs:
+            return rungs
         n_out = int(host["n_out"])
         cols = list(d["cols"])
         size = B.bucket(n_out)

@@ -38,6 +38,7 @@ from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.errors import NotSupported
 from heavydb_tpu_torch.ops.groupby import torch_dtype
 from heavydb_tpu_torch.plan import exprs as E
+from heavydb_tpu_torch.utils.timer import NULL_TIMER
 
 TV = Tuple[object, Optional[object]]  # (val, valid)
 
@@ -67,14 +68,15 @@ def ray_cast(off, cnt, px, py, segs, maxseg: int):
     the flat segment tables segs = (x1, y1, x2, y2): the reference's
     CONTAINS_SEG loop, `maxseg` passes of its crossing test term for term
     (one elementwise op each, so nothing fuses into a multiply-add), run
-    over the domain in chunks of RAY_CAST_CHUNK rows."""
+    over the domain in chunks of RAY_CAST_CHUNK rows, in the
+    `contains_seg_ray_cast` scope."""
     n = px.shape[0]
     crossings = torch.zeros(n, dtype=torch.int32, device=px.device)
     if n == 0 or maxseg == 0:
         return crossings
     sx1, sy1, sx2, sy2 = segs
     last = sx1.shape[0] - 1
-    with torch.profiler.record_function("contains_seg_ray_cast"):
+    with NULL_TIMER.scope("contains_seg_ray_cast"):
         for a in range(0, n, RAY_CAST_CHUNK):
             b = min(a + RAY_CAST_CHUNK, n)
             o, c, x, y = off[a:b].to(torch.int64), cnt[a:b], px[a:b], py[a:b]

@@ -10,31 +10,40 @@ import numpy as np
 
 from heavydb_tpu_torch import types as T
 from heavydb_tpu_torch.storage.table import from_physical
+from heavydb_tpu_torch.utils.timer import NULL_TIMER
 
 
 class ResultSet:
-    def __init__(self, fields, types, host_cols, dicts, batch=None):
+    def __init__(self, fields, types, host_cols, dicts, batch=None, timer=NULL_TIMER):
         """host_cols: list of numpy arrays (exact length), or None with
         `batch` set — then columns stay DEVICE-resident until first
         access (the reference also serializes result rows only when the
         client asks; on a remote-attached TPU the egress D2H of a large
-        result costs seconds and must not land on db.sql())."""
+        result costs seconds and must not land on db.sql()).  That
+        access runs in the `egress` scope of `timer`, the query's."""
         self.fields = list(fields)
         self.types = list(types)
         self._cols = host_cols
         self._dicts = dicts
         self._batch = batch
+        self._timer = timer
         self._n = None if batch is None else int(batch.nrows)
 
     def _materialize(self):
         if self._cols is None:
-            host = self._batch.to_numpy()
-            self._cols = [
-                np.empty(0, t.np_dtype()) if c is None else c
-                for c, t in zip(host, self.types)
-            ]
+            with self._timer.scope("egress"):
+                host = self._batch.to_numpy()
+                self._cols = [
+                    np.empty(0, t.np_dtype()) if c is None else c
+                    for c, t in zip(host, self.types)
+                ]
             self._batch = None
         return self._cols
+
+    def timings(self):
+        """The scope tree of the query that made this result
+        (enable_debug_timer), read now; None without one."""
+        return self._timer.to_dict()
 
     @property
     def row_count(self) -> int:
@@ -118,5 +127,5 @@ class ResultSet:
         return f"ResultSet([{head}], {self.row_count} rows)"
 
 
-def from_batch(batch, fields, types, dicts) -> ResultSet:
-    return ResultSet(fields, types, None, dicts, batch=batch)
+def from_batch(batch, fields, types, dicts, timer=NULL_TIMER) -> ResultSet:
+    return ResultSet(fields, types, None, dicts, batch=batch, timer=timer)

@@ -91,6 +91,8 @@ class Session:
         self.created = time.time()
         self.last_used = time.time()
         self.interrupted = False
+        # the scope tree of the session's last SELECT (enable_debug_timer)
+        self.timings: Optional[dict] = None
 
 
 class HeavyTpuServer:
@@ -313,6 +315,8 @@ class HeavyTpuServer:
                     "row_count": 0, "execution_time_ms": ms}
         out = P.encode_result(rs)
         out["execution_time_ms"] = ms
+        # read once the columns are encoded: the tree holds their egress
+        s.timings = rs.timings()
         return out
 
     def rpc_sql_execute_df(self, session: str, query: str) -> dict:
@@ -351,11 +355,11 @@ class HeavyTpuServer:
 
     def rpc_get_query_timings(self, session: str) -> dict:
         """Hierarchical timer tree of the session's LAST query (reference
-        QueryState / DEBUG_TIMER stopAndGetJson, Logger.h:393-423).
+        QueryState / DEBUG_TIMER stopAndGetJson, Logger.h:393-423), as
+        `sql_execute` stored it, whatever thread serves this call.
         Requires enable_debug_timer (ALTER SESSION SET
         enable_debug_timer='true')."""
-        self._session(session)
-        return getattr(self.db, "last_query_timings", None) or {}
+        return self._session(session).timings or {}
 
     def rpc_interrupt(self, session: str) -> bool:
         """reference Thrift `interrupt` (heavy.thrift:725)."""

@@ -23,7 +23,7 @@ read, result left on the device), the CUDA kernel and copy time of one
 profiled run, the device's idle share (1 - busy / median wall), the
 kernels that took the most time, the device time and kernel launches
 under each named range of the run (RANGES: the CONTAINS_SEG ray cast of
-a geo join), and the fragment waves a run took
+a geo join, the port's `hdb:` scope of utils/timer.py), and the fragment waves a run took
 (`--stream-threshold` sets the config's stream_threshold_bytes, so a
 small one runs every query in waves).  Needs a CUDA card.
 """
@@ -38,6 +38,7 @@ import time
 import torch
 
 from heavydb_tpu_torch.config import Config
+from heavydb_tpu_torch.utils.timer import PREFIX
 from heavydb_tpu_torch.tools.synthetic import (ARRAY_QUERIES, ARRAY_ROWS, DISTINCT_QUERIES,
                                                FRAGMENT_ROWS, GEO_QUERIES, HASH_QUERIES,
                                                HASH_ROWS, JOIN_QUERIES, QUERIES,
@@ -57,9 +58,14 @@ OWN_ROWS = {**{q: HASH_ROWS for q in HASH_QUERIES}, **{q: TRIPS_ROWS for q in GE
             **{q: ARRAY_ROWS for q in ARRAY_QUERIES}}
 # record_function ranges of the port whose device time and launches a
 # profile reports apart
-RANGES = ("contains_seg_ray_cast",)
-# device-side profiler entries that are not kernels, copies or sets
-NOT_KERNELS = {"Activity Buffer Request", "Command Buffer Full", *RANGES}
+RANGES = (PREFIX + "contains_seg_ray_cast",)
+# device-side profiler entries that are not kernels, copies or sets: the
+# runtime's own, and the device-side copies of the port's ranges
+NOT_KERNELS = {"Activity Buffer Request", "Command Buffer Full"}
+
+
+def is_kernel(name: str) -> bool:
+    return name not in NOT_KERNELS and not name.startswith(PREFIX)
 
 
 def range_stats(prof, name: str) -> dict:
@@ -73,7 +79,7 @@ def range_stats(prof, name: str) -> dict:
              if e.name == name and e.device_type == DeviceType.CUDA]
     us, launches = 0.0, 0
     for e in evts:
-        if e.device_type == DeviceType.CUDA and e.name not in NOT_KERNELS and any(
+        if e.device_type == DeviceType.CUDA and is_kernel(e.name) and any(
                 a <= e.time_range.start and e.time_range.end <= b for a, b in spans):
             us += e.time_range.elapsed_us()
             launches += 1
@@ -109,11 +115,11 @@ def profile_query(db, sql: str, reps: int = 5) -> dict:
         run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side entries only (kernels, memcpy, memset): the aten ops that
-    # launched them carry the same time again, a named range (RANGES) spans
+    # launched them carry the same time again, a named range (`hdb:`) spans
     # its kernels, and the runtime's waits on a full launch queue are no work
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and _device_us(e) > 0
-               and e.key not in NOT_KERNELS]
+               and is_kernel(e.key)]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     # the profiler stretches the host clock, so the idle share is taken
     # against the median unprofiled wall time; one stream runs one kernel

@@ -1,0 +1,180 @@
+"""The reduction of the port's `hdb:` ranges (portbench/spans.py) on
+hand-built profiler events, and on a traced run of a cell on the CPU."""
+
+from types import SimpleNamespace
+
+import pytest
+from torch.autograd import DeviceType
+
+from portbench import spans as S
+from portbench import tracing
+from portbench.tests.test_portbench_cells import CELLS, SCALES
+from portbench.spec import Cell
+
+
+class Ev:
+    """A kineto event as `prof.profiler.kineto_results.events()` gives it."""
+
+    def __init__(self, name, start, end, kind, corr=0, thread=1, linked=1):
+        self._name, self._s, self._t, self._kind = name, start, end, kind
+        self._corr, self._th, self._linked = corr, thread, linked
+        self.activity_type = lambda: kind
+
+    def name(self):
+        return self._name
+
+    def start_ns(self):
+        return self._s
+
+    def duration_ns(self):
+        return self._t - self._s
+
+    def device_type(self):
+        return DeviceType.CPU if self._kind in ("user_annotation", "cpu_op", "cuda_runtime") \
+            else DeviceType.CUDA
+
+    def correlation_id(self):
+        return self._corr
+
+    def linked_correlation_id(self):
+        return self._linked
+
+    def is_user_annotation(self):
+        return self._kind == "user_annotation"
+
+    def start_thread_id(self):
+        return self._th
+
+
+def _prof(events):
+    return SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+
+
+# one query of 0-100 ns in a window of 0-120: parse 0-10, the query root
+# 10-82 (plan 10-20, execute 20-80 with a join 30-60 and a retry 60-70),
+# egress 85-95; a kernel launched at 31 (in the join) runs 35-50, a copy
+# launched at 61 (in the retry) 62-75
+BASE = [
+    ("pb:window", 0, 120, "user_annotation"),
+    ("pb:Q1", 0, 100, "user_annotation"),
+    ("aten::add", 31, 33, "cpu_op", 7),
+    ("cudaLaunchKernel", 31, 32, "cuda_runtime", 7),
+    ("cudaMemcpyAsync", 61, 62, "cuda_runtime", 8),
+    ("k1", 35, 50, "kernel", 7),
+    ("memcpy", 62, 75, "gpu_memcpy", 8),
+]
+HDB = [
+    ("hdb:parse", 0, 10, "user_annotation"),
+    ("hdb:query", 10, 82, "user_annotation"),
+    ("hdb:plan", 10, 20, "user_annotation"),
+    ("hdb:execute", 20, 80, "user_annotation"),
+    ("hdb:join#0", 30, 60, "user_annotation"),
+    ("hdb:retry", 60, 70, "user_annotation"),
+    ("hdb:kernel_build", 61, 62, "user_annotation"),
+    ("hdb:egress", 85, 95, "user_annotation"),
+    ("hdb:join#0", 40, 55, "gpu_user_annotation"),
+    ("hdb:execute", 25, 75, "gpu_user_annotation"),
+]
+
+
+def _events(rows, typed=True):
+    """Fresh events; untyped, as a torch that reports no activity types
+    (2.11) gives them."""
+    out = [Ev(*r) for r in rows]
+    if not typed:
+        for e in out:
+            del e.activity_type
+    return out
+
+
+@pytest.mark.parametrize("typed", [True, False])
+def test_hdb_ranges_leave_the_trace_as_it_was(typed):
+    """The benchmark's reduction counts no `hdb:` range as a device
+    operation and names no idle gap by one."""
+    was = tracing.reduce(_prof(_events(BASE, typed)))
+    now = tracing.reduce(_prof(_events(BASE + HDB, typed)))
+    assert now == was
+    assert now.device_ops == 2 and now.busy_s == 28e-9
+
+
+@pytest.mark.parametrize("typed", [True, False])
+def test_reduce_spans_fills_each_field(typed):
+    sp = S.reduce_spans(_prof(_events(BASE + HDB, typed)))
+    assert sp.window == (0, 120)
+    assert sp.busy == [[35, 50], [62, 75]]
+    assert [r[2] for r in sp.spans] == ["parse", "plan", "query", "execute", "join#0",
+                                        "retry", "kernel_build", "egress"]
+    assert sp.spans[0] == [0, 10, "parse", 1]
+    assert sp.device_spans == [[25, 75, "execute"], [40, 55, "join#0"]]
+    assert sp.queries == [[0, 100, "Q1", 1]]
+    assert sp.launches == [[31, 1, 35, 50, "k1"], [61, 1, 62, 75, "memcpy"]]
+
+
+@pytest.mark.parametrize("typed", [True, False])
+def test_account_reads_each_metric(typed):
+    a = S.account(S.reduce_spans(_prof(_events(BASE + HDB, typed))))
+    ms = 1e-6  # ns in ms, one query
+    assert a["queries"] == 1
+    assert a["parse_ms"] == pytest.approx(10 * ms)
+    assert a["retries_per_query"] == 1 and a["kernel_builds_per_query"] == 1
+    # idle: 0-35, 50-62, 75-120 = 92 ns
+    assert a["busy_ms"] == pytest.approx(28 * ms) and a["launches_found"] == 1
+    assert a["idle_ms"] == pytest.approx(92 * ms)
+    # parse 0-10, plan 10-20, the root's own 80-82
+    assert a["front_end_idle_ms"] == pytest.approx(22 * ms)
+    # 20-35, 50-62, 75-80 in execute; 85-95 in egress
+    assert a["executor_idle_ms"] == pytest.approx(42 * ms)
+    assert a["outside_idle_ms"] == pytest.approx(28 * ms)         # 82-85, 95-120
+    assert a["front_end_idle_ms"] + a["executor_idle_ms"] + a["outside_idle_ms"] == \
+        pytest.approx(a["idle_ms"])
+    # the kernel launched in the join, not the device-side range's 40-55
+    assert a["join_device_ms"] == pytest.approx(15 * ms)
+    assert a["by_span"]["retry"]["device_ms"] == pytest.approx(13 * ms)
+    assert a["by_span"]["execute"]["device_ms"] == pytest.approx(28 * ms)
+    assert a["outside_device_ms"] == 0 and a["outside_ops"] == []
+    assert a["device_ranges"] == {"execute": 1, "join#": 1}
+    assert a["by_span"]["join#"]["idle_ms"] == pytest.approx(15 * ms)  # 30-35, 50-60
+    assert a["by_template"] == {"Q1": {"queries": 1, "retries": 1.0, "kernel_builds": 1.0}}
+
+
+def test_unlinked_launch_is_placed_by_its_time():
+    """A hand kernel's ctypes launch has no enclosing aten op, and the
+    profiler files it under its default thread (9 here): it still belongs
+    to the join it was launched in."""
+    rows = BASE + HDB + [("cudaLaunchKernelExC", 40, 41, "cuda_runtime", 9, 9, 0),
+                         ("stream_agg", 52, 54, "kernel", 9)]
+    a = S.account(S.reduce_spans(_prof(_events(rows))))
+    assert a["join_device_ms"] == pytest.approx(17e-6)   # 35-50 and 52-54
+    assert a["outside_device_ms"] == 0
+
+
+def test_operations_launched_outside_every_range():
+    rows = BASE + HDB + [("cudaLaunchKernel", 97, 98, "cuda_runtime", 9),
+                         ("k2", 98, 99, "kernel", 9)]
+    a = S.account(S.reduce_spans(_prof(_events(rows))))
+    assert a["outside_device_ms"] == pytest.approx(1e-6)
+    assert a["outside_ops"] == [["k2", pytest.approx(1e-6)]]
+    assert a["by_span"]["execute"]["device_ms"] == pytest.approx(28e-6)
+
+
+def test_account_is_empty_without_hdb_ranges():
+    a = S.account(S.reduce_spans(_prof(_events(BASE))))
+    assert a == {"queries": 1}
+    # and the idle readings need device work
+    host = [r for r in BASE + HDB if r[3] in ("user_annotation", "cpu_op", "cuda_runtime")]
+    a = S.account(S.reduce_spans(_prof(_events(host))))
+    assert "parse_ms" in a and "front_end_idle_ms" not in a and "join_device_ms" not in a
+
+
+def test_traced_run_on_cpu_reads_the_host_spans():
+    cell = CELLS[0]
+    out, a = S.run(cell, 77, 0.5, "cpu", scale=SCALES[Cell(cell).config_name])
+    assert out["correct"]
+    assert a["parse_ms"] > 0
+    assert a["retries_per_query"] >= 0 and a["kernel_builds_per_query"] >= 0
+    # the CPU has no device trace: the idle readings are left out, as
+    # device_idle_share is
+    assert "front_end_idle_ms" not in a and "executor_idle_ms" not in a
+    assert "device_idle_share" not in out["metrics"]
+    assert set(a["by_template"]) <= set(Cell(cell).templates)

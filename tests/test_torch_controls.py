@@ -160,14 +160,19 @@ def test_explain_optimized_join_builds():
 
 
 def test_debug_timer():
-    for db in _pair(enable_debug_timer=True):
+    """The JAX package's tree holds plan / execute / fetch; the port's
+    starts with the text's parse and, once the result is read, ends with
+    its egress to the host."""
+    ref, port = _pair(enable_debug_timer=True)
+    for db, want in ((ref, ["plan", "execute", "fetch"]),
+                     (port, ["parse", "plan", "execute", "fetch", "egress"])):
         db.sql("CREATE TABLE t (x INT)")
         db.sql("INSERT INTO t VALUES (1), (2)")
         assert db.sql("SELECT sum(x) FROM t").scalar() == 3
         info = db.last_query_timings
         assert info["name"] == "query"
         names = [c["name"] for c in info["children"]]
-        assert names == ["plan", "execute", "fetch"]
+        assert names == want
         ex = next(c for c in info["children"] if c["name"] == "execute")
         assert any("Compound" in c["name"] for c in ex["children"])
 
