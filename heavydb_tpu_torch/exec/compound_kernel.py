@@ -11,14 +11,22 @@ joins in plain torch (ops/join.py), as the reference's are plain XLA.
 The join levels keep a domain: per input, the row index of each domain
 slot (`idx`, None = the identity over input 0) and a matched flag (False
 = a LEFT / FULL null-extended row); a level expands the domain to its
-capacity, or keeps it when the build's keys are unique.  The closure
-returns a dict with the output columns, the exact row count, the group
-count, each join level's exact needed capacity, duplicate-build and
-hash-miss flags, the radix tier's overflow bits, the hash tier's
-unresolved rows and the error flags; the control scalars also ride packed
-in one int64 tensor ('ctrl_vec') that the executor reads with a single
-host copy.  Each join level runs in the caller's timer's `join#<level>`
-scope, its builds in `build` and its probes and expansions in `probe`.
+capacity, or keeps it when the build's keys are unique.  A size that only
+the run can know is read on the host where the run computes it, each read
+in the caller's timer's `size_read` scope, and the program is sized or
+switched in the same run: the sort tier's group domain from the exact
+group count (where the row domain is larger than the plan's first cap),
+and a unique-build level that meets a duplicate key expands over the same
+build into its fallback capacity.  The closure returns a dict with the
+output columns, the exact row count, the group count, each join level's
+exact needed capacity and hash-miss flag, the radix tier's overflow bits,
+the hash tier's unresolved rows and the error flags; the control scalars
+also ride packed in one int64 tensor ('ctrl_vec') that the executor reads
+with a single host copy.  Host values beside them: 'sized_in_run', what
+the run sized ("groups", "join_dup#<level>"), and 'join_fallback_<level>',
+the capacity a unique-build level expanded into.  Each join level runs in
+the timer's `join#<level>` scope, its builds in `build` and its probes and
+expansions in `probe`.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from typing import Dict, Optional
 import torch
 
 from heavydb_tpu_torch import types as T
+from heavydb_tpu_torch.exec import batch as B
 from heavydb_tpu_torch.exec import radix_tier as RT
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler, and_valid
 from heavydb_tpu_torch.kernels import radix_groupby as RG
@@ -94,8 +103,7 @@ def ctrl_keys(d) -> list:
     ('ctrl_vec') so the host reads them with one copy."""
     return sorted(k for k in d if k in ("n_out", "num_groups", "radix_overflow",
                                          "hash_unresolved")
-                  or k.startswith(("join_needed_", "join_hash_miss_", "join_dup_",
-                                   "err_")))
+                  or k.startswith(("join_needed_", "join_hash_miss_", "err_")))
 
 
 def derive_valid(arr, ti: T.TypeInfo):
@@ -237,8 +245,8 @@ def build_compound_kernel(node, batches, plan, device):
     layout = _KernelLayout(batch_cols, list(range(n_inputs)), aux_order)
     paddeds = [b.padded for b in batches]
     col_types = [list(b.types) for b in batches]
-    # a snapshot: the retry ladder changes the plan's join levels after
-    # this kernel is cached under their old values
+    # a snapshot: the executor changes the plan's join levels after this
+    # kernel is cached under their old values
     joins = [dataclasses.replace(jp) for jp in plan.joins]
     caps = list(plan.caps)
     # the filter push-down split (executor._plan_compound): probe-side
@@ -257,13 +265,14 @@ def build_compound_kernel(node, batches, plan, device):
         aux = {k: next(it) for k in aux_order}
         dom = _Domain(cols, col_types, offsets, aux, nrows, paddeds[0], device, udfs)
         out: Dict[str, object] = {}
+        sized = []  # what this run sized from a host read
         if pre_mask:
             dom.restrict(pre_mask)
             dom.trivial = False
         for li, jp in enumerate(joins):
             with timer.scope(f"join#{li}"):
                 _join_level(dom, li, jp, caps[li], paddeds[li + 1],
-                            build_filters.get(li + 1, ()), out, timer)
+                            build_filters.get(li + 1, ()), out, timer, sized)
 
         # ---- filter ----
         if filter_rest is not None:
@@ -309,7 +318,8 @@ def build_compound_kernel(node, batches, plan, device):
                 out["n_out"] = mask.sum().to(torch.int32)
         else:
             out.update(_aggregate(node, strategy, cap, mask, dom.compiler,
-                                  merge_masked_flags, device, distinct_force_sort))
+                                  merge_masked_flags, device, distinct_force_sort,
+                                  timer, sized))
 
         for name, flag in error_flags.items():
             out[f"err_{name}"] = flag.any()
@@ -319,6 +329,8 @@ def build_compound_kernel(node, batches, plan, device):
                 torch.as_tensor(out[k]).to(device=device, dtype=torch.int64)
                 for k in ck
             ])
+        if sized:
+            out["sized_in_run"] = sized
         return out
 
     return kernel, layout
@@ -428,12 +440,15 @@ def _surviving_per_row(eff, ok, cap: int):
     return pref[ends.clamp(max=cap)] - pref[starts.clamp(max=cap)]
 
 
-def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out, timer):
+def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out, timer,
+                sized):
     """Join level li: input li + 1 is the build side over the current
     domain.  SEMI / ANTI refine the mask; the others expand the domain
-    (or keep it, for a unique build) and carry every input through.  The
-    J.build_* calls run in `timer`'s `build` scope, the probes and
-    expansions in `probe`."""
+    (or keep it, for a unique build whose probe found no duplicate key)
+    and carry every input through.  The J.build_* calls run in `timer`'s
+    `build` scope, the probes and expansions in `probe`, the duplicate
+    check's host read in `size_read`; a level that expands instead of
+    keeping its unique build's domain appends "join_dup#<li>" to `sized`."""
     bi = li + 1
     dev = dom.device
     needed_key = f"join_needed_{li}"
@@ -524,22 +539,32 @@ def _join_level(dom: _Domain, li: int, jp, cap: int, pb: int, filters, out, time
                     bidx_u, matched_u = J.probe_unique(lo, cnt, rows_by_slot, dom.mask)
                 unique = (bidx_u, cnt, matched_u)
         if unique is not None:
-            # at most one match a probe row: the identity domain (a
-            # duplicate build key sets join_dup_<li>; the executor reruns
-            # the level with expansion)
             bidx_u, cnt, matched_u = unique
-            out[f"join_dup_{li}"] = cnt.max() > 1
-            out[needed_key] = zero
-            dom.idx[bi] = bidx_u
-            if left_outer:
-                dom.matched[bi] = matched_u
-            else:
-                dom.mask = dom.mask & matched_u
-                dom.matched[bi] = None
-            dom.trivial = False
-            dom.tv_cache.clear()
-            dom.restrict(jp.residual)
-            return
+            with timer.scope("size_read"):
+                dup = bool(cnt.max() > 1)
+            if not dup:
+                # at most one match a probe row: the identity domain
+                out[needed_key] = zero
+                dom.idx[bi] = bidx_u
+                if left_outer:
+                    dom.matched[bi] = matched_u
+                else:
+                    dom.mask = dom.mask & matched_u
+                    dom.matched[bi] = None
+                dom.trivial = False
+                dom.tv_cache.clear()
+                dom.restrict(jp.residual)
+                return
+            # a duplicate build key undoes the guess: expand over the same
+            # build into the level's fallback capacity (past it, the
+            # executor's join_cap rung reruns at the exact one)
+            cap = jp.fallback_cap
+            out[f"join_fallback_{li}"] = cap
+            sized.append(f"join_dup#{li}")
+            if jp.key_min is not None:
+                with timer.scope("probe"):
+                    lo, cnt = J.probe_perfect(pbuild, pkey, pvalid_m, jp.key_range)
+                rows_by_slot = pbuild.payload
         with timer.scope("probe"):
             pidx, bidx, out_mask, m_new, needed = J.expand_matches(
                 lo, cnt, rows_by_slot, dom.mask, cap, left_outer and not left_resid)
@@ -621,7 +646,7 @@ def _slot_coords(slot_ids, ranges):
 
 
 def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
-               device, distinct_force_sort) -> dict:
+               device, distinct_force_sort, timer, sized) -> dict:
     n_keys = len(node.group_exprs)
     kc = domain_compiler(node.group_exprs + list(node.aggs))
     aflags: Dict[str, torch.Tensor] = {}
@@ -701,6 +726,17 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
                                 (coord < extent) if has_nulls else None))
     else:  # sort: aggregate over the sorted row domain
         slots = cap
+
+        def size_groups(num_groups):
+            # a row domain no larger than the first cap bounds the groups;
+            # past it, the exact count sizes every per-group array
+            nonlocal slots
+            if kc.domain_size > cap:
+                with timer.scope("size_read"):
+                    slots = B.bucket(int(num_groups))
+                sized.append("groups")
+            return slots
+
         # aggregate arguments compile once in row order and ride the
         # grouping permutation as payloads
         seeds = {}
@@ -716,7 +752,7 @@ def _aggregate(node, strategy, cap, mask, domain_compiler, merge_masked_flags,
                 payloads.append(_broadcast(valid, kc.domain_size))
             layout.append((ekey, valid is not None))
         (agg_gid, s_rows, agg_mask, changed, num_groups, sorted_keys,
-         sorted_pl) = G.sort_group_rows(key_tvs, mask, slots, payloads,
+         sorted_pl) = G.sort_group_rows(key_tvs, mask, size_groups, payloads,
                                          need_rows=bool(payloads))
         segs = G.SortedSegments(changed, agg_mask, num_groups, slots)
         agg_kc = _SortedCompiler(kc, s_rows)

@@ -4,8 +4,8 @@ work unit through one compound kernel (exec/compound_kernel.py).
 Port of heavydb_tpu/exec/executor.py: `execute`, `_exec`, the scan over a
 table's fragments (with chunk-stat fragment skipping, each input with its
 own field offset), `_exec_compound`, `_run_compound` with the retry
-ladder (join hash misses, duplicate builds and expansion capacity; group
-capacity and the radix tier's overflow), the join planning of
+ladder (join hash misses and expansion capacity; the radix tier's group
+capacity and overflow; the hash tier's unresolved keys), the join planning of
 `_plan_compound` (filter push-down, key packing, perfect / hash / sorted
 builds, the CROSS watchdog, outer-join nullability of group keys) with the
 runtime join reorder and its selectivity probe, the group-by strategy
@@ -18,9 +18,13 @@ top-k of `_exec_topk`, and the top-k over fragment waves of
 predicate, transform, pair-concatenation, pair-rank, rank and order
 tables, built on the host over dictionary entries) and the scan of TEXT
 ENCODING NONE columns as ids of their table's lazy dictionary.  Torch
-runs eagerly, so there is no jit and no artifact cache; the control
-scalars of each Compound run still reach the host in one read, and a Sort
-node reads nothing back.  Before a join Compound launches, its bytes are
+runs eagerly, so there is no jit and no artifact cache, and a size that
+only the run can know is read where the run computes it and sizes the
+same run (the sort tier's group count; a duplicate key under a
+unique-build guess, which expands the level in place), where the
+reference, whose programs have static shapes, runs the Compound again.
+The control scalars of each Compound run still reach the host in one
+read, and a Sort node reads nothing back.  Before a join Compound launches, its bytes are
 held to the card's free memory (`_check_join_memory`).  After an UPDATE
 or a DELETE the resident full-table columns move to the table's new
 generation on the device (`patch_cache_update`, `patch_cache_delete`), and
@@ -59,7 +63,8 @@ each other's (`_PerThread`).  The timer's scopes here (utils/timer.py):
 each node's `<Node>#<id>`; in a Compound, `kernel_build` on a kernel-cache
 miss, `aux_build` on an aux-table miss, `control_read`, `retry` around
 each attempt past the first, and the kernel's `join#<level>` with its
-`build` and `probe` (exec/compound_kernel.py).
+`build` and `probe`, and `size_read` around each in-run size read
+(exec/compound_kernel.py); the Compound's node notes `sized_in_run`.
 `execute` sets the deadline (the `query_time_limit(ms)` or
 `dynamic_watchdog` hint, or `enable_dynamic_watchdog`) and takes an
 admission grant from the resource manager (exec/resource_mgr.py) for the
@@ -129,8 +134,10 @@ from heavydb_tpu_torch.storage.buffer_mgr import DeviceLRUCache, default_device_
 from heavydb_tpu_torch.storage.table import torch_to_np_dtype
 from heavydb_tpu_torch.utils.timer import NOOP, NULL_TIMER
 
-# capacity retries of one Compound: a sort-tier or radix cap miss converges
-# in one retry (num_groups is exact), a radix hard overflow takes one more
+# capacity retries of one Compound: a join expansion or radix cap miss
+# converges in one retry (the counts are exact; a level's need shows once
+# the levels before it fit), a radix hard overflow takes one more; the sort
+# tier's groups and a duplicate key under a unique build are sized in the run
 MAX_RETRIES = 4
 
 
@@ -1130,19 +1137,23 @@ class Executor:
 
     def _run_compound(self, node: R.Compound, batches, plan) -> B.Batch:
         # retry ladder: an attempt returns the rungs that updated the plan
-        # when the run missed its output capacity or must change tier; each
-        # attempt past the first runs in a `retry` scope that notes them
-        # (`cause`), and the Compound's scope notes its tier, retries and
-        # whether a program was built
-        builds, rungs = self.kernel_builds, None
+        # when the run missed a capacity it cannot size itself (a join
+        # expansion, the radix or hash tier's table) or must change tier;
+        # each attempt past the first runs in a `retry` scope that notes
+        # them (`cause`), and the Compound's scope notes its tier, retries,
+        # whether a program was built, and what the runs sized from a host
+        # read (`sized_in_run`)
+        builds, rungs, sized = self.kernel_builds, None, []
         for attempt in range(MAX_RETRIES + 1):
             with self.timer.scope("retry") if attempt else NOOP:
                 if rungs:
                     self.timer.note(cause=rungs)
-                out = self._attempt_compound(node, batches, plan)
+                out = self._attempt_compound(node, batches, plan, sized)
             if isinstance(out, B.Batch):
                 self.timer.note(tier=_tier_of(plan), retries=attempt,
                                 kernel_built=self.kernel_builds > builds)
+                if sized:
+                    self.timer.note(sized_in_run=sized)
                 if plan.joins:
                     self.join_runs.append(JoinRun(
                         [_build_form(jp, b.padded) for jp, b in zip(plan.joins, batches[1:])],
@@ -1151,9 +1162,10 @@ class Executor:
             rungs = out
         raise ExecutionError("capacity retry ladder did not converge")
 
-    def _attempt_compound(self, node: R.Compound, batches, plan):
+    def _attempt_compound(self, node: R.Compound, batches, plan, sized):
         """One run of the Compound's program: its Batch, or the names of
-        the ladder's rungs that changed the plan for another run."""
+        the ladder's rungs that changed the plan for another run.  What the
+        run sized from a host read is appended to `sized`."""
         self._checkpoint()
         if plan.joins:
             self._check_join_memory(node, batches, plan)
@@ -1167,12 +1179,14 @@ class Executor:
                 raise
             plan.group_strategy = ("sort", None)
             return ["radix_unsupported"]
+        sized.extend(outs.get("sized_in_run", ()))
         return self._postprocess(node, plan, outs)
 
     def _join_bytes(self, node: R.Compound, batches, plan) -> int:
         """Device bytes a join Compound's kernel holds, from its inputs and
-        plan: the input columns; per level, its domain d (the cap; the
-        previous domain for a unique build; plus the build's padded rows
+        plan: the input columns; per level, its domain d (the cap; for a
+        unique build, the larger of the previous domain and the fallback
+        capacity that a duplicate key expands it into; plus the build's padded rows
         for FULL, or the previous domain for LEFT with a residual; the
         candidate pairs of SEMI / ANTI with a residual) x (per input in the
         domain 4 B of row index and 1 B of matched flag, 1 B of mask, the
@@ -1196,7 +1210,9 @@ class Executor:
             if jp.geo is not None:
                 total += len(jp.geo.offsets) * batches[li + 1].padded * 57
             prev = d
-            d = d if jp.unique_build else cap
+            # a unique build expands into its fallback capacity in the same
+            # run when the probe finds a duplicate key
+            d = max(d, jp.fallback_cap) if jp.unique_build else cap
             if jp.kind == "FULL":
                 d += batches[li + 1].padded
             elif jp.kind == "LEFT" and jp.residual:
@@ -1998,8 +2014,8 @@ class Executor:
             if jp.key_min is not None and kind in ("INNER", "LEFT") \
                     and not jp.residual and jp.key_range >= build_rows:
                 # PK side, by the reference's rule: a dense range at least
-                # as wide as the row count; a run-time duplicate check
-                # corrects it
+                # as wide as the row count; a duplicate key found in the
+                # run expands the level in the same run
                 jp.unique_build = True
             plan.joins.append(jp)
             jp.fallback_cap = B.bucket(max(probe.nrows, build_rows, 1))
@@ -2927,7 +2943,10 @@ class Executor:
 
     def _postprocess(self, node, plan, outs):
         """The Compound's Batch from its program's outputs, or the names
-        of the retry ladder's rungs that changed the plan."""
+        of the retry ladder's rungs that changed the plan.  A unique-build
+        level that the run expanded (`join_fallback_<li>`) is recorded in
+        the plan as an expanding level at that capacity; the join_cap rung
+        then holds it to its exact need like any other."""
         d = outs
         # keyless aggregate with no join and no error flags has a STATIC
         # output (1 row): no control read at all
@@ -2946,21 +2965,19 @@ class Executor:
         if host.get("err_div_by_zero"):
             raise DivisionByZero("division by zero")
         # the join rungs: a build key that claimed no hash slot -> the
-        # sorted build; a duplicate key under a unique build -> expansion;
-        # an expansion past its cap -> the exact capacity
+        # sorted build; an expansion past its cap -> the exact capacity
         rungs = []
         for li, jp in enumerate(plan.joins):
+            fallback_cap = d.get(f"join_fallback_{li}")
+            if fallback_cap:
+                jp.unique_build = False
+                plan.caps[li] = fallback_cap
             if host.get(f"join_hash_miss_{li}", 0) > 0:
                 jp.hash_fallback = True
                 rungs.append("join_hash_miss")
         if rungs:
             return rungs
         for li, jp in enumerate(plan.joins):
-            if jp.unique_build and host.get(f"join_dup_{li}"):
-                jp.unique_build = False
-                plan.caps[li] = jp.fallback_cap
-                rungs.append("join_dup")
-                continue
             needed = int(host[f"join_needed_{li}"])
             if needed > plan.caps[li]:
                 if B.bucket(needed) > _MAX_JOIN_DOMAIN:
@@ -2976,11 +2993,6 @@ class Executor:
                 # times as large
                 plan.group_cap *= 4
                 rungs.append("hash_unresolved")
-        elif strategy == "sort":
-            ng = int(host["num_groups"])
-            if ng > plan.group_cap:
-                plan.group_cap = B.bucket(ng)
-                rungs.append("group_cap")
         elif strategy == "radix":
             ng = int(host["num_groups"])
             ovf = int(host["radix_overflow"])
@@ -3038,7 +3050,8 @@ class _JoinPlan:
     key_min: Optional[int] = None
     key_range: Optional[int] = None
     # build keys believed unique (PK side): an identity-domain probe, no
-    # expansion; checked at run time (a duplicate retries with expansion)
+    # expansion; checked in the run (a duplicate key expands the level into
+    # fallback_cap over the same build)
     unique_build: bool = False
     fallback_cap: int = 0
     # a hash-table build left a key without a slot: probe sorted instead

@@ -227,11 +227,13 @@ def _lex_sort_perm(operands):
     return perm
 
 
-def sort_group_rows(key_tvs: Sequence[TV], mask, cap: int, payloads=(),
+def sort_group_rows(key_tvs: Sequence[TV], mask, cap, payloads=(),
                     need_rows: bool = True):
     """Sort-based grouping that keeps the sorted row domain; payload row
     arrays (aggregate arguments and validities) ride the same permutation.
-    Rows outside `mask` sort last.
+    Rows outside `mask` sort last.  `cap` is the group domain's size, or a
+    function of the exact group count (a 0-d tensor) that returns it, called
+    once that count is known and before any group id is clamped.
 
     Returns (sgid, s_rows, s_domain, changed, num_groups, sorted_keys,
     sorted_payloads):
@@ -273,6 +275,8 @@ def sort_group_rows(key_tvs: Sequence[TV], mask, cap: int, payloads=(),
     changed &= s_domain
     sgid = torch.cumsum(changed, 0) - 1
     num_groups = changed.sum()
+    if callable(cap):
+        cap = cap(num_groups)
     sgid = torch.where(s_domain, sgid.clamp(max=cap), cap)
     sorted_keys = []
     for ni, vi in key_ops:

@@ -398,7 +398,8 @@ def test_tier_row_bytes_of_the_hash_tier(dbs):
 def test_streamed_waves_plan_their_own_tier(monkeypatch):
     """Fragment waves of a hash-tier query: each wave plans the hash tier
     from its own rows, and the merge over the partial rows (no Scan, so no
-    NDV) runs on the sort tier, in both packages, with the same caps."""
+    NDV) runs on the sort tier, in both packages, with the same first
+    caps."""
     rng = np.random.default_rng(8)
     n = 48_000
     cols = {"k": rng.integers(0, 1 << 45, n), "v": rng.integers(0, 50, n).astype(np.int32)}
@@ -413,8 +414,11 @@ def test_streamed_waves_plan_their_own_tier(monkeypatch):
     _same_rows(got, want)
     assert port.executor.last_stream.waves == 4
     # each wave's 12,000 keys take a second run at 4 x the cap; the merge's
-    # sort tier grows its first cap to the 48,000 groups once
-    assert _tiers(_same_choice(runs)) == ["hash"] * 4 + ["sort"] * 2
+    # sort tier sizes its 48,000 groups in its one run, where the
+    # reference grows its first cap with a second
+    assert [r[0] for r in runs["ref"][-2:]] == ["sort", "sort"]
+    assert _tiers(_same_choice({"port": runs["port"], "ref": runs["ref"][:-1]})) \
+        == ["hash"] * 4 + ["sort"]
 
 
 @pytest.mark.parametrize("keys,tier", [(17_000, "sort"), (20_000, "hash"), (24_000, "sort"),

@@ -11,10 +11,8 @@ Engine level: the same seeded tables go into heavydb_tpu.connect() and,
 copied through load_state, into heavydb_tpu_torch.connect(device="cpu");
 every query must give the reference's rows: as multisets without ORDER
 BY, in order with it.  Integers are exact, DOUBLE results rtol 1e-9, FLOAT
-sums rtol 1e-4 / atol 1e-3.  Then the queries of the reference's join
-suites (test_join_order_full, test_filter_pushdown,
-test_selectivity_probe, and the TPC-H shapes of test_tpch_lite, string
-predicates included) through both engines, and the join memory guard.
+sums rtol 1e-4 / atol 1e-3.  Then the join memory guard.  The queries of
+the reference's join suites are in tests/test_torch_join_suites.py.
 """
 
 import math
@@ -32,7 +30,6 @@ from heavydb_tpu_torch.errors import DeviceMemoryExceeded, NotSupported, Watchdo
 from heavydb_tpu_torch.exec import compound_kernel as CK
 from heavydb_tpu_torch.exec import executor as X
 from heavydb_tpu_torch.ops import join as J
-from tests import test_tpch_lite as TL
 from tests.test_torch_engine import _copy_state
 
 I32_NULL = np.iinfo(np.int32).min
@@ -219,9 +216,10 @@ COLORS = ["red", "green", "blue", "cyan", "plum", "teal"]
 def engines():
     """fact (probe side), dim (unique keys 0..149 in a shuffled order, a
     TEXT column of its own dictionary), multi (keys with 0-6 rows each),
-    dupdim (a key range as wide as its rows, with duplicates), wide (BIGINT
-    keys of a 2^41 range, duplicated), tiny (4 rows, for CROSS), t (two INT
-    columns, for a self-join)."""
+    dupdim (a key range as wide as its rows, with duplicates), dupfan (three
+    rows for each of fact.g's six values and one more key, a range wider
+    than its rows), wide (BIGINT keys of a 2^41 range, duplicated), tiny (4
+    rows, for CROSS), t (two INT columns, for a self-join)."""
     rng = np.random.default_rng(17)
     ref = hdt.connect()
 
@@ -253,6 +251,9 @@ def engines():
     load("dupdim", "k INT, nm INT",
          {"k": np.array([0, 1, 2, 2, 3, 5, 5, 7], np.int32),
           "nm": np.arange(8, dtype=np.int32)})
+    load("dupfan", "k INT, nm INT",
+         {"k": np.append(np.repeat(np.arange(6, dtype=np.int32), 3), 40),
+          "nm": np.arange(19, dtype=np.int32)})
     wk = np.concatenate([wide_keys[:300], wide_keys[:50]])
     load("wide", "kb BIGINT, kb2 BIGINT, u INT",
          {"kb": wk, "kb2": wk // 3, "u": np.arange(wk.shape[0], dtype=np.int32)})
@@ -263,7 +264,8 @@ def engines():
     k10[rng.random(2000) < 0.05] = I32_NULL
     load("t", "k10 INT, k100 INT", {"k10": k10,
                                     "k100": rng.integers(1, 101, 2000).astype(np.int32)})
-    port = _copy_state(ref, ["fact", "dim", "multi", "dupdim", "wide", "tiny", "t"])
+    port = _copy_state(ref, ["fact", "dim", "multi", "dupdim", "dupfan", "wide", "tiny",
+                             "t"])
     return ref, port
 
 
@@ -291,6 +293,10 @@ def _same(got, want, f32_cols=(), ordered=False):
                     assert g == pytest.approx(w, rel=1e-9, abs=1e-9), (gr, wr)
             else:
                 assert g == w, (j, gr, wr)
+
+
+def _pair(ref, names, **kw):
+    return ref, _copy_state(ref, names, **kw)
 
 
 def _check(engines, sql, f32_cols=()):
@@ -366,7 +372,8 @@ ENGINE_QUERIES = [
     ("SELECT f.s, COUNT(*), SUM(d.nm) FROM fact f JOIN dim d ON f.s = d.s "
      "GROUP BY f.s", (), [["hash"]]),
     # a fan-out that retries (needed > cap) and a duplicate build key under
-    # the unique-build guess (dupdim's range 0..7 is as wide as its 8 rows)
+    # the unique-build guess (dupdim's range 0..7 is as wide as its 8 rows),
+    # which the run expands in place
     ("SELECT f.g, COUNT(*) FROM fact f JOIN multi m ON f.k = m.k "
      "JOIN multi m2 ON m.k = m2.k GROUP BY f.g", (), None),
     ("SELECT d.nm, COUNT(*) FROM fact f JOIN dupdim d ON f.k = d.k GROUP BY d.nm",
@@ -385,7 +392,8 @@ def test_engine_parity(engines, sql, f32, forms):
 def test_retries(engines):
     """The 1:N fan-out of two multi levels passes its first caps: the
     second level's need shows only once the first fits, so two retries;
-    dupdim's duplicate keys undo the unique-build guess: one retry."""
+    dupdim's duplicate keys undo the unique-build guess inside the run,
+    which expands the level over the same build: no retry."""
     _, port = engines
     port.sql("SELECT f.g, COUNT(*) FROM fact f JOIN multi m ON f.k = m.k "
              "JOIN multi m2 ON m.k = m2.k GROUP BY f.g").rows()
@@ -394,7 +402,69 @@ def test_retries(engines):
     port.sql("SELECT d.nm, COUNT(*) FROM fact f JOIN dupdim d ON f.k = d.k "
              "GROUP BY d.nm").rows()
     (run,) = port.executor.join_runs
-    assert run.retries == 1 and run.builds == ["perfect"] and run.caps[0] > 0
+    assert run.retries == 0 and run.builds == ["perfect"] and run.caps[0] > 0
+
+
+def _guess_unique(monkeypatch):
+    """The unique-build guess on every INNER / LEFT equi level, which the
+    planner's rule makes only for a dense key range without a residual."""
+    plan_compound = X.Executor._plan_compound
+
+    def guess(self, node, batches, offsets=(0,)):
+        plan = plan_compound(self, node, batches, offsets)
+        for li, jp in enumerate(plan.joins):
+            if jp.kind in ("INNER", "LEFT"):
+                jp.unique_build = True
+                plan.caps[li] = 0
+        return plan
+
+    monkeypatch.setattr(X.Executor, "_plan_compound", guess)
+
+
+def _compound_node(db):
+    stack = [db.last_query_timings]
+    while stack:
+        node = stack.pop()
+        if node["name"].startswith("Compound#"):
+            return node
+        stack.extend(node.get("children", ()))
+
+
+@pytest.mark.parametrize("sql,forced,builds,retries", [
+    ("SELECT d.nm, COUNT(*) FROM fact f JOIN dupdim d ON f.k = d.k GROUP BY d.nm",
+     None, "perfect", 0),
+    ("SELECT COUNT(*), SUM(w.u), SUM(f.d) FROM fact f JOIN wide w ON f.kb = w.kb",
+     "hash", "hash", 0),
+    ("SELECT f.g, COUNT(*), SUM(w.u) FROM fact f JOIN wide w ON f.kb = w.kb GROUP BY f.g",
+     "sorted", "sorted", 0),
+    ("SELECT f.g, COUNT(*), COUNT(d.nm), SUM(d.nm) FROM fact f LEFT JOIN dupdim d "
+     "ON f.k = d.k GROUP BY f.g", None, "perfect", 0),
+    # a residual keeps the planner off the guess: forced, the expansion
+    # after the duplicate read applies it with ON-clause semantics
+    ("SELECT f.g, COUNT(*), COUNT(d.nm) FROM fact f LEFT JOIN dupdim d "
+     "ON f.k = d.k AND d.nm > f.g GROUP BY f.g", "residual", "perfect", 0),
+    # every fact row meets three dupfan rows: 3 x 3000 pairs, past the
+    # fallback capacity of bucket(3000): the join_cap rung converges
+    ("SELECT d.nm, COUNT(*) FROM fact f JOIN dupfan d ON f.g = d.k GROUP BY d.nm",
+     None, "perfect", 1),
+], ids=["perfect", "hash", "sorted", "left", "left_residual", "past_fallback_cap"])
+def test_duplicate_build_key_expands_in_the_run(engines, monkeypatch, sql, forced, builds,
+                                                retries):
+    """A duplicate build key under the unique-build guess: the run reads
+    it and expands the level over the same build, with no retry unless the
+    expansion passes the level's fallback capacity.  The rows are the
+    reference's."""
+    _, port = engines
+    monkeypatch.setattr(port.config, "enable_debug_timer", True)
+    if forced is not None:
+        _guess_unique(monkeypatch)
+    if forced == "sorted":
+        monkeypatch.setattr(CK, "_JOIN_HASH_MAX_SLOTS", 1 << 10)
+    (run,) = _check(engines, sql)
+    assert run.builds == [builds] and run.retries == retries
+    assert run.caps[0] >= (3 * N_FACT if retries else N_FACT)
+    node = _compound_node(port)
+    assert node["retries"] == retries and node["sized_in_run"] == ["join_dup#0"]
 
 
 def test_sorted_build(engines, monkeypatch):
@@ -462,311 +532,3 @@ def test_join_memory_guard(engines, monkeypatch):
     _check(engines, sql, (2,))
     assert calls
 
-
-# ---------------------------------------------------------------------------
-# the reference's join suites, through both engines
-# ---------------------------------------------------------------------------
-
-
-def _pair(ref, names, **kw):
-    return ref, _copy_state(ref, names, **kw)
-
-
-@pytest.fixture(scope="module")
-def order_suite():
-    """tests/test_join_order_full.py's tables."""
-    rng = np.random.default_rng(42)
-    ref = hdt.connect()
-    n = 5000
-    ref.load_table("fact", {"k": rng.integers(0, 500, n).astype(np.int32),
-                            "v": rng.random(n).astype(np.float32)}, create=True)
-    ref.load_table("dim", {"k": np.arange(500, dtype=np.int32),
-                           "nm": rng.integers(0, 20, 500).astype(np.int32)}, create=True)
-    ref.load_table("f3", {"k": rng.integers(0, 300, 2000).astype(np.int32),
-                          "v": rng.integers(0, 100, 2000).astype(np.int32)}, create=True)
-    ref.load_table("m3", {"k": rng.integers(0, 300, 400).astype(np.int32),
-                          "g": rng.integers(0, 9, 400).astype(np.int32)}, create=True)
-    ref.load_table("d3", {"k": np.arange(300, dtype=np.int32)}, create=True)
-    lk = rng.integers(0, 2000, 4000)
-    lk = np.where(rng.random(4000) < 0.05, I32_NULL, lk).astype(np.int32)
-    ref.sql("CREATE TABLE fl (k INT, v INT)")
-    ref.load_table("fl", {"k": lk, "v": rng.integers(0, 100, 4000).astype(np.int32)})
-    ref.load_table("fr", {"k": rng.integers(1000, 3000, 3000).astype(np.int32),
-                          "v": rng.integers(0, 100, 3000).astype(np.int32)}, create=True)
-    ref.sql("CREATE TABLE lg (k INT, s TEXT)")
-    ref.sql("CREATE TABLE rg (k INT, v INT)")
-    ref.sql("INSERT INTO lg VALUES (1,'a'), (2,'b'), (3,'c'), (NULL,'d'), (2,'e')")
-    ref.sql("INSERT INTO rg VALUES (2,10), (4,20), (NULL,30), (2,40)")
-    ref.sql("CREATE TABLE pa (k INT)")
-    ref.sql("CREATE TABLE pb (k INT)")
-    ref.sql("INSERT INTO pa VALUES (1), (2)")
-    ref.sql("INSERT INTO pb VALUES (2), (3)")
-    ref.sql("CREATE TABLE lo (k INT, d INT)")
-    ref.load_table("lo", {"k": [1, 2, 3, None], "d": [10, 20, 30, 5]})
-    ref.sql("CREATE TABLE ll (k INT, s INT, w DOUBLE)")
-    ref.load_table("ll", {"k": [1, 1, 2, 3], "s": [5, 15, 19, 40],
-                          "w": [1.0, 2.0, 3.0, 4.0]})
-    ref.sql("CREATE TABLE njl (x INT)")
-    ref.load_table("njl", {"x": [1, 2, 3, 4, None]})
-    ref.sql("CREATE TABLE njr (y INT, v INT)")
-    ref.load_table("njr", {"y": [2, 3, 3], "v": [10, -5, None]})
-    names = ["fact", "dim", "f3", "m3", "d3", "fl", "fr", "lg", "rg", "pa", "pb",
-             "lo", "ll", "njl", "njr"]
-    return _pair(ref, names)
-
-
-ORDER_QUERIES = [
-    ("SELECT d.nm, count(*), sum(f.v) FROM fact f JOIN dim d ON f.k = d.k "
-     "GROUP BY d.nm ORDER BY d.nm", (2,)),
-    ("SELECT d.nm, count(*), sum(f.v) FROM dim d JOIN fact f ON d.k = f.k "
-     "GROUP BY d.nm ORDER BY d.nm", (2,)),
-    ("SELECT count(*) FROM dim s JOIN fact b ON s.k = b.k", ()),
-    ("SELECT m.g, count(*), sum(f.v) FROM f3 f JOIN m3 m ON f.k=m.k "
-     "JOIN d3 d ON m.k=d.k GROUP BY m.g ORDER BY m.g", ()),
-    ("SELECT m.g, count(*), sum(f.v) FROM d3 d JOIN m3 m ON d.k=m.k "
-     "JOIN f3 f ON m.k=f.k GROUP BY m.g ORDER BY m.g", ()),
-    ("SELECT m.g, count(*), sum(f.v) FROM m3 m JOIN d3 d ON m.k=d.k "
-     "JOIN f3 f ON d.k=f.k GROUP BY m.g ORDER BY m.g", ()),
-    ("SELECT count(*), count(fl.v), count(fr.v), sum(fl.v), sum(fr.v) "
-     "FROM fl FULL OUTER JOIN fr ON fl.k = fr.k", ()),
-    ("SELECT rg.v, count(*), count(lg.s) FROM lg FULL JOIN rg "
-     "ON lg.k = rg.k GROUP BY rg.v ORDER BY rg.v NULLS FIRST", ()),
-    ("SELECT pa.k, pb.k FROM pa FULL JOIN pb ON pa.k = pb.k", ()),
-    ("SELECT lo.k, lo.d, ll.s, ll.w FROM lo LEFT JOIN ll "
-     "ON lo.k = ll.k AND ll.s > lo.d ORDER BY lo.k NULLS LAST, ll.s NULLS LAST", ()),
-    ("SELECT lo.k, count(ll.s) FROM lo LEFT JOIN ll "
-     "ON lo.k = ll.k AND ll.s > lo.d GROUP BY lo.k ORDER BY lo.k NULLS LAST", ()),
-    ("SELECT lo.k, sum(ll.w) FROM lo LEFT JOIN ll "
-     "ON lo.k = ll.k AND ll.s <> lo.d + 5 GROUP BY lo.k ORDER BY lo.k NULLS LAST", ()),
-    ("SELECT lo.k, ll.s FROM lo LEFT JOIN ll ON lo.k = ll.k AND ll.s < 10 "
-     "ORDER BY lo.k NULLS LAST, ll.s NULLS LAST", ()),
-    ("SELECT k FROM lo WHERE EXISTS (SELECT 1 FROM ll "
-     "WHERE ll.k = lo.k AND ll.s > lo.d) ORDER BY k", ()),
-    ("SELECT k, d FROM lo WHERE NOT EXISTS (SELECT 1 FROM ll "
-     "WHERE ll.k = lo.k AND ll.s > lo.d) ORDER BY k NULLS LAST", ()),
-    ("SELECT k FROM lo WHERE EXISTS (SELECT 1 FROM ll "
-     "WHERE ll.k = lo.k AND ll.s <> lo.d AND ll.s < 20) ORDER BY k", ()),
-    ("SELECT njl.x, njr.v FROM njl LEFT JOIN njr ON njl.x=njr.y "
-     "WHERE njr.v > 0 ORDER BY njl.x", ()),
-    ("SELECT njl.x FROM njl LEFT JOIN njr ON njl.x=njr.y "
-     "WHERE njr.v IS NULL ORDER BY njl.x NULLS LAST", ()),
-    ("SELECT njl.x, njr.v FROM njl LEFT JOIN njr ON njl.x=njr.y "
-     "WHERE njr.v > 0 OR njl.x = 1 ORDER BY njl.x", ()),
-    ("SELECT njl.x, njr.y FROM njl LEFT JOIN njr ON njl.x=njr.y "
-     "WHERE NOT (njr.v = 10) ORDER BY njl.x, njr.v", ()),
-    ("SELECT njl.x, njr.y, njr.v FROM njl FULL OUTER JOIN njr "
-     "ON njl.x=njr.y WHERE njl.x > 0 AND njr.v IS NOT NULL ORDER BY njl.x, njr.v", ()),
-]
-
-
-@pytest.mark.parametrize("sql,f32", ORDER_QUERIES)
-def test_join_order_suite(order_suite, sql, f32):
-    _check(order_suite, sql, f32)
-
-
-def test_reorder_flips_probe_side(order_suite):
-    """The runtime reorder makes the larger input the probe."""
-    _, port = order_suite
-    captured = []
-    orig = X.Executor._plan_compound
-
-    def spy(self, node, batches, offsets=(0,)):
-        if node.join_levels:
-            captured.append([i.table.name for i in node.inputs])
-        return orig(self, node, batches, offsets)
-
-    X.Executor._plan_compound = spy
-    try:
-        port.sql("SELECT count(*) FROM dim s JOIN fact b ON s.k = b.k").rows()
-    finally:
-        X.Executor._plan_compound = orig
-    assert captured == [["fact", "dim"]]
-
-
-def test_fragment_skipping_around_outer_joins():
-    """Pruning fragments by chunk stats (each input with its own field
-    offset) gives the rows of an unfragmented run, around FULL and LEFT
-    joins, in both engines."""
-    from heavydb_tpu.config import Config as JConfig
-
-    rng = np.random.default_rng(3)
-    n = 12_000
-    cols_l = {"k": rng.integers(0, 3000, n).astype(np.int32),
-              "v": np.sort(rng.integers(0, 1000, n)).astype(np.int32)}
-    cols_r = {"k": rng.integers(1500, 4500, 4000).astype(np.int32),
-              "v": np.sort(rng.integers(0, 1000, 4000)).astype(np.int32)}
-    queries = [
-        "SELECT count(*), count(l.v), count(r.v) FROM l FULL JOIN r ON l.k = r.k "
-        "WHERE l.v > 500",
-        "SELECT count(*) FROM l FULL JOIN r ON l.k = r.k WHERE r.v < 100",
-        "SELECT count(*) FROM l LEFT JOIN r ON l.k = r.k WHERE l.v BETWEEN 100 AND 200",
-        "SELECT count(*), sum(l.v) FROM l JOIN r ON l.k = r.k WHERE r.v > 900",
-    ]
-    results = []
-    for frag in (100_000, 2_000):
-        ref = hdt.connect(config=JConfig(default_fragment_rows=frag))
-        ref.load_table("l", cols_l, create=True)
-        ref.load_table("r", cols_r, create=True)
-        port = _copy_state(ref, ["l", "r"], fragment_size=frag)
-        assert len(port.catalog.get_table("r").fragments) == (2 if frag < 4000 else 1)
-        got = [port.sql(q).rows() for q in queries]
-        assert got == [ref.sql(q).rows() for q in queries]
-        results.append(got)
-    assert results[0] == results[1]
-
-
-@pytest.fixture(scope="module")
-def pushdown_suite():
-    """tests/test_filter_pushdown.py's and test_selectivity_probe.py's
-    tables (pf, pd; big, mid) and its cap case (bigf, bigd)."""
-    rng = np.random.default_rng(42)
-    ref = hdt.connect()
-    n, m = 4000, 500
-    ref.sql("CREATE TABLE pf (k INT, x INT, v DOUBLE)")
-    x = rng.integers(-100, 100, n).astype(np.int32)
-    x[::9] = I32_NULL
-    ref.load_table("pf", {"k": rng.integers(0, 40, n).astype(np.int32), "x": x,
-                          "v": np.round(rng.normal(0, 10, n), 3)})
-    ref.sql("CREATE TABLE pd (k INT, g INT, w DOUBLE)")
-    g = rng.integers(0, 8, m).astype(np.int32)
-    g[::6] = I32_NULL
-    ref.load_table("pd", {"k": rng.integers(0, 50, m).astype(np.int32), "g": g,
-                          "w": np.round(rng.uniform(0, 5, m), 2)})
-    ref.load_table("bigf", {"k": rng.integers(0, 10, 5000).astype(np.int32)}, create=True)
-    ref.load_table("bigd", {"k": np.repeat(np.arange(10, dtype=np.int32), 200),
-                            "sel": np.tile(np.arange(200, dtype=np.int32), 10)},
-                   create=True)
-    n_big, n_mid = 40_000, 1_000
-    ref.load_table("big", {"k": rng.integers(0, n_mid, n_big).astype(np.int32),
-                           "sel": rng.integers(0, 10_000, n_big).astype(np.int32),
-                           "v": rng.random(n_big).astype(np.float32)}, create=True)
-    ref.load_table("mid", {"k": np.arange(n_mid, dtype=np.int32),
-                           "grp": rng.integers(0, 7, n_mid).astype(np.int32)}, create=True)
-    return _pair(ref, ["pf", "pd", "bigf", "bigd", "big", "mid"])
-
-
-PUSHDOWN_QUERIES = [
-    "SELECT count(*), sum(f.v) FROM pf f JOIN pd d ON f.k = d.k WHERE f.x > 0",
-    "SELECT count(*), sum(f.v) FROM pf f JOIN pd d ON f.k = d.k WHERE d.g < 4",
-    "SELECT count(*) FROM pf f JOIN pd d ON f.k = d.k "
-    "WHERE f.x > -50 AND d.g <= 5 AND f.v < d.w * 20",
-    "SELECT count(*) FROM pf f JOIN pd d ON f.k = d.k WHERE f.x <> 3 AND d.g <> 2",
-    "SELECT d.g, count(*), sum(f.v) FROM pf f JOIN pd d ON f.k = d.k "
-    "WHERE f.x > 10 AND d.w > 1.0 GROUP BY d.g ORDER BY d.g NULLS FIRST",
-    "SELECT count(*), count(d.g) FROM pf f LEFT JOIN pd d ON f.k = d.k WHERE f.x > 0",
-    "SELECT count(*) FROM pf f LEFT JOIN pd d ON f.k = d.k WHERE f.x > 0 AND d.g IS NULL",
-    "SELECT count(*) FROM pf f JOIN pd d ON f.k = d.k JOIN pd e ON f.k = e.k "
-    "WHERE f.x > 0 AND d.g = 1 AND e.g = 2",
-    "SELECT count(*) FROM bigf f JOIN bigd d ON f.k = d.k WHERE d.sel = 0",
-    "SELECT m.grp, count(*) FROM big b JOIN mid m ON b.k = m.k "
-    "WHERE b.sel < 5 GROUP BY m.grp ORDER BY m.grp",
-    "SELECT m.grp, sum(b.v) FROM big b JOIN mid m ON b.k = m.k "
-    "WHERE b.sel < 100 GROUP BY m.grp ORDER BY m.grp",
-]
-
-
-@pytest.mark.parametrize("sql", PUSHDOWN_QUERIES)
-def test_pushdown_and_probe_suite(pushdown_suite, sql):
-    _check(pushdown_suite, sql, (1,) if "sum(b.v)" in sql else ())
-
-
-def _planned(db, sql):
-    captured = []
-    orig = X.Executor._plan_compound
-
-    def spy(self, node, batches, offsets=(0,)):
-        plan = orig(self, node, batches, offsets)
-        if node.join_levels:
-            captured.append(plan)
-        return plan
-
-    X.Executor._plan_compound = spy
-    try:
-        db.sql(sql).rows()
-    finally:
-        X.Executor._plan_compound = orig
-    return captured[-1]
-
-
-def test_pushdown_split(pushdown_suite):
-    """The split as the reference makes it: a probe-side conjunct to the
-    mask, a build-side one into an INNER build, none of a LEFT build, no
-    DIV conjunct, and the build filter shrinks the expansion's need."""
-    _, port = pushdown_suite
-    plan = _planned(port, "SELECT count(*) FROM pf f JOIN pd d ON f.k = d.k "
-                          "WHERE f.x > 0 AND d.g < 4 AND f.v < d.w * 20")
-    assert len(plan.pre_mask) == 1 and len(plan.build_filters.get(1, [])) == 1
-    assert plan.filter_rest == [] and any(jp.residual for jp in plan.joins)
-    plan = _planned(port, "SELECT count(*) FROM pf f LEFT JOIN pd d ON f.k = d.k "
-                          "WHERE f.x > 0 AND d.g IS NULL")
-    assert len(plan.pre_mask) == 1 and not plan.build_filters
-    assert len(plan.filter_rest) == 1
-    plan = _planned(port, "SELECT count(*) FROM pf f JOIN pd d ON f.k = d.k "
-                          "WHERE 100 / (f.x + 200) > 0")
-    assert not plan.pre_mask and len(plan.filter_rest) == 1
-    port.sql("SELECT count(*) FROM bigf f JOIN bigd d ON f.k = d.k WHERE d.sel = 0").rows()
-    (run,) = port.executor.join_runs
-    assert run.retries <= 1 and run.caps[0] < 4 * 5000
-
-
-def test_selectivity_probe_cached(pushdown_suite):
-    _, port = pushdown_suite
-    sql = "SELECT count(*) FROM big b JOIN mid m ON b.k = m.k WHERE b.sel < 5"
-    port.sql(sql).rows()
-    assert any(k[0] == "selprobe" for k in port.executor._sel_cache)
-    size = len(port.executor._sel_cache)
-    port.sql(sql).rows()
-    assert len(port.executor._sel_cache) == size
-
-
-@pytest.fixture(scope="module")
-def tpch():
-    """tests/test_tpch_lite.py's schema at its sizes."""
-    rng = np.random.default_rng(42)
-    ref = hdt.connect()
-    n_part, n_cust, n_ord, n_li = 200, 150, 1200, 6000
-    ref.sql("CREATE TABLE part (p_partkey INT, p_brand TEXT, p_size INT, "
-            "p_retailprice DOUBLE)")
-    ref.load_table("part", {
-        "p_partkey": np.arange(n_part, dtype=np.int32),
-        "p_brand": [f"Brand#{v}" for v in rng.integers(1, 6, n_part)],
-        "p_size": rng.integers(1, 51, n_part).astype(np.int32),
-        "p_retailprice": np.round(900 + rng.uniform(0, 1200, n_part), 2)})
-    ref.sql("CREATE TABLE customer (c_custkey INT, c_mktsegment TEXT, c_acctbal DOUBLE)")
-    ref.load_table("customer", {
-        "c_custkey": np.arange(n_cust, dtype=np.int32),
-        "c_mktsegment": [["BUILDING", "AUTOMOBILE", "MACHINERY", "HOUSEHOLD",
-                          "FURNITURE"][v] for v in rng.integers(0, 5, n_cust)],
-        "c_acctbal": np.round(rng.uniform(-999, 9999, n_cust), 2)})
-    ref.sql("CREATE TABLE orders (o_orderkey INT, o_custkey INT, o_orderdate INT, "
-            "o_totalprice DOUBLE)")
-    ref.load_table("orders", {
-        "o_orderkey": np.arange(n_ord, dtype=np.int32),
-        "o_custkey": rng.integers(0, n_cust, n_ord).astype(np.int32),
-        "o_orderdate": rng.integers(8000, 11000, n_ord).astype(np.int32),
-        "o_totalprice": np.round(rng.uniform(100, 400000, n_ord), 2)})
-    ref.sql("CREATE TABLE lineitem (l_orderkey INT, l_partkey INT, l_quantity INT, "
-            "l_extendedprice DOUBLE, l_discount DOUBLE, l_returnflag TEXT, "
-            "l_shipdate INT)")
-    ref.load_table("lineitem", {
-        "l_orderkey": rng.integers(0, n_ord, n_li).astype(np.int32),
-        "l_partkey": rng.integers(0, n_part, n_li).astype(np.int32),
-        "l_quantity": rng.integers(1, 51, n_li).astype(np.int32),
-        "l_extendedprice": np.round(rng.uniform(900, 100000, n_li), 2),
-        "l_discount": np.round(rng.uniform(0, 0.1, n_li), 2),
-        "l_returnflag": [["A", "N", "R"][v] for v in rng.integers(0, 3, n_li)],
-        "l_shipdate": rng.integers(8000, 11000, n_li).astype(np.int32)})
-    return _pair(ref, ["part", "customer", "orders", "lineitem"])
-
-
-# every TPC-H shape of test_tpch_lite.py: correlated subqueries are
-# decorrelated into joins by the planner (Q2, Q17, Q20's inner AVG), and
-# the uncorrelated ones run first and become constants (Q11, Q15, Q16, Q18,
-# Q20, Q22)
-TPCH = ["Q1", "Q2", "Q3", "Q4", "Q5", "Q6", "Q7", "Q8", "Q9", "Q10", "Q11", "Q12",
-        "Q13", "Q14", "Q15", "Q16", "Q17", "Q18", "Q19", "Q20", "Q21", "Q22"]
-
-
-@pytest.mark.parametrize("name", TPCH)
-def test_tpch_shapes(tpch, name):
-    _check(tpch, getattr(TL, name))

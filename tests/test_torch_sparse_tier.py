@@ -187,23 +187,27 @@ def test_routing(dbs, monkeypatch, sql, _cols, route):
 
 
 def test_retry_ladder_matches_reference(monkeypatch):
-    """Hot key: radix bit 0 -> the sort tier; too many groups for the sort
-    tier's first cap -> one retry at bucket(num_groups).  The port's ladder
-    takes the reference's steps, and the rows agree."""
+    """Hot key: radix bit 0 -> the sort tier, in both packages.  Too many
+    groups for the sort tier's first cap: the reference reruns at
+    bucket(num_groups), the port sizes its groups from the exact count in
+    its one run.  The runs agree as far as the port's go, and the rows
+    agree."""
     tables = [("h", [("k", "BIGINT"), ("v", "INT")], _hot_columns),
               ("w", [("k", "BIGINT")], _cap_columns)]
     ref, port = _load(_jcfg(force_radix_groupby=True,
                             baseline_groupby_initial_entries=256),
                       _cfg(baseline_groupby_initial_entries=256), tables)
-    for sql, steps in (
-            ("SELECT k, count(*), sum(v) FROM h GROUP BY k", ["radix", "sort"]),
-            ("SELECT k, count(*) FROM w GROUP BY k", ["sort", "sort"])):
+    for sql, steps, ref_steps in (
+            ("SELECT k, count(*), sum(v) FROM h GROUP BY k", ["radix", "sort"],
+             ["radix", "sort"]),
+            ("SELECT k, count(*) FROM w GROUP BY k", ["sort"], ["sort", "sort"])):
         runs = _record_runs(monkeypatch)
         want = ref.sql(sql).rows()
         got = port.sql(sql).rows()
         _same_rows(got, want)
-        assert runs["port"] == runs["ref"]
+        assert runs["port"] == runs["ref"][:len(steps)]
         assert [r[0] for r in runs["port"]] == steps
+        assert [r[0] for r in runs["ref"]] == ref_steps
     hot = dict((r[0], r[1:]) for r in port.sql(
         "SELECT k, count(*), sum(v) FROM h GROUP BY k").rows())
     assert hot[7] == (32967, int((np.arange(32967) % 5 - 2).sum()))
@@ -269,3 +273,98 @@ def test_hash_tier_choice_matches_reference(monkeypatch):
     _same_rows(port.sql(sql).rows(), want)
     assert [r[0] for r in runs["ref"]] == ["hash"]
     assert runs["port"] == runs["ref"]
+
+
+def _sized_columns(n=6000, seed=5):
+    """Keys with no dense range, so the sort tier groups them: k512 and
+    k513 hold exactly 512 and 513 distinct values (a bucket boundary of
+    the group domain and one past it), kn 700 with NULL in every 9th row;
+    v INT in [-1000, 1000)."""
+    rng = np.random.default_rng(seed)
+    pool = np.unique(rng.integers(-2**40, 2**40, 2000))[:700]
+    rng.shuffle(pool)
+
+    def keys(d):
+        return pool[:d][rng.permutation(np.arange(n) % d)].astype(np.int64)
+
+    kn = keys(700)
+    kn[np.arange(n) % 9 == 0] = I64_NULL
+    return {"k512": keys(512), "k513": keys(513), "kn": kn,
+            "v": rng.integers(-1000, 1000, n).astype(np.int32)}
+
+
+def _small_columns():
+    # 200 rows: a row domain no larger than the first cap of 256
+    rng = np.random.default_rng(6)
+    return {"k": rng.integers(-2**40, 2**40, 150)[np.arange(200) % 150].astype(np.int64)}
+
+
+SIZED_TABLES = [("g", [("k512", "BIGINT"), ("k513", "BIGINT"), ("kn", "BIGINT"),
+                       ("v", "INT")], _sized_columns),
+                ("sm", [("k", "BIGINT")], _small_columns)]
+
+
+def _compound_nodes(tree):
+    stack, out = [tree], []
+    while stack:
+        node = stack.pop()
+        if node["name"].startswith("Compound#"):
+            out.append(node)
+        stack.extend(node.get("children", ()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def sized_dbs():
+    """The JAX package and the port with a first sort-tier cap of 256
+    groups, the port's debug timer on."""
+    return _load(_jcfg(baseline_groupby_initial_entries=256),
+                 _cfg(baseline_groupby_initial_entries=256, enable_debug_timer=True),
+                 SIZED_TABLES)
+
+
+@pytest.mark.parametrize("sql,sized", [
+    ("SELECT kn, COUNT(*), SUM(v) FROM g GROUP BY kn", ["groups"]),
+    ("SELECT k513, COUNT(*), MIN(v) FROM g GROUP BY k513 HAVING COUNT(*) > 11", ["groups"]),
+    # no row survives a filter the chunk stats cannot skip
+    ("SELECT k513, COUNT(*) FROM g WHERE v * 2 = 1 GROUP BY k513", ["groups"]),
+    ("SELECT k512, SUM(v), MAX(v) FROM g GROUP BY k512", ["groups"]),
+    ("SELECT k513, SUM(v), MAX(v) FROM g GROUP BY k513", ["groups"]),
+    ("SELECT k, COUNT(*) FROM sm GROUP BY k", None),
+], ids=["null_keys", "having", "no_rows", "at_bucket", "past_bucket", "below_cap"])
+def test_sort_tier_sizes_groups_in_its_run(sized_dbs, monkeypatch, sql, sized):
+    """More groups than the first cap: the port's one run reads the exact
+    group count and sizes every per-group array from it (no retry, where
+    the reference reruns); a row domain no larger than the cap takes no
+    read.  The rows are the reference's."""
+    ref, port = sized_dbs
+    runs = _record_runs(monkeypatch)
+    want = ref.sql(sql).rows()
+    _same_rows(port.sql(sql).rows(), want)
+    (node,) = _compound_nodes(port.last_query_timings)
+    assert node["tier"] == "sort" and node["retries"] == 0
+    assert node.get("sized_in_run") == sized
+    assert runs["port"] == [("sort", 256 if sized else 224)]
+
+
+@pytest.mark.parametrize("path", ["streamed", "sharded"])
+def test_sort_tier_sizes_groups_in_waves_and_shards(monkeypatch, path):
+    """Fragment waves and shard leaves each read their own group count,
+    and the merge reads its own: every run is a first run, and the rows
+    are the reference's."""
+    kw = dict(baseline_groupby_initial_entries=256)
+    extra = dict(stream_threshold_bytes=20_000, default_fragment_rows=1500) \
+        if path == "streamed" else dict(num_shards=4)
+    ref, port = _load(_jcfg(**kw), _cfg(**kw, **extra), SIZED_TABLES[:1])
+    runs = _record_runs(monkeypatch)
+    sql = "SELECT kn, COUNT(*), SUM(v), MIN(v) FROM g GROUP BY kn"
+    want = ref.sql(sql).rows()
+    _same_rows(port.sql(sql).rows(), want)
+    if path == "streamed":
+        leaves = port.executor.last_stream.waves
+    else:
+        (shard_run,) = port.executor.shard_runs
+        assert shard_run.mode == "sharded"
+        leaves = shard_run.leaf_runs
+    assert leaves > 1
+    assert [tier for tier, _ in runs["port"]] == ["sort"] * (leaves + 1)

@@ -15,8 +15,11 @@ from heavydb_tpu_torch.utils import timer as TM
 
 JOIN = "SELECT d.nm, COUNT(*), SUM(f.v) FROM f JOIN d ON f.k = d.k GROUP BY d.nm"
 # dupd's key range is as wide as its rows, so the planner guesses a unique
-# build; its duplicate keys undo the guess: one retry (`join_dup`)
-RETRY = "SELECT d.nm, COUNT(*) FROM f JOIN dupd d ON f.k = d.k GROUP BY d.nm"
+# build; its duplicate keys undo the guess inside the run: no retry
+DUP = "SELECT d.nm, COUNT(*) FROM f JOIN dupd d ON f.k = d.k GROUP BY d.nm"
+# three rows a key of fan: 3 x 2000 pairs, past the level's first cap of
+# bucket(2000): one retry (`join_cap`)
+FANOUT = "SELECT f.g, COUNT(*) FROM f JOIN fan m ON f.k = m.k GROUP BY f.g"
 
 
 def _db(timer=True):
@@ -30,6 +33,7 @@ def _db(timer=True):
                         "nm": np.arange(8, dtype=np.int32) % 3}, create=True)
     db.load_table("dupd", {"k": np.array([0, 1, 2, 2, 3, 5, 5, 7], np.int32),
                            "nm": np.arange(8, dtype=np.int32)}, create=True)
+    db.load_table("fan", {"k": np.repeat(np.arange(200, dtype=np.int32), 3)}, create=True)
     return db
 
 
@@ -73,13 +77,23 @@ def test_join_node_holds_build_probe_and_tier():
 def test_capacity_retry_is_a_scope_and_a_range():
     db = _db()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        db.sql(RETRY).rows()
+        db.sql(FANOUT).rows()
     node = _compound(db.last_query_timings)
     assert node["retries"] == 1
     (retry,) = [c for c in node["children"] if c["name"] == "retry"]
-    assert retry["cause"] == ["join_dup"]
+    assert retry["cause"] == ["join_cap"]
     assert _ranges(prof).count(TM.PREFIX + "retry") == 1
     assert db.executor.join_runs[0].retries == 1
+    # a size the run reads and uses is a `size_read` scope and range, and
+    # no retry
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        db.sql(DUP).rows()
+    node = _compound(db.last_query_timings)
+    assert node["retries"] == 0 and node["sized_in_run"] == ["join_dup#0"]
+    names = [n["name"] for n in _nodes(node)]
+    assert names.count("size_read") == 1 and "retry" not in names
+    assert _ranges(prof).count(TM.PREFIX + "size_read") == 1
+    assert TM.PREFIX + "retry" not in _ranges(prof)
 
 
 def test_kernel_builds_only_for_a_new_program():
