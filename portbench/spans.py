@@ -13,8 +13,8 @@ root's own time in api.py between its scopes), and outside every `hdb:`
 range, three parts that add up to the idle time;
 the `hdb:retry` and `hdb:kernel_build` ranges; the device time of the
 operations launched inside `hdb:join#<level>`; and each span name's host
-time, idle time and device time, and each template's retries and kernel
-builds.
+time, idle time and device time, each template's retries and kernel
+builds, and the longest device operations by name.
 
 A device operation belongs to the spans its launch ran in: the host
 runtime call (cudaLaunchKernel, cudaMemcpyAsync, ...) with the operation's
@@ -27,11 +27,13 @@ innermost annotation open at it, and a device-side range spans the first
 to the last operation launched directly inside its scope, so it leaves
 out the work of nested scopes and takes in what runs between.
 
-The benchmark's result line carries none of these: `tracing.reduce` keeps
-no span.  `reduce_spans` is the reduction it would add (the window, the
-busy intervals, the host and device `hdb:` ranges), and `account` the
-arithmetic of the per-layer metrics that would read it.  Nothing here
-imports the port; `main` runs it through `portbench.harness`.
+`tracing.reduce` keeps `reduce_spans(prof)` on its Trace as `spans` (the
+window, the busy intervals, the host and device `hdb:` ranges, the
+launches), and the per-layer metrics `parse_ms`, `front_end_idle_ms`,
+`executor_idle_ms`, `retries_per_query`, `kernel_builds_per_query` and
+`join_device_ms` (`portbench/metrics/`) each read one number of
+`account(trace.spans)`.  Nothing here imports the port; `main` runs it
+through `portbench.harness`.
 """
 
 from __future__ import annotations
@@ -64,6 +66,8 @@ class Spans:
     # start, end, name] (launch None where no host call carries its id;
     # thread None where the call's thread is not known)
     launches: list = field(default_factory=list)
+    # account(self), once it was asked for: each reader asks
+    reading: dict = field(default=None, compare=False, repr=False)
 
 
 def _thread(e):
@@ -186,6 +190,15 @@ def _launched_in(sp: Spans, keep) -> list:
     return out
 
 
+def _by_name(rows, ms, top) -> list:
+    """The `top` longest names among operations (rows of `sp.launches`),
+    each with its device time per query."""
+    names = {}
+    for r in rows:
+        names[r[4][:80]] = names.get(r[4][:80], 0) + r[3] - r[2]
+    return sorted(([name, v / ms] for name, v in names.items()), key=lambda row: -row[1])[:top]
+
+
 def _device(rows) -> int:
     """The device time of operations, overlaps counted once."""
     return _len(tracing._union([(r[2], r[3]) for r in rows]))
@@ -194,7 +207,13 @@ def _device(rows) -> int:
 def account(sp: Spans) -> dict:
     """The per-query readings of a Spans.  Every reading is left out where
     the trace holds no `hdb:` range; the idle and device ones also where
-    the device ran nothing (the CPU)."""
+    the device ran nothing (the CPU).  Worked out once a Spans."""
+    if sp.reading is None:
+        sp.reading = _account(sp)
+    return sp.reading
+
+
+def _account(sp: Spans) -> dict:
     n = len(sp.queries)
     if not n or not sp.spans:
         return {"queries": n}
@@ -235,11 +254,10 @@ def account(sp: Spans) -> dict:
         spanned = {id(r) for r in _launched_in(sp, bool)}
         rest = [r for r in sp.launches if id(r) not in spanned]
         out["outside_device_ms"] = _device(rest) / ms
-        names = {}
-        for r in rest:
-            names[r[4][:80]] = names.get(r[4][:80], 0) + r[3] - r[2]
-        out["outside_ops"] = sorted(([name, v / ms] for name, v in names.items()),
-                                    key=lambda row: -row[1])[:10]
+        out["outside_ops"] = _by_name(rest, ms, 10)
+        # every operation, the thirty longest by name: a hand kernel that
+        # falls outside the result line's ten
+        out["device_ops"] = _by_name(sp.launches, ms, 30)
         for k in kinds:
             by[k]["idle_ms"] = _len(_intersect(idle, _of(sp.spans, lambda s: _kind(s) == k))) / ms
             by[k]["device_ms"] = _device(_launched_in(sp, lambda s: _kind(s) == k)) / ms
@@ -276,16 +294,16 @@ def run(workload: str, seed: int, seconds: float, device: str = "cuda",
     got = {}
     reduce = tracing.reduce
 
-    def both(prof):
-        got["spans"] = account(reduce_spans(prof))
-        return reduce(prof)
+    def keep(prof):
+        got["trace"] = reduce(prof)
+        return got["trace"]
 
-    tracing.reduce = both
+    tracing.reduce = keep
     try:
         out = harness.run(workload, seed, seconds, True, device, scale=scale)
     finally:
         tracing.reduce = reduce
-    return out, got.get("spans")
+    return out, account(got["trace"].spans)
 
 
 def main(argv=None) -> int:

@@ -10,13 +10,17 @@ import pytest
 from portbench.harness import run
 from portbench.spec import ROOT, Cell, benchmark
 
-# a few thousand rows a table: the configurations' sizes times these
-SCALES = {"synthetic_1e8": 5e-5, "tpch_sf10": 2e-4}
 CELLS = [w["name"] for w in benchmark()["workloads"]]
 
 
+def scale_of(cell):
+    """The cell's configuration's `test_scale`: its sizes times it make a
+    few thousand rows a table."""
+    return Cell(cell).config["test_scale"]
+
+
 def small_run(cell, seed, trace=False, seconds=0.5):
-    return run(cell, seed, seconds, trace, "cpu", scale=SCALES[Cell(cell).config_name])
+    return run(cell, seed, seconds, trace, "cpu", scale=scale_of(cell))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -29,13 +33,25 @@ def test_cell_runs_correct_on_cpu(cell):
     assert out["checks"]["values_checked"]["value"] > 0
 
 
-def test_traced_run_on_cpu():
-    out = small_run(CELLS[0], 77, trace=True)
+def test_every_configuration_states_its_test_scale():
+    for c in benchmark()["configs"]:
+        cell = next(w["name"] for w in benchmark()["workloads"] if w["config"] == c["name"])
+        assert 0 < scale_of(cell) < 1e-2, c["name"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_traced_run_on_cpu(cell):
+    out = small_run(cell, 77, trace=True)
     assert out["correct"]
     assert out["device"]["window_s"] > 0
     assert out["breakdown"]["idle_gaps"]
-    # the CPU has no device trace: the device metrics are left out
-    assert "device_idle_share" not in out["metrics"]
+    # the port's spans on the host are read; the CPU has no device trace,
+    # so the device metrics and the device's idle time by span are left out
+    listed = {m["name"] for m in Cell(cell).per_layer}
+    host = {"plan_ms", "parse_ms", "retries_per_query", "kernel_builds_per_query"}
+    assert set(out["metrics"]) == listed & host
+    if "parse_ms" in listed:
+        assert out["metrics"]["parse_ms"]["value"] > 0
 
 
 def test_refuses_without_a_card():

@@ -8,13 +8,11 @@ import torch
 from portbench.control import readings
 from portbench.harness import run
 from portbench.spec import Cell, benchmark
-
-SCALES = {"synthetic_1e8": 5e-5, "tpch_sf10": 2e-4}
-CELLS = [w["name"] for w in benchmark()["workloads"]]
+from portbench.tests.test_portbench_cells import CELLS, scale_of
 
 
 def small_run(cell):
-    return run(cell, 4242, 0.5, False, "cpu", scale=SCALES[Cell(cell).config_name])
+    return run(cell, 4242, 0.5, False, "cpu", scale=scale_of(cell))
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -55,7 +53,7 @@ def test_half_the_rows_left_out_is_incorrect(cell, monkeypatch):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_incorrect(cell):
-    got = readings(Cell(cell), 31337, SCALES[Cell(cell).config_name], "cpu")
+    got = readings(Cell(cell), 31337, scale_of(cell), "cpu")
     assert not got["correct"], got
 
 

@@ -8,7 +8,8 @@ from torch.autograd import DeviceType
 
 from portbench import spans as S
 from portbench import tracing
-from portbench.tests.test_portbench_cells import CELLS, SCALES
+from portbench.harness import LayerContext
+from portbench.tests.test_portbench_cells import CELLS, scale_of
 from portbench.spec import Cell
 
 
@@ -91,11 +92,57 @@ def _events(rows, typed=True):
 @pytest.mark.parametrize("typed", [True, False])
 def test_hdb_ranges_leave_the_trace_as_it_was(typed):
     """The benchmark's reduction counts no `hdb:` range as a device
-    operation and names no idle gap by one."""
+    operation and names no idle gap by one; it keeps them as `spans`."""
     was = tracing.reduce(_prof(_events(BASE, typed)))
     now = tracing.reduce(_prof(_events(BASE + HDB, typed)))
     assert now == was
     assert now.device_ops == 2 and now.busy_s == 28e-9
+    assert was.spans.spans == [] and len(now.spans.spans) == 8
+
+
+FIELDS = ("window_s", "busy_s", "device_ops", "top_ops", "idle_gaps")
+
+
+def test_spans_leave_the_fields_of_a_recorded_trace(monkeypatch):
+    """On a trace the profiler recorded on the CPU, the fields the metrics
+    and `breakdown` read are the same with `spans` kept and without."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(tracing.WINDOW_RANGE):
+            for _ in range(3):
+                with record_function(tracing.QUERY_PREFIX + "Q1"):
+                    with record_function("hdb:parse"):
+                        x = torch.arange(1000).sum()
+                    with record_function("hdb:execute"):
+                        x = (torch.rand(1000) + x).sort().values
+    kept = tracing.reduce(prof)
+    monkeypatch.setattr(S, "reduce_spans", lambda p: None)
+    bare = tracing.reduce(prof)
+    assert bare.spans is None and len(kept.spans.queries) == 3
+    assert kept.idle_gaps and kept.window_s > 0
+    for f in FIELDS:
+        assert getattr(kept, f) == getattr(bare, f), f
+    assert S.account(kept.spans)["parse_ms"] > 0
+
+
+READERS = ("parse_ms", "front_end_idle_ms", "executor_idle_ms", "retries_per_query",
+           "kernel_builds_per_query", "join_device_ms")
+
+
+@pytest.mark.parametrize("metric", READERS)
+def test_span_readers(metric):
+    """Each reader gives account's number on a trace with `hdb:` ranges and
+    None on one without."""
+    cell = Cell("tpch.sf10.power")
+    read = cell.metric_reader(metric).read
+    for rows, want in ((BASE, None), (BASE + HDB, S.account(
+            S.reduce_spans(_prof(_events(BASE + HDB)))).get(metric))):
+        trace = tracing.reduce(_prof(_events(rows)))
+        got = read(LayerContext(cell, [], trace, "cpu", {}, {}))
+        assert got == want
+    assert isinstance(want, float)
 
 
 @pytest.mark.parametrize("typed", [True, False])
@@ -133,6 +180,7 @@ def test_account_reads_each_metric(typed):
     assert a["by_span"]["retry"]["device_ms"] == pytest.approx(13 * ms)
     assert a["by_span"]["execute"]["device_ms"] == pytest.approx(28 * ms)
     assert a["outside_device_ms"] == 0 and a["outside_ops"] == []
+    assert a["device_ops"] == [["k1", pytest.approx(15 * ms)], ["memcpy", pytest.approx(13 * ms)]]
     assert a["device_ranges"] == {"execute": 1, "join#": 1}
     assert a["by_span"]["join#"]["idle_ms"] == pytest.approx(15 * ms)  # 30-35, 50-60
     assert a["by_template"] == {"Q1": {"queries": 1, "retries": 1.0, "kernel_builds": 1.0}}
@@ -169,7 +217,7 @@ def test_account_is_empty_without_hdb_ranges():
 
 def test_traced_run_on_cpu_reads_the_host_spans():
     cell = CELLS[0]
-    out, a = S.run(cell, 77, 0.5, "cpu", scale=SCALES[Cell(cell).config_name])
+    out, a = S.run(cell, 77, 0.5, "cpu", scale=scale_of(cell))
     assert out["correct"]
     assert a["parse_ms"] > 0
     assert a["retries_per_query"] >= 0 and a["kernel_builds_per_query"] >= 0

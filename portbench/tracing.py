@@ -8,7 +8,9 @@ not work (the arithmetic of `heavydb_tpu_torch/tools/profile_queries.py`,
 copied).  Busy time is the union of the operations' intervals inside the
 window, so operations that overlap on two streams count once.  The window is
 the harness's own range WINDOW_RANGE; each query runs inside a range named
-`pb:<template>`, which names the idle gaps it leaves.
+`pb:<template>`, which names the idle gaps it leaves.  The port's own
+`hdb:` ranges are kept apart, as `Trace.spans` (`portbench/spans.py`): no
+field above counts or names them.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ class Trace:
     device_ops: int = 0
     top_ops: list = field(default_factory=list)    # [[name, seconds]]
     idle_gaps: list = field(default_factory=list)  # [[what the host did, seconds]]
+    # the port's `hdb:` ranges beside the device's work: a spans.Spans
+    spans: object = field(default=None, compare=False, repr=False)
 
 
 def all_threads():
@@ -78,6 +82,8 @@ def reduce(prof) -> Trace:
     """The Trace of the profiler `prof`, over its WINDOW_RANGE."""
     from torch.autograd import DeviceType
 
+    from portbench import spans as S
+
     events = prof.profiler.kineto_results.events()
     window = None
     dev, spans, ops, ranges = [], [], [], set()
@@ -110,7 +116,7 @@ def reduce(prof) -> Trace:
     inside = [(max(s, w0), min(t, w1), n) for s, t, n in dev if t > w0 and s < w1]
     busy = _union([(s, t) for s, t, _ in inside])
     out = Trace(window_s=(w1 - w0) / 1e9, device_ops=len(inside),
-                busy_s=sum(b - a for a, b in busy) / 1e9)
+                busy_s=sum(b - a for a, b in busy) / 1e9, spans=S.reduce_spans(prof))
     by_name = {}
     for s, t, n in inside:
         by_name[n] = by_name.get(n, 0) + (t - s)
