@@ -34,6 +34,7 @@ def main(argv=None):
     import torch
 
     import heavydb_tpu_torch as hdt
+    from heavydb_tpu_torch.config import Config
     from portbench.refkit import Ctx
 
     entry = next(c for c in benchmark()["configs"] if c["name"] == args.config)
@@ -42,7 +43,7 @@ def main(argv=None):
     names = args.templates or sorted(
         os.path.basename(f)[:-3] for f in glob.glob(os.path.join(PKG, "templates", args.config, "*.py"))
         if not f.endswith("__init__.py"))
-    db = hdt.connect(device=args.device)
+    db = hdt.connect(device=args.device, config=Config(num_shards=int(cfg.get("shards", 1))))
     t0 = time.perf_counter()
     tables = gen.make(cfg, args.seed, args.scale, db.device)
     load_tables(db, tables)

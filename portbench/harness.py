@@ -1,6 +1,9 @@
 """One run of one cell: make the tables from the seed, warm the cell's
-templates, drive the traffic for the window, check a sample of the answers
-against the plain reference, and report.
+templates, drive the traffic for the window, make the tables again from the
+seed once the port is gone, check a sample of the answers against the plain
+reference over them, and report.  A configuration's `shards` is the port's
+`Config(num_shards=...)`, one card a shard: the run's cell has as many
+chips, and each reading of the device covers all of them.
 
     python3 -m portbench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
@@ -281,29 +284,44 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     from portbench.refkit import Ctx
 
     cell = Cell(workload)
-    dev = torch.device(device)
+    # the cards the run reads: cuda:0 .. cuda:{chips-1}, the Database's card
+    # and the port's mesh (`Executor._make_mesh`); none on the CPU
+    cards = ([torch.device("cuda", i) for i in range(cell.chips)]
+             if torch.device(device).type == "cuda" else [])
     timed = trace and any(m["name"] == "plan_ms" for m in cell.per_layer)
     # start_s: from the interpreter's start to here, torch's import and
     # run.py's look for a card among it; import_s: the port's import
     parts = {"start_s": t_run - t0, "import_s": time.perf_counter() - t_run}
 
+    def sync():
+        for c in cards:
+            torch.cuda.synchronize(c)
+
     def part(name, t):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync()
         parts[name] = time.perf_counter() - t
         return time.perf_counter()
 
     t = time.perf_counter()
-    db = hdt.connect(device=device, config=Config(enable_debug_timer=timed))
+    db = hdt.connect(device=device, config=Config(enable_debug_timer=timed,
+                                                  num_shards=cell.shards))
     t = part("connect_s", t)
-    tables = cell.generator.make(cell.config, seed, scale, db.device)
+    home = db.device
+    tables = cell.generator.make(cell.config, seed, scale, home)
     t = part("make_s", t)
     load_tables(db, tables)
+    # the window holds no copy of the tables but the port's: the check
+    # makes them again from the seed once the Database is gone
+    table_rows = {n: int(next(iter(tab["columns"].values())).shape[0])
+                  for n, tab in tables.items()}
+    widths = {n: {c: a.element_size() for c, a in tab["columns"].items()}
+              for n, tab in tables.items()}
+    del tables
     t = part("load_s", t)
     warm(db, cell, seed)
     part("warm_s", t)
-    if dev.type == "cuda":
-        torch.cuda.reset_peak_memory_stats(dev)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
     setup_s = time.perf_counter() - t0
     print("setup " + " ".join(f"{k}={v:.3f}" for k, v in parts.items()), file=sys.stderr,
           flush=True)
@@ -315,32 +333,26 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
 
         from portbench import tracing
 
-        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cards else [])
         with profile(activities=acts, experimental_config=tracing.all_threads()) as prof:
             with record_function(tracing.WINDOW_RANGE):
                 start, end = drive(db, cell, seed, window, rec,
                                    lambda n: record_function(tracing.QUERY_PREFIX + n), timed)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-        tr = tracing.reduce(prof)
+                sync()
+        tr = tracing.reduce(prof, cell.chips)
         del prof
     else:
         start, end = drive(db, cell, seed, window, rec,
                            lambda n: contextlib.nullcontext(), timed)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-        peak = int(torch.cuda.max_memory_allocated(dev))
-        kind = torch.cuda.get_device_name(dev)
-    else:
-        peak, kind = 0, "cpu"
+    sync()
+    peaks = [int(torch.cuda.max_memory_allocated(c)) for c in cards]
+    kind = torch.cuda.get_device_name(cards[0]) if cards else "cpu"
     attempted = sum(1 for d in rec.done if start <= d.t_done <= end) + len(rec.failed)
 
     # the program's state goes before the reference runs
-    table_rows = {n: int(next(iter(t["columns"].values())).shape[0]) for n, t in tables.items()}
-    widths = {n: {c: a.element_size() for c, a in t["columns"].items()} for n, t in tables.items()}
     del db
     gc.collect()
-    if dev.type == "cuda":
+    if cards:
         torch.cuda.empty_cache()
 
     if trace:
@@ -354,14 +366,19 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     else:
         metrics = e2e_metrics(cell, rec, start, end, setup_s)
 
-    checks = check(cell, tables, rec, Ctx(dev))
+    # the same seed makes the same tables (the generators draw from one
+    # torch.Generator seeded with it), on the card the port held them on
+    tables = cell.generator.make(cell.config, seed, scale, home)
+    checks = check(cell, tables, rec, Ctx(home))
     correct = all(c["limit"] is None or c["value"] <= c["limit"] for c in checks.values())
     out = {"correct": correct, "attempted": attempted, "failed": len(rec.failed),
            "metrics": metrics,
-           "device": {"platform": "gpu" if dev.type == "cuda" else "cpu", "kind": kind,
-                      "count": 1, "memory_peak_bytes": peak}}
+           "device": {"platform": "gpu" if cards else "cpu", "kind": kind,
+                      "count": cell.chips, "memory_peak_bytes": max(peaks, default=0),
+                      "memory_peak_bytes_by_card": peaks}}
     if trace:
         out["device"]["busy_s"] = tr.busy_s
+        out["device"]["busy_s_by_card"] = tr.busy_s_by_card
         out["device"]["window_s"] = tr.window_s
         out["breakdown"] = {"device_ops": tr.top_ops, "idle_gaps": tr.idle_gaps}
     out["setup_parts"] = parts

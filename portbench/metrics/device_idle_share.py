@@ -1,5 +1,6 @@
 """The device's idle share over the traced window: 1 - busy / window, with
-busy the union of its kernels', copies' and sets' intervals."""
+busy each card's union of its kernels', copies' and sets' intervals,
+averaged over the cell's cards (`tracing.reduce`)."""
 
 
 def read(ctx):

@@ -1,5 +1,6 @@
 """Kernels, copies and sets on the device per query completed in the traced
-window: the launches and transfers the host pays for."""
+window, counted on every card of the cell: the launches and transfers the
+host pays for."""
 
 
 def read(ctx):

@@ -4,8 +4,10 @@ bandwidth, as a share (%) of the device's busy time.
 A query's bytes are every column its template reads, over all rows of that
 column's table, read once, plus its result's columns written once: what any
 implementation must move, whatever the port does.  Busy time is every
-kernel, copy and set on the device, so the share is of the whole device's
-work.  None where the card's bandwidth is not in the table of peaks."""
+kernel, copy and set on the device, summed over the cell's cards: the share
+is of what the cards could have moved while busy, so it cannot pass 100 %
+on honest work however many cards stream at once.  None where the card's
+bandwidth is not in the table of peaks."""
 
 from portbench.peaks import hbm_bytes_per_s
 
@@ -26,4 +28,4 @@ def read(ctx):
         if q.template not in per:
             per[q.template] = column_bytes(ctx, q.template)
         total += per[q.template] + q.result_bytes
-    return 100.0 * total / bw / ctx.trace.busy_s
+    return 100.0 * total / bw / sum(ctx.trace.busy_s_by_card)

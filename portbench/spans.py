@@ -16,6 +16,12 @@ operations launched inside `hdb:join#<level>`; and each span name's host
 time, idle time and device time, each template's retries and kernel
 builds, and the longest device operations by name.
 
+On a cell of several cards, idle time is each card's (the window less the
+union of that card's operations), averaged over the cell's cards, a card
+that ran nothing idle for the whole window; device time is each card's
+union, summed over the cards; operations are counted on every card.  On
+one card each is the card's own.
+
 A device operation belongs to the spans its launch ran in: the host
 runtime call (cudaLaunchKernel, cudaMemcpyAsync, ...) with the operation's
 correlation id, on that call's thread.  A call that no aten op encloses
@@ -58,13 +64,14 @@ LAUNCH_KINDS = {"cuda_runtime", "cuda_driver"}
 @dataclass
 class Spans:
     window: tuple = (0, 0)                           # (w0, w1), ns
-    busy: list = field(default_factory=list)         # device ops' union, [[a, b]]
+    # each card's union of its device ops, [[a, b]], one a card of the cell
+    busy: list = field(default_factory=list)
     spans: list = field(default_factory=list)        # host [start, end, name, thread]
     device_spans: list = field(default_factory=list)  # device-side [start, end, name]
     queries: list = field(default_factory=list)      # pb:<template> [start, end, name, thread]
     # each device operation in the window: [launch ns, launching thread,
-    # start, end, name] (launch None where no host call carries its id;
-    # thread None where the call's thread is not known)
+    # start, end, name, card] (launch None where no host call carries its
+    # id; thread None where the call's thread is not known)
     launches: list = field(default_factory=list)
     # account(self), once it was asked for: each reader asks
     reading: dict = field(default=None, compare=False, repr=False)
@@ -92,10 +99,11 @@ def _is_launch(e, name: str) -> bool:
     return name.startswith("cu") and "::" not in name
 
 
-def reduce_spans(prof) -> Spans:
-    """The Spans of the profiler `prof` over its tracing.WINDOW_RANGE:
-    device operations as `tracing.reduce` counts them (kernels, copies and
-    sets, not the device-side copies of ranges), clipped to the window."""
+def reduce_spans(prof, cards: int = 1) -> Spans:
+    """The Spans of the profiler `prof` over its tracing.WINDOW_RANGE, on a
+    cell of `cards` cards: device operations as `tracing.reduce` counts them
+    (kernels, copies and sets, not the device-side copies of ranges),
+    clipped to the window."""
     from torch.autograd import DeviceType
 
     events = prof.profiler.kineto_results.events()
@@ -110,7 +118,7 @@ def reduce_spans(prof) -> Spans:
             elif (kind in tracing.DEVICE_KINDS if kind is not None
                   else not name.startswith(tracing.QUERY_PREFIX)) \
                     and name not in tracing.NOT_OPS:
-                dev_ops.append((s, t, e.correlation_id(), name))
+                dev_ops.append((s, t, e.device_index(), e.correlation_id(), name))
         elif _is_launch(e, name):
             calls[e.correlation_id()] = (s, _launch_thread(e))
         elif name == tracing.WINDOW_RANGE:
@@ -127,9 +135,10 @@ def reduce_spans(prof) -> Spans:
         return sorted([max(r[0], w0), min(r[1], w1), *r[2:]] for r in rows
                       if r[1] > w0 and r[0] < w1)
 
-    inside = [(max(s, w0), min(t, w1), c, n) for s, t, c, n in dev_ops if t > w0 and s < w1]
-    busy = tracing._union([(s, t) for s, t, _, _ in inside])
-    launches = [[*calls.get(c, (None, None)), s, t, n] for s, t, c, n in inside]
+    inside = [(max(s, w0), min(t, w1), k, c, n) for s, t, k, c, n in dev_ops
+              if t > w0 and s < w1]
+    busy = tracing.by_card(inside, cards)
+    launches = [[*calls.get(c, (None, None)), s, t, n, k] for s, t, k, c, n in inside]
     return Spans(window, busy, clip(host), clip(dev), clip(queries), launches)
 
 
@@ -200,8 +209,9 @@ def _by_name(rows, ms, top) -> list:
 
 
 def _device(rows) -> int:
-    """The device time of operations, overlaps counted once."""
-    return _len(tracing._union([(r[2], r[3]) for r in rows]))
+    """The device time of operations: each card's, overlaps counted once,
+    summed over the cards."""
+    return sum(_len(u) for u in tracing.by_card([(r[2], r[3], r[5]) for r in rows], 1))
 
 
 def account(sp: Spans) -> dict:
@@ -234,19 +244,30 @@ def _account(sp: Spans) -> dict:
         out["device_ranges"][k] = out["device_ranges"].get(k, 0) + 1
     by = {k: {"host_ms": sum(r[1] - r[0] for r in sp.spans if _kind(r[2]) == k) / ms,
               "count": sum(1 for r in sp.spans if _kind(r[2]) == k) / n} for k in kinds}
-    if sp.busy:
-        idle = _gaps(sp.window, sp.busy)
-        execu = _intersect(idle, _of(sp.spans, EXECUTOR.__contains__))
-        front = _intersect(idle, _of(sp.spans, FRONT_END.__contains__))
-        total = _len(idle)
+    if any(sp.busy):
+        # each card's idle time, averaged over the cards
+        idle = [_gaps(sp.window, u) for u in sp.busy]
+        card_ms = ms * len(idle)
+
+        def idle_in(keep) -> int:
+            """The cards' idle ns inside the host ranges that pass `keep`."""
+            rng = _of(sp.spans, keep)
+            return sum(_len(_intersect(i, rng)) for i in idle)
+
+        in_execu = _of(sp.spans, EXECUTOR.__contains__)
+        in_front = _of(sp.spans, FRONT_END.__contains__)
+        execu = [_intersect(i, in_execu) for i in idle]
+        front = [_intersect(i, in_front) for i in idle]
+        total = sum(_len(i) for i in idle)
         out.update({
-            "busy_ms": _len(sp.busy) / ms,
+            "busy_ms": sum(_len(u) for u in sp.busy) / card_ms,
             "launches_found": sum(1 for r in sp.launches if r[0] is not None)
             / len(sp.launches),
-            "idle_ms": total / ms,
-            "front_end_idle_ms": (_len(front) - _len(_intersect(front, execu))) / ms,
-            "executor_idle_ms": _len(execu) / ms,
-            "outside_idle_ms": (total - _len(_intersect(idle, _of(sp.spans, bool)))) / ms,
+            "idle_ms": total / card_ms,
+            "front_end_idle_ms": sum(_len(f) - _len(_intersect(f, e))
+                                     for f, e in zip(front, execu)) / card_ms,
+            "executor_idle_ms": sum(_len(e) for e in execu) / card_ms,
+            "outside_idle_ms": (total - idle_in(bool)) / card_ms,
         })
         if "join#" in kinds:
             out["join_device_ms"] = _device(_launched_in(sp, lambda s: s.startswith("join#"))) / ms
@@ -259,7 +280,7 @@ def _account(sp: Spans) -> dict:
         # falls outside the result line's ten
         out["device_ops"] = _by_name(sp.launches, ms, 30)
         for k in kinds:
-            by[k]["idle_ms"] = _len(_intersect(idle, _of(sp.spans, lambda s: _kind(s) == k))) / ms
+            by[k]["idle_ms"] = idle_in(lambda s: _kind(s) == k) / card_ms
             by[k]["device_ms"] = _device(_launched_in(sp, lambda s: _kind(s) == k)) / ms
     out["by_span"] = by
     out["by_template"] = _by_template(sp)
@@ -294,8 +315,8 @@ def run(workload: str, seed: int, seconds: float, device: str = "cuda",
     got = {}
     reduce = tracing.reduce
 
-    def keep(prof):
-        got["trace"] = reduce(prof)
+    def keep(prof, cards=1):
+        got["trace"] = reduce(prof, cards)
         return got["trace"]
 
     tracing.reduce = keep

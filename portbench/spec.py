@@ -3,8 +3,9 @@
 - `BENCHMARK.json` at the root of the checkout: cells, configurations, metrics.
 - `portbench/workloads/<cell>.json`: the traffic mix (templates and weights,
   clients, order, sample size, the limits of the comparison).
-- `portbench/configs/<config>.json` (the configuration as run) and
-  `portbench/configs/<config>.py` (its generator: `make(db, cfg, seed, scale)`).
+- `portbench/configs/<config>.json` (the configuration as run, with its
+  `shards`, the cards of its deployment, 1 where it states none) and
+  `portbench/configs/<config>.py` (its generator: `make(cfg, seed, scale, device)`).
 - `portbench/templates/<config>/<template>.py`: SQL, parameters, the columns
   read and the plain reference.
 - `portbench/metrics/<metric>.py`: `read(ctx)` of one per-layer metric.
@@ -58,6 +59,13 @@ class Cell:
         self.config_name = entry["config"]
         centry = next(c for c in bench["configs"] if c["name"] == self.config_name)
         self.config = load_json(os.path.join(ROOT, centry["file"]))
+        # the deployment's layout: the port runs Config(num_shards=shards),
+        # one shard a card, so a cell takes as many cards as its
+        # configuration has shards, no idle card and none short
+        self.shards = int(self.config.get("shards", 1))
+        if self.chips != self.shards:
+            raise ValueError(f"{name}: {self.chips} chips for the {self.shards} shard(s) of "
+                             f"{self.config_name}")
         self.generator = load_module(os.path.join(PKG, "configs", f"{self.config_name}.py"),
                                      f"portbench_config_{self.config_name}")
         self.templates = {

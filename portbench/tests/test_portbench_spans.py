@@ -16,9 +16,9 @@ from portbench.spec import Cell
 class Ev:
     """A kineto event as `prof.profiler.kineto_results.events()` gives it."""
 
-    def __init__(self, name, start, end, kind, corr=0, thread=1, linked=1):
+    def __init__(self, name, start, end, kind, corr=0, thread=1, linked=1, card=0):
         self._name, self._s, self._t, self._kind = name, start, end, kind
-        self._corr, self._th, self._linked = corr, thread, linked
+        self._corr, self._th, self._linked, self._card = corr, thread, linked, card
         self.activity_type = lambda: kind
 
     def name(self):
@@ -36,6 +36,9 @@ class Ev:
 
     def correlation_id(self):
         return self._corr
+
+    def device_index(self):
+        return self._card
 
     def linked_correlation_id(self):
         return self._linked
@@ -100,7 +103,7 @@ def test_hdb_ranges_leave_the_trace_as_it_was(typed):
     assert was.spans.spans == [] and len(now.spans.spans) == 8
 
 
-FIELDS = ("window_s", "busy_s", "device_ops", "top_ops", "idle_gaps")
+FIELDS = ("window_s", "busy_s", "busy_s_by_card", "device_ops", "top_ops", "idle_gaps")
 
 
 def test_spans_leave_the_fields_of_a_recorded_trace(monkeypatch):
@@ -118,7 +121,7 @@ def test_spans_leave_the_fields_of_a_recorded_trace(monkeypatch):
                     with record_function("hdb:execute"):
                         x = (torch.rand(1000) + x).sort().values
     kept = tracing.reduce(prof)
-    monkeypatch.setattr(S, "reduce_spans", lambda p: None)
+    monkeypatch.setattr(S, "reduce_spans", lambda p, cards: None)
     bare = tracing.reduce(prof)
     assert bare.spans is None and len(kept.spans.queries) == 3
     assert kept.idle_gaps and kept.window_s > 0
@@ -149,13 +152,13 @@ def test_span_readers(metric):
 def test_reduce_spans_fills_each_field(typed):
     sp = S.reduce_spans(_prof(_events(BASE + HDB, typed)))
     assert sp.window == (0, 120)
-    assert sp.busy == [[35, 50], [62, 75]]
+    assert sp.busy == [[[35, 50], [62, 75]]]
     assert [r[2] for r in sp.spans] == ["parse", "plan", "query", "execute", "join#0",
                                         "retry", "kernel_build", "egress"]
     assert sp.spans[0] == [0, 10, "parse", 1]
     assert sp.device_spans == [[25, 75, "execute"], [40, 55, "join#0"]]
     assert sp.queries == [[0, 100, "Q1", 1]]
-    assert sp.launches == [[31, 1, 35, 50, "k1"], [61, 1, 62, 75, "memcpy"]]
+    assert sp.launches == [[31, 1, 35, 50, "k1", 0], [61, 1, 62, 75, "memcpy", 0]]
 
 
 @pytest.mark.parametrize("typed", [True, False])
@@ -226,3 +229,112 @@ def test_traced_run_on_cpu_reads_the_host_spans():
     assert "front_end_idle_ms" not in a and "executor_idle_ms" not in a
     assert "device_idle_share" not in out["metrics"]
     assert set(a["by_template"]) <= set(Cell(cell).templates)
+
+
+# a second card: two kernels launched inside the join (at 38 and 39) run
+# 40-70 and 60-65 on card 1, so card 1 is busy 40-70
+CARD1 = [
+    ("cudaLaunchKernel", 38, 39, "cuda_runtime", 9),
+    ("cudaLaunchKernel", 39, 40, "cuda_runtime", 10),
+    ("k2", 40, 70, "kernel", 9, 1, 1, 1),
+    ("k3", 60, 65, "kernel", 10, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("cards", [2, 3])
+def test_busy_time_is_each_cards(cards):
+    """Each card's union on its own, the mean over the cell's cards, a card
+    that ran nothing idle; operations counted on every card."""
+    tr = tracing.reduce(_prof(_events(BASE + HDB + CARD1)), cards)
+    assert tr.busy_s_by_card == [28e-9, 30e-9] + [0.0] * (cards - 2)
+    assert tr.busy_s == pytest.approx(58e-9 / cards)
+    assert tr.device_ops == 4
+    # card 0's gaps: 0-35, 75-120, 50-62
+    assert [g[1] for g in tr.idle_gaps] == [45e-9, 35e-9, 12e-9]
+    cell = Cell("tpch.sf10.power")
+    ctx = LayerContext(cell, [], tr, "cpu", {}, {})
+    assert cell.metric_reader("device_idle_share").read(ctx) == \
+        pytest.approx(1 - 58 / cards / 120)
+
+
+def test_roofline_divides_by_the_cards_busy_seconds(monkeypatch):
+    """The necessary bytes over the bandwidth times the sum of the cards'
+    busy seconds: two cards busy 28 and 30 ns."""
+    from portbench.harness import Done
+
+    cell = Cell("tpch.sf10.power")
+    tr = tracing.reduce(_prof(_events(BASE + HDB + CARD1)), 2)
+    reader = cell.metric_reader("kernels_roofline")
+    monkeypatch.setattr(reader, "hbm_bytes_per_s", lambda kind: 1e9)
+    monkeypatch.setattr(reader, "column_bytes", lambda ctx, t: 50)
+    ctx = LayerContext(cell, [Done("Q6", 0, 1, 8, None)], tr, "card", {}, {})
+    assert reader.read(ctx) == pytest.approx(100.0 * 58 / 1e9 / 58e-9)
+
+
+def test_span_readings_on_two_cards():
+    """Idle time by span is each card's, averaged over the cards; device
+    time by span each card's union, summed."""
+    sp = S.reduce_spans(_prof(_events(BASE + HDB + CARD1)), 2)
+    assert sp.busy == [[[35, 50], [62, 75]], [[40, 70]]]
+    a = S.account(sp)
+    ms = 1e-6
+    # card 0 as on one card; card 1 idle 0-40 and 70-120
+    assert a["busy_ms"] == pytest.approx(29 * ms)
+    assert a["idle_ms"] == pytest.approx((92 + 90) / 2 * ms)
+    # card 1: 20-40 and 70-80 in execute, 85-95 in egress
+    assert a["executor_idle_ms"] == pytest.approx((42 + 40) / 2 * ms)
+    # card 1: parse 0-10, plan 10-20, the root's own 80-82
+    assert a["front_end_idle_ms"] == pytest.approx(22 * ms)
+    assert a["outside_idle_ms"] == pytest.approx((28 + 28) / 2 * ms)
+    assert a["front_end_idle_ms"] + a["executor_idle_ms"] + a["outside_idle_ms"] == \
+        pytest.approx(a["idle_ms"])
+    # card 0's 35-50 and card 1's 40-70, k3 inside it counted once
+    assert a["join_device_ms"] == pytest.approx(45 * ms)
+    assert a["by_span"]["join#"]["idle_ms"] == pytest.approx((15 + 10) / 2 * ms)
+    assert a["by_span"]["execute"]["device_ms"] == pytest.approx(58 * ms)
+    # a third card that ran nothing is idle all the window
+    a3 = S.account(S.reduce_spans(_prof(_events(BASE + HDB + CARD1)), 3))
+    assert a3["idle_ms"] == pytest.approx((92 + 90 + 120) / 3 * ms)
+    assert a3["join_device_ms"] == a["join_device_ms"]
+
+
+def _one_card(rows):
+    """The readings as the reduction took them over the union of every
+    device operation, whatever its card: on one card it must give them
+    bit for bit."""
+    sp = S.reduce_spans(_prof(_events(rows)))
+    ops = [(r[2], r[3]) for r in sp.launches]
+    busy = tracing._union(ops)
+    idle = S._gaps(sp.window, busy)
+    execu = S._intersect(idle, S._of(sp.spans, S.EXECUTOR.__contains__))
+    front = S._intersect(idle, S._of(sp.spans, S.FRONT_END.__contains__))
+    join = [(r[2], r[3]) for r in S._launched_in(sp, lambda s: s.startswith("join#"))]
+    ms = 1e6 * len(sp.queries)
+    return {
+        "busy_s": sum(b - a for a, b in busy) / 1e9,
+        "busy_ms": S._len(busy) / ms,
+        "idle_ms": S._len(idle) / ms,
+        "front_end_idle_ms": (S._len(front) - S._len(S._intersect(front, execu))) / ms,
+        "executor_idle_ms": S._len(execu) / ms,
+        "outside_idle_ms": (S._len(idle) - S._len(S._intersect(idle, S._of(sp.spans, bool))))
+        / ms,
+        "join_device_ms": S._len(tracing._union(join)) / ms,
+        "device_ops": len(ops),
+    }
+
+
+@pytest.mark.parametrize("extra", [[], [("cudaLaunchKernel", 38, 39, "cuda_runtime", 9),
+                                        ("k2", 40, 70, "kernel", 9)]])
+def test_one_card_reads_as_before(extra):
+    """On events of one card every reading equals the single-union
+    formulas exactly, the roofline's sum of busy seconds included."""
+    rows = BASE + HDB + extra
+    want = _one_card(rows)
+    tr = tracing.reduce(_prof(_events(rows)))
+    a = S.account(tr.spans)
+    assert tr.busy_s == want["busy_s"] and tr.busy_s_by_card == [want["busy_s"]]
+    assert sum(tr.busy_s_by_card) == tr.busy_s
+    assert tr.device_ops == want["device_ops"]
+    for k in ("busy_ms", "idle_ms", "front_end_idle_ms", "executor_idle_ms", "outside_idle_ms",
+              "join_device_ms"):
+        assert a[k] == want[k], k
