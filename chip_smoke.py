@@ -8,7 +8,7 @@ phase's cluster, which the script starts itself.)  Phases, each
 printing JSON lines:
 
   env      card, power limit, torch / CUDA / nvcc versions
-  build    builds kernels B1-B6 and B3a-c from heavydb_tpu_torch/kernels/csrc
+  build    builds kernels B1-B6, B3a-c and J1 from heavydb_tpu_torch/kernels/csrc
            into build/kernels and runs the kernel gate
   kernel_info  registers, shared memory and resident blocks per SM of B1,
            B2 (each tier, with its cluster size), B3 and B4-B6 as they are
@@ -32,7 +32,10 @@ printing JSON lines:
            also at 100M + 3 rows and on inputs offset by one element.  B4
            at 1024-, 4096- and 16384-key tiles (16 keys a thread); B5 with
            6 streams and with none; B6 counts only, with 6 streams, and
-           skewed (partitions past 4096 rows and a hot group in each)
+           skewed (partitions past 4096 rows and a hot group in each).
+           J1 (the perfect join build's slots and counts) at lineitem's
+           67M padded rows over 6 x 10^7 keys with 1 / 63 / 100 % kept,
+           16M unique keys and 25 keys, beside torch.bincount
   e2e      connect() on CUDA, a 100M-row table of the synthetic benchmark's
            schema loaded on the device, eleven SELECTs through db.sql(),
            each checked against numpy and timed; the kernel launch counters
@@ -61,7 +64,7 @@ printing JSON lines:
            capacity once, and SEMI + ANTI; each equal to numpy, with its
            warm ms, each join level's build form, caps and retries, its
            peak device bytes and its kernel launches (counted from 0 for
-           this phase)
+           this phase); J1 launches on each perfect build
   join_split  JOIN_SPARSE's hash probe beside a binary-search probe of the
            same keys, its sorted and hash builds and its expansion, and
            JOIN_DIM10M's perfect build and unique probe, timed apart
@@ -1314,6 +1317,14 @@ ROUTES = {
     "GEO_DWITHIN": set(), "GEO_ZONE_JOIN": {"radix_hist"}, "GEO_NEAR_JOIN": set(),
     "ARR_UNNEST_GROUP": set(), "ARR_ANY_SUBSCRIPT": set(),
 }
+def _j1():
+    """J1's wrapper, whose `launches` count the perfect join builds on the
+    card (kept apart from the nine counters of ROUTES)."""
+    from heavydb_tpu_torch.kernels import join_build
+
+    return join_build.perfect_count
+
+
 def check_route(name, delta) -> None:
     """Raise unless the query launched exactly the kernels ROUTES names
     (delta: each kernel's launches in its runs)."""
@@ -1850,8 +1861,10 @@ def run_join(db, host, counters):
                 rows={t: int(next(iter(c.values())).shape[0]) for t, c in dims.items()})]
     for c in counters:
         c.launches = 0  # the join path starts here
+    j1 = _j1()
     for name, q in JOIN_QUERIES.items():
         before = [c.launches for c in counters]
+        j1_before = j1.launches
         t0 = time.perf_counter()
         rs = db.sql(q)
         rs.rows()
@@ -1865,6 +1878,11 @@ def run_join(db, host, counters):
         if sum(r.retries for r in runs) != retries:
             raise AssertionError(f"{name}: {[r.retries for r in runs]} retries, "
                                  f"expected {retries}")
+        j1_first = j1.launches - j1_before
+        perfect = sum(b.startswith("perfect") for r in runs for b in r.builds)
+        if builds is not None and (j1_first > 0) != (perfect > 0):
+            raise AssertionError(f"{name}: J1 launched {j1_first} times on builds "
+                                 f"{[r.builds for r in runs]}")
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1881,7 +1899,8 @@ def run_join(db, host, counters):
                         warm_ms=statistics.median(reps), warm_runs_ms=reps,
                         builds=[r.builds for r in runs], caps=[r.caps for r in runs],
                         retries=[r.retries for r in runs], peak_device_bytes=peak,
-                        launches=dict(zip(KERNEL_NAMES, delta))))
+                        launches=dict(zip(KERNEL_NAMES, delta)),
+                        j1_launches=j1.launches - j1_before))
     return out, [c.launches for c in counters], dims
 
 
@@ -1995,6 +2014,101 @@ def join_yardsticks(host, dims):
         build_perfect_ms=timed(lambda: J.build_perfect(dk, None, n10, 1, n10), 5),
         probe_perfect_unique_ms=timed(
             lambda: J.probe_perfect_unique(pbuild, px, None, n10, None), 5)))
+    return lines
+
+
+def _lineitem_orderkeys(gen, padded=67_108_864, rows=59_986_052):
+    """l_orderkey as TPC-H SF10's lineitem holds it: runs of 1-7 rows of
+    one key over the first 8 of every 32 keys, padded to the row bucket."""
+    n_orders = rows // 4
+    okeys = torch.arange(n_orders, device="cuda", dtype=torch.int64)
+    okeys = (okeys // 8) * 32 + okeys % 8 + 1
+    lines = torch.randint(1, 8, (n_orders,), device="cuda", generator=gen)
+    keys = torch.repeat_interleave(okeys, lines)[:rows]
+    out = torch.zeros(padded, dtype=torch.int64, device="cuda")
+    out[:keys.shape[0]] = keys
+    return out, int(keys.shape[0])
+
+
+def _j1_bytes(keys, valid, num_rows: int, counts) -> int:
+    """The bytes J1 has to move: the live rows' validity (1 B a row), each
+    32-byte sector of keys that holds a kept row, every slot written (4 B
+    a row), the counts zeroed (4 B a slot), and each 32-byte sector of
+    counts that a kept row touches read and written back."""
+    live = keys.shape[0] if num_rows is None else min(int(num_rows), keys.shape[0])
+    kept = (torch.ones(live, dtype=torch.bool, device=keys.device) if valid is None
+            else valid[:live].clone())
+
+    def sectors(mask, per):
+        pad = (-mask.shape[0]) % per
+        if pad:
+            mask = torch.cat([mask, mask.new_zeros(pad)])
+        return int(mask.view(-1, per).any(1).sum())
+
+    nbytes = (0 if valid is None else live) + sectors(kept, 4) * 32
+    nbytes += keys.shape[0] * 4 + counts.shape[0] * 4 + sectors(counts > 0, 8) * 64
+    return nbytes
+
+
+def run_join_build_kernel(rate: float):
+    """J1 (kernels/join_build.py) at the shapes of
+    tests/test_torch_join_build_chip.py: lineitem's 67,108,864 padded rows
+    over a range of 6 x 10^7 with 1 %, 63 % and every row kept, 16,777,216
+    unique keys, 2^24 rows over 25 keys.  build_perfect through the
+    wrapper `perfect_count` against the plain build (counts, offsets and
+    payload equal), then timed (CUDA events, median of 10): the wrapper
+    (the counts' zeroing and J1), its plain version, torch.bincount of the
+    int64 slot plus the cast to int32 (the library yardstick), and the
+    whole build_perfect through each.  Bound: `_j1_bytes` at `rate`."""
+    from heavydb_tpu_torch.kernels import join_build as JB
+    from heavydb_tpu_torch.ops import join as J
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 28)
+    lineitem, live = _lineitem_orderkeys(gen)
+    cases = []
+    for kept in (0.01, 0.63, 1.0):
+        valid = None if kept == 1.0 else (
+            torch.rand(lineitem.shape[0], device="cuda", generator=gen) < kept)
+        cases.append((f"lineitem, {kept:.0%} kept", lineitem, valid, live, 1, 60_000_000))
+    n = 16_777_216
+    cases.append(("unique keys", torch.randperm(n, device="cuda", generator=gen) + 5,
+                  None, n, 5, n))
+    n = 1 << 24
+    cases.append(("25 keys", torch.randint(-2, 28, (n,), device="cuda", generator=gen),
+                  torch.rand(n, device="cuda", generator=gen) < 0.9, n - 1000, 0, 25))
+    lines = []
+    for tag, keys, valid, nr, kmin, R in cases:
+        args = (keys, valid, nr, kmin, R)
+
+        def plain_build():
+            slot, counts = JB.perfect_count_plain(*args)
+            offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+            return J.PerfectBuild(counts, offsets,
+                                  torch.sort(slot, stable=True).indices.to(torch.int32), kmin)
+
+        before = JB.perfect_count.launches
+        got, want = J.build_perfect(*args), plain_build()
+        assert JB.perfect_count.launches == before + 1, "build_perfect did not run J1"
+        for a, b in zip(got[:3], want[:3]):
+            assert a.dtype == b.dtype
+            agree(a, b)
+        nbytes = _j1_bytes(keys, valid, nr, want.counts)
+        slot64 = JB.perfect_count_plain(*args)[0].to(torch.int64)
+        del got, want
+        lines.append(dict(
+            kernel="perfect_count", tag=tag, rows=keys.shape[0], live_rows=nr, slots=R,
+            ms=timed(lambda: JB.perfect_count(*args), 10), bound_ms=nbytes / rate * 1e3,
+            bound_bytes=nbytes,
+            plain_ms=timed(lambda: JB.perfect_count_plain(*args), 10),
+            library_ms=timed(lambda: torch.bincount(slot64, minlength=R + 1)[:R]
+                             .to(torch.int32), 10),
+            build_perfect_ms=timed(lambda: J.build_perfect(*args), 10),
+            build_perfect_plain_ms=timed(plain_build, 10),
+            **JB.kernel_info()))
+        del slot64
+    del cases, lineitem
+    torch.cuda.empty_cache()
     return lines
 
 
@@ -2483,6 +2597,7 @@ def _measure(db, name, q, counters, check, spy):
     launches of the cell and the group-by tier of each Compound of the
     first run."""
     before = [c.launches for c in counters]
+    j1_before = _j1().launches
     del spy.runs[:]
     t0 = time.perf_counter()
     rs = db.sql(q)
@@ -2498,7 +2613,8 @@ def _measure(db, name, q, counters, check, spy):
     return dict(query=name, **checked, first_with_decode_ms=first_ms,
                 warm_ms=warm, warm_runs_ms=reps, tiers=run_tiers,
                 joins=joins, peak_device_bytes=peak,
-                launches=dict(zip(KERNEL_NAMES, delta)))
+                launches=dict(zip(KERNEL_NAMES, delta)),
+                j1_launches=_j1().launches - j1_before)
 
 
 class _RunSpy:
@@ -2609,6 +2725,7 @@ def _sharded_cells(db, host, dims, counters, shards: int, unsharded: dict) -> li
     for name, (kind, tier) in SHARDED_CELLS.items():
         q = _sharded_query(name)
         before = [c.launches for c in counters]
+        j1_before = _j1().launches
         t0 = time.perf_counter()
         rs = db.sql(q)
         rs.column_raw(0)
@@ -2632,7 +2749,8 @@ def _sharded_cells(db, host, dims, counters, shards: int, unsharded: dict) -> li
                         first_with_decode_ms=first_ms, warm_ms=warm, warm_runs_ms=reps,
                         unsharded_warm_ms=unsharded.get(name, (None,))[0], peak_bytes=peak,
                         unsharded_peak_bytes=unsharded.get(name, (None, None))[1],
-                        launches=dict(zip(KERNEL_NAMES, delta))))
+                        launches=dict(zip(KERNEL_NAMES, delta)),
+                        j1_launches=_j1().launches - j1_before))
     return out
 
 
@@ -6417,6 +6535,8 @@ def main() -> None:
     slot_shapes, slot_launches = run_slot_kernels(ROWS, rate)
     shapes = run_kernels(ROWS, rate) + slot_shapes + run_sort_kernels(ROWS, rate)
     for s in shapes:
+        emit({"phase": "kernels", **s})
+    for s in run_join_build_kernel(rate):
         emit({"phase": "kernels", **s})
     counters = [lane_agg.lane_agg, radix_hist.fused_hist,
                 groupby_minmax.minmax_per_slot, tile_sort.sort_tiles,

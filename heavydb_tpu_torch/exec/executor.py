@@ -121,6 +121,7 @@ from heavydb_tpu_torch.exec.compound_kernel import (build_compound_kernel, ctrl_
 from heavydb_tpu_torch.exec.expr_compiler import ExprCompiler
 from heavydb_tpu_torch.exec.partial_agg import decomposable, make_leaf_node, make_merge_node
 from heavydb_tpu_torch.exec.resource_mgr import ResourceMgr
+from heavydb_tpu_torch.kernels import join_build as JB
 from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
@@ -2113,8 +2114,10 @@ class Executor:
             key_min = key_range = None
             if translate is None:
                 br = RNG.expr_range(be, node.inputs)
+                # JB.MAX_RANGE: the widest range whose int32 slots the
+                # build's kernel J1 writes
                 if br is not None and 0 < br.extent <= min(
-                        self.config.perfect_join_max_range,
+                        self.config.perfect_join_max_range, JB.MAX_RANGE,
                         max(batches[build_input].padded * 4, 1 << 16)):
                     key_min, key_range = br.lo, br.extent
             return _JoinPlan(kind=kind, probe_keys=probe_exprs, build_keys=build_exprs,

@@ -34,6 +34,7 @@ SOURCES = {
     "tile_sort": "tile_sort.cu",
     "radix_groupby": "radix_groupby.cu",
     "groupby_slots": "groupby_slots.cu",
+    "join_build": "join_build.cu",
 }
 _HEADERS = ("agg_common.cuh", "stream_agg.cuh", "tile_sort.cuh")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -142,6 +143,13 @@ def _bind(lib: ctypes.CDLL, name: str):
     elif name == "tile_sort":
         fn = lib.hdb_sort_tiles
         fn.argtypes = [p, p, p, ll, i, p, p]
+    elif name == "join_build":
+        run = lib.hdb_perfect_count
+        run.argtypes = [p, p, ll, ll, ll, i, p, p, p]
+        info = lib.hdb_perfect_count_info
+        info.argtypes = [p]
+        run.restype = info.restype = ctypes.c_int
+        return types.SimpleNamespace(run=run, info=info)
     elif name == "groupby_slots":
         fns = {}
         for kind in ("count", "sum_f32", "sum_int"):

@@ -2,7 +2,7 @@
 
 Counterpart of heavydb_tpu/ops/groupby.py `_pallas_probe_locked`, the
 one-block compile-and-run probe that gates the TPU's Pallas tiers.  Here
-the gate builds kernels B1-B6 and B3a-c from csrc/, launches each on a
+the gate builds kernels B1-B6, B3a-c and J1 from csrc/, launches each on a
 small input and holds it against its plain version.  On CUDA it raises on
 any failure; it never reports the kernels as unavailable.  Its launches do
 not count in the wrappers' launch counters.
@@ -17,7 +17,8 @@ import numpy as np
 import torch
 
 from heavydb_tpu_torch.kernels import (_build, _plain, groupby_minmax, groupby_slots,
-                                       lane_agg, radix_groupby, radix_hist, tile_sort)
+                                       join_build, lane_agg, radix_groupby, radix_hist,
+                                       tile_sort)
 
 _LOCK = threading.Lock()
 _PASSED: Dict[str, dict] = {}
@@ -99,8 +100,26 @@ def _check_sorts(device):
             _same(a, b.to(a.dtype), f"sparse_groupby cap={cap}, output {j}")
 
 
+def _check_join_build(device):
+    """J1 over 25 slots and over 5000: keys in runs with a validity and
+    rows past num_rows, the same one element in, and keys in no order with
+    no validity."""
+    rng = np.random.default_rng(6)
+    n = 5000
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    for key_range in (25, 5000):
+        keys = t(np.sort(rng.integers(-3, key_range + 3, n)).astype(np.int64) + 7)
+        valid = t(rng.random(n) < 0.7)
+        for k, v, num_rows in ((keys, valid, n - 100), (keys[1:], valid[1:], n),
+                               (keys[t(rng.permutation(n))], None, n - 7)):
+            got = join_build.launch(k, v, num_rows, 7, key_range)
+            want = join_build.perfect_count_plain(k, v, num_rows, 7, key_range)
+            for a, b, what in zip(got, want, ("slots", "counts")):
+                _same(a, b, f"perfect_count {what} at {key_range} slots")
+
+
 def kernel_gate(device) -> dict:
-    """Build and check B1-B6 and B3a-c on `device` once per process.
+    """Build and check B1-B6, B3a-c and J1 on `device` once per process.
     Returns the build record (seconds, nvcc version, ptxas report)."""
     device = torch.device(device)
     if device.type != "cuda":
@@ -171,6 +190,7 @@ def kernel_gate(device) -> dict:
         _check_sorts(device)
         for c, b in zip(counters, before):
             c.launches = b
+        _check_join_build(device)
         torch.cuda.synchronize(device)
         _PASSED[key] = info
         return info

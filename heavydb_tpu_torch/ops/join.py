@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from heavydb_tpu_torch.kernels import join_build
+
 _INT64_MAX = (1 << 63) - 1
 _M32 = 0xFFFFFFFF
 
@@ -271,16 +273,14 @@ class PerfectBuild(NamedTuple):
 
 
 def build_perfect(keys, valid, num_rows, key_min: int, key_range: int) -> PerfectBuild:
-    """CSR build over the dense key space [key_min, key_min + key_range)."""
-    b = keys.shape[0]
-    ok = _in_domain(b, num_rows, valid, keys.device)
-    slot = keys.to(torch.int64) - key_min
-    slot = torch.where(ok & (slot >= 0) & (slot < key_range), slot, key_range)
-    counts = torch.bincount(slot, minlength=key_range + 1)[:key_range]
-    offsets = torch.cumsum(counts, 0) - counts
+    """CSR build over the dense key space [key_min, key_min + key_range).
+    Each row's slot and the slots' counts come from kernel J1 (on the CPU
+    its plain version); a row that drops has the slot key_range."""
+    slot, counts = join_build.perfect_count(keys, valid, num_rows, key_min, key_range)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int64) - counts
     # rows in slot order, each slot's rows in row order
     payload = torch.sort(slot, stable=True).indices.to(torch.int32)
-    return PerfectBuild(counts.to(torch.int32), offsets, payload, key_min)
+    return PerfectBuild(counts, offsets, payload, key_min)
 
 
 def _perfect_slot(build: PerfectBuild, probe_keys, probe_valid, key_range: int):

@@ -108,4 +108,6 @@ class Catalog:
         return t
 
     def list_tables(self) -> List[str]:
-        return sorted(t.name for t in self._tables.values() if not t.is_temporary)
+        # under the lock: another session's CREATE or DROP resizes the dict
+        with self._lock:
+            return sorted(t.name for t in self._tables.values() if not t.is_temporary)

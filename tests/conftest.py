@@ -15,6 +15,10 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "chip: needs a CUDA card; skips without one")
+
+
 @pytest.fixture()
 def db():
     import heavydb_tpu as hdt

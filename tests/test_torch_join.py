@@ -129,10 +129,62 @@ def test_hash_table_and_probe(join_inputs, slots):
 
 
 def _perfect_pair(d):
-    got = J.build_perfect(_t(d["bkeys"]), _t(d["bvalid"]), d["nb"], d["kmin"], d["krange"])
+    bv = d["bvalid"]
+    got = J.build_perfect(_t(d["bkeys"]), None if bv is None else _t(bv), d["nb"],
+                          d["kmin"], d["krange"])
     want = jax.jit(JJ.build_perfect, static_argnums=(3, 4))(
-        jnp.asarray(d["bkeys"]), jnp.asarray(d["bvalid"]), d["nb"], d["kmin"], d["krange"])
+        jnp.asarray(d["bkeys"]), None if bv is None else jnp.asarray(bv), d["nb"],
+        d["kmin"], d["krange"])
     return got, want
+
+
+def _perfect_case(case):
+    """Build sides of the perfect build's edges: (keys, valid, num_rows,
+    key_min, key_range)."""
+    rng = np.random.default_rng(11)
+    i64 = np.iinfo(np.int64)
+    keys = rng.integers(90, 160, 500).astype(np.int64)
+    valid = rng.random(500) > 0.3
+    if case == "all_dropped":
+        return keys, np.zeros(500, bool), 500, 100, 50
+    if case == "range_1":
+        return keys, valid, 480, 120, 1
+    if case == "edges":
+        keys[::7] = 99  # below key_min
+        keys[3::7] = 150  # key_min + key_range
+        keys[5::11] = 149
+        keys[:4] = [i64.min, i64.max, i64.min + 1, -1]
+        return keys, valid, 500, 100, 50
+    if case == "num_rows_short":
+        return keys, valid, 137, 90, 70
+    if case == "valid_none":
+        return keys, None, 450, 90, 70
+    if case == "repeats":
+        runs = np.repeat(rng.integers(0, 40, 80), rng.integers(1, 8, 80))  # in row order
+        keys = np.concatenate([runs, rng.permutation(runs)]).astype(np.int64)
+        return keys, rng.random(keys.shape[0]) > 0.1, keys.shape[0] - 3, 0, 40
+    assert case == "empty"
+    return np.zeros(0, np.int64), np.zeros(0, bool), 0, 0, 16
+
+
+@pytest.mark.parametrize("case", ["all_dropped", "range_1", "edges", "num_rows_short",
+                                  "valid_none", "repeats", "empty"])
+def test_perfect_build_edges(case):
+    """The perfect build's CPU path against the reference's at its edges:
+    its counts, offsets and payload, element for element, in the dtypes
+    of PerfectBuild; on the CPU the kernel never launches."""
+    from heavydb_tpu_torch.kernels import join_build
+
+    keys, valid, nb, kmin, krange = _perfect_case(case)
+    before = join_build.perfect_count.launches
+    got, want = _perfect_pair(dict(bkeys=keys, bvalid=valid, nb=nb, kmin=kmin, krange=krange))
+    _eq(got.counts, want.counts)
+    _eq(got.offsets, want.offsets)
+    _eq(got.payload, want.payload)
+    assert (got.counts.dtype, got.offsets.dtype, got.payload.dtype) == (
+        torch.int32, torch.int64, torch.int32)
+    assert got.counts.shape == (krange,) and got.payload.shape == keys.shape
+    assert join_build.perfect_count.launches == before
 
 
 def test_perfect_build_and_probes(join_inputs):
@@ -465,6 +517,20 @@ def test_duplicate_build_key_expands_in_the_run(engines, monkeypatch, sql, force
     assert run.caps[0] >= (3 * N_FACT if retries else N_FACT)
     node = _compound_node(port)
     assert node["retries"] == retries and node["sized_in_run"] == ["join_dup#0"]
+
+
+@pytest.mark.parametrize("max_range,builds", [(150, "perfect-unique"), (149, "hash")])
+def test_perfect_range_stops_at_the_kernels_slots(engines, monkeypatch, max_range, builds):
+    """The planner gives a perfect build no key range past the widest
+    whose int32 slots kernel J1 writes (join_build.MAX_RANGE): dim's keys
+    span 150, so with 149 the level takes another build; the rows stay
+    the reference's."""
+    from heavydb_tpu_torch.kernels import join_build
+
+    monkeypatch.setattr(join_build, "MAX_RANGE", max_range)
+    runs = _check(engines, "SELECT d.nm, COUNT(*) FROM fact f JOIN dim d ON f.k = d.k "
+                           "GROUP BY d.nm")
+    assert [r.builds for r in runs] == [[builds]]
 
 
 def test_sorted_build(engines, monkeypatch):
