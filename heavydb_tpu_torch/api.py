@@ -819,7 +819,7 @@ class Database:
     _SETTABLE = {
         "enable_watchdog", "watchdog_max_projected_rows",
         "enable_dynamic_watchdog", "dynamic_watchdog_time_limit_ms",
-        "enable_debug_timer", "enable_fragment_skipping",
+        "enable_debug_timer",
         "enable_executor_resource_mgr", "max_concurrent_queries",
         "max_exec_bytes", "admission_queue_timeout_s",
         "baseline_groupby_threshold", "perfect_join_max_range",

@@ -111,9 +111,11 @@ def from_host_columns(
     return Batch(list(cols), nrows, list(types))
 
 
-def concat_batches(batches: Sequence[Batch]) -> Batch:
+def concat_batches(batches: Sequence[Batch], release: bool = False) -> Batch:
     """Union-all of same-schema batches: their live rows concatenated on
-    their device, re-bucketed and null-padded."""
+    their device, re-bucketed and null-padded.  `release`: each batch's
+    column is dropped once it is copied, so that the copies hold at most
+    one column beside what is left of the inputs."""
     total = sum(b.nrows for b in batches)
     size = bucket(total)
     types = batches[0].types
@@ -123,6 +125,9 @@ def concat_batches(batches: Sequence[Batch]) -> Batch:
             out_cols.append(None)
             continue
         cat = torch.cat([b.cols[i][: b.nrows] for b in batches])
+        if release:
+            for b in batches:
+                b.cols[i] = None
         if cat.shape[0] < size:
             pad = torch.full((size - cat.shape[0],), ti.null_sentinel(),
                              dtype=cat.dtype, device=cat.device)

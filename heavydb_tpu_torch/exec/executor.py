@@ -9,12 +9,10 @@ capacity and overflow; the hash tier's unresolved keys), the join planning of
 `_plan_compound` (filter push-down, key packing, perfect / hash / sorted
 builds, the CROSS watchdog, outer-join nullability of group keys) with the
 runtime join reorder and its selectivity probe, the group-by strategy
-choice (keyless, perfect hash, radix, hash, sort), fragment-wave streaming of
-decomposable aggregates (`_stream_plan`, `_exec_compound_streamed`), the
-kernel cache and `_postprocess`; ORDER BY, LIMIT and OFFSET (`_exec_sort`:
-the keyless slice, the full sort, the single-key and packed composite-key
-top-k of `_exec_topk`, and the top-k over fragment waves of
-`_try_stream_topk`); the dictionary-string tables (`_aux_array`: the
+choice (keyless, perfect hash, radix, hash, sort), the kernel cache and
+`_postprocess`; ORDER BY, LIMIT and OFFSET (`_exec_sort`: the keyless
+slice, the full sort, and the single-key and packed composite-key top-k of
+`_exec_topk`); the dictionary-string tables (`_aux_array`: the
 predicate, transform, pair-concatenation, pair-rank, rank and order
 tables, built on the host over dictionary entries) and the scan of TEXT
 ENCODING NONE columns as ids of their table's lazy dictionary.  Torch
@@ -75,14 +73,26 @@ the monotonic clock and never waits for the device.  The static watchdog
 refuses a projection over more rows than `watchdog_max_projected_rows`
 (`enable_watchdog` or the `watchdog` hint; `no_watchdog` lifts it).
 
-On a mesh of more than one shard (Config.num_shards, or `mesh` set), as
-the reference row-shards every scan over its mesh: each decomposable
-aggregate, ORDER BY ... LIMIT k over a Scan and join probing a Scan runs
-a leaf a shard over the shard's row block, on the shard's device (a view
-of the resident column when the shards share the Database's device,
-else a copy resident there; one host thread a device), and the leaves'
-results merge on the Database's device; every other node runs there,
-gathered (`_try_sharded_compound`, `_try_sharded_topk`, `shard_runs`).
+Leaves and their merge, one path for shards and fragment waves
+(`_try_sharded_compound`, `_try_sharded_topk`): a decomposable aggregate,
+ORDER BY ... LIMIT k over a Scan and, on a mesh, a join probing a Scan run
+as leaves over blocks of the Scan, each block in the waves of one planner
+(`_plan_waves`), and the leaves' results meet on the Database's device,
+where the partial aggregates merge on the tier their keys' ranges give
+(`_merge_partials`); no partial goes to the host.  On a mesh of more than
+one shard (Config.num_shards, or `mesh` set), as the reference row-shards
+every scan over its mesh, the blocks are the shards' row blocks, each on
+its shard's device (a view of the resident column when the shards share
+the Database's device, else a copy resident there; one host thread a
+device), a shard's waves row ranges of its block; every other node runs
+on the Database's device, gathered (`shard_runs`).  On one device the
+whole table is one block, run in leaves only past the stream threshold or
+the device's free memory, in waves of whole fragments that the chunk
+stats leave, as the reference's fragment waves; a wave keeps a copy of
+its partials' live rows, and its memory check counts those that the waves
+before it hold (`last_stream`, `waves_run`).  An aggregate over rows from
+the host (a TableData: another host's partials, a table function's) is
+held to the free memory before they upload (`_check_merge_memory`).
 
 A large column uploads in chunks through a ring of reused staging buffers
 (pinned on CUDA, each reused only after its copy's event), with no full
@@ -126,7 +136,7 @@ from heavydb_tpu_torch.ops import agg as AGG
 from heavydb_tpu_torch.ops import groupby as G
 from heavydb_tpu_torch.ops import join as J
 from heavydb_tpu_torch.ops import sort as S
-from heavydb_tpu_torch.parallel.mesh import shard_blocks
+from heavydb_tpu_torch.parallel.mesh import Block, shard_blocks
 from heavydb_tpu_torch.plan import exprs as E
 from heavydb_tpu_torch.plan import rel_alg as R
 from heavydb_tpu_torch.plan.builder import _const_cast
@@ -187,16 +197,6 @@ def _scan_field_type(table, f: int) -> T.TypeInfo:
     if f < len(table.columns):
         return table.columns[f].type
     return T.bigint(nullable=False)
-
-
-def _scan_fields(node: R.Compound) -> set:
-    """Input fields an aggregate Compound reads: its keys, aggregate
-    arguments and filter."""
-    needed = set()
-    for e in list(node.group_exprs) + list(node.aggs) + (
-            [node.filter_cond] if node.filter_cond is not None else []):
-        needed |= {r.field_idx for r in E.collect_input_refs(e)}
-    return needed
 
 
 def _iter_node_exprs(node: R.RelNode):
@@ -905,15 +905,12 @@ class Executor:
             and ((len(node.keys) == 1
                   and not node.types[key_idxs[0]].is_dict_string)
                  or composite_specs is not None))
+        # ORDER BY ... LIMIT k in leaves (a shard's block each on a mesh;
+        # on one device, the top-k select over fragment waves)
         if node.limit is not None and 0 < limit_total <= _TOPK_MAX \
-                and child.id not in memo and self._sharded():
+                and child.id not in memo and (topk_eligible or self._sharded()):
             st = self._try_sharded_topk(node, child, limit_total, topk_eligible,
                                         composite_specs)
-            if st is not None:
-                return st
-        # ORDER BY ... LIMIT over fragment waves, without the whole input
-        if topk_eligible and child.id not in memo:
-            st = self._try_stream_topk(node, child, limit_total, composite_specs)
             if st is not None:
                 return st
         inp = self._exec(child, memo, set(range(child.arity)))
@@ -981,66 +978,6 @@ class Executor:
             return None
         return tuple(specs), total
 
-    def _try_stream_topk(self, node: R.Sort, child, k_total: int,
-                         composite_specs=None):
-        """ORDER BY ... LIMIT k over fragment waves: each wave keeps its k
-        best rows, the waves' winners are concatenated (waves x k rows) and
-        one last select takes the global k; exact, since the union of the
-        waves' top k holds the global top k.  None when the input is small
-        enough for one pass or the child does not stream (the reference's
-        rule: a Scan, or a non-aggregate Compound over one, of 2+
-        fragments, past the stream threshold)."""
-        cfg = self.config
-        thr = self._stream_threshold()
-        src = _topk_source(child)
-        if thr < 0 or src is None or len(src[0].table.fragments) < 2:
-            return None
-        scan, compound, scan_needed, row_bytes = src
-        t = scan.table
-        if t.num_rows * row_bytes <= thr:
-            return None
-        frag_ids = None
-        fc = compound.filter_cond if compound is not None else None
-        if fc is not None:
-            frag_ids = self._surviving_fragments(scan, fc)
-        if frag_ids is None:
-            frag_ids = [f.fragment_id for f in t.fragments]
-        # waves of at most half the threshold's bytes and topk_stream_row_cap
-        # rows (the select's temporaries are several bytes a row)
-        wave_budget = max(thr // 2, 1)
-        waves, cur, cur_bytes, cur_rows = [], [], 0, 0
-        for fid in frag_ids:
-            fr = t.fragments[fid].num_rows
-            if cur and (cur_bytes + fr * row_bytes > wave_budget
-                        or cur_rows + fr > cfg.topk_stream_row_cap):
-                waves.append(cur)
-                cur, cur_bytes, cur_rows = [], 0, 0
-            cur.append(fid)
-            cur_bytes += fr * row_bytes
-            cur_rows += fr
-        if cur:
-            waves.append(cur)
-        if len(waves) < 2:
-            return None
-        winners: List[B.Batch] = []
-        for wave in waves:
-            self._checkpoint()
-            batch = self._exec_scan(scan, scan_needed, frag_ids=wave)
-            if compound is not None:
-                plan = self._plan_compound(compound, [batch])
-                batch = self._run_compound(compound, [batch], plan)
-            self.waves_run += 1
-            if batch.nrows == 0:
-                continue
-            winners.append(self._exec_topk(node, batch, k_total, apply_offset=False,
-                                           specs=composite_specs))
-        if not winners:
-            return B.from_host_columns([np.empty(0, ti.np_dtype()) for ti in node.types],
-                                       0, node.types, self.device)
-        cat = B.concat_batches(winners)
-        cat.types = list(node.types)
-        return self._exec_topk(node, cat, k_total, specs=composite_specs)
-
     def _stream_threshold(self) -> int:
         """Config.stream_threshold_bytes resolved: 0 is half the scan
         cache's budget; -1 never streams."""
@@ -1100,20 +1037,19 @@ class Executor:
         ident = self._try_identity_projection(node, memo)
         if ident is not None:
             return ident
-        if self._sharded():
-            out = self._try_sharded_compound(node, memo)
-            if out is not None:
-                return out
-        sp = self._stream_plan(node)
-        if sp is not None:
-            out, tier = self._exec_compound_streamed(node, sp), "waves"
-        else:
-            batches, plan = self._prepare_compound(node, memo)
-            out = self._run_compound(node, batches, plan)
-            tier = _tier_of(plan)
+        out = self._try_sharded_compound(node, memo)
+        if out is not None:
+            return out
+        inp = node.inputs[0]
+        if node.is_aggregate and len(node.inputs) == 1 and isinstance(inp, R.TableData):
+            # rows from the host (another host's partials, a table
+            # function's): held to the free memory before they upload
+            self._check_merge_memory(node, inp.num_rows, inp.types)
+        batches, plan = self._prepare_compound(node, memo)
+        out = self._run_compound(node, batches, plan)
         if self._sharded():
             self.shard_runs.append(ShardRun(f"Compound#{node.id}", "compound", "gathered",
-                                            [tier]))
+                                            [_tier_of(plan)]))
         return out
 
     def _try_identity_projection(self, node: R.Compound, memo):
@@ -1234,128 +1170,33 @@ class Executor:
                 f"a join of caps {list(plan.caps)} needs {need} B, more than the "
                 f"{free} B free on {self.device}")
 
-    # ---- fragment-wave streaming (out-of-core aggregates) ----
-    def _stream_plan(self, node: R.Compound) -> Optional["StreamPlan"]:
-        """How an aggregate over one Scan runs in fragment waves with
-        partial-aggregate merge; None = over its whole input.
-
-        The reference's rule: no joins, one Scan input of two or more
-        fragments, decomposable aggregates, no array column, and the needed
-        column bytes above the threshold (0: half the scan cache's budget).
-        Beside it, the device's memory: when the columns and the group-by
-        tier's working bytes (`_tier_row_bytes`) of the rows the filter's
-        fragment skipping leaves would not fit the free memory, the waves
-        shrink until each fits half of it.  A Compound that does not fit
-        and cannot stream, or whose largest fragment alone would not fit
-        half the free memory, raises DeviceMemoryExceeded here, before any
-        scan or launch; so does the merge of the waves' partial rows (a
-        TableData input) that would not fit."""
-        if node.join_levels or len(node.inputs) != 1 or not node.is_aggregate:
-            return None
-        inp = node.inputs[0]
-        if isinstance(inp, R.TableData):
-            # the merge of a streamed Compound's partial rows: held to the
-            # free memory, never streamed
-            self._check_merge_memory(node, inp.num_rows, inp.types)
-            return None
-        if not isinstance(inp, R.Scan):
-            return None
-        t = inp.table
-        types = [_scan_field_type(t, f) for f in _scan_fields(node)]
-        if any(ti.is_array for ti in types):
-            return None  # array aux payloads aren't fragment-local
-        col_bytes = sum(ti.np_dtype().itemsize for ti in types)
-        row_bytes = max(col_bytes, 1)
-        # the fragments the filter's chunk stats leave
-        frag_ids = None
-        if node.filter_cond is not None:
-            frag_ids = self._surviving_fragments(inp, node.filter_cond)
-        if frag_ids is None:
-            frag_ids = [f.fragment_id for f in t.fragments]
-        rows = [t.fragments[f].num_rows for f in frag_ids]
-        work_row = row_bytes + self._tier_row_bytes(node, sum(rows))
-        free = free_device_bytes(self.device, sum(rows) * work_row)
-        by_memory = free is not None and sum(rows) * work_row > free
-        thr = self._stream_threshold()
-        if thr < 0 or len(t.fragments) < 2 or not decomposable(node):
-            if by_memory:
-                raise DeviceMemoryExceeded(
-                    f"{sum(rows)} rows x {work_row} B need more than the "
-                    f"{free} B free on {self.device}, and this query cannot "
-                    "run in fragment waves")
-            return None
-        if by_memory:
-            if max(rows) * work_row > free // 2:
-                raise DeviceMemoryExceeded(
-                    f"a fragment of {max(rows)} rows x {work_row} B needs more "
-                    f"than half the {free} B free on {self.device}")
-            # a wave of thr / 2 column bytes holds free / 2 working bytes
-            thr = min(thr, free * row_bytes // work_row)
-        elif t.num_rows * col_bytes <= thr:
-            return None
-        return StreamPlan(thr, row_bytes, work_row, by_memory, frag_ids)
-
-    def _check_merge_memory(self, node: R.Compound, nrows: int, types) -> None:
+    def _check_merge_memory(self, node: R.Compound, nrows: int, types,
+                            held: int = 0) -> None:
         """DeviceMemoryExceeded when a merge Compound over nrows partial
         rows (their columns and the group-by tier's working bytes) would
-        not fit the free memory."""
-        work_row = (sum(ti.np_dtype().itemsize for ti in types)
-                    + self._tier_row_bytes(node, nrows))
-        free = free_device_bytes(self.device, nrows * work_row)
-        if free is not None and nrows * work_row > free:
+        not fit the free memory.  `held`: the bytes of those rows already
+        on the device, which their concatenation frees column by column,
+        so that the merge needs the free memory for its working bytes less
+        them, and for one concatenated column beside them."""
+        widths = [ti.np_dtype().itemsize for ti in types]
+        work_row = sum(widths) + self._tier_row_bytes(node, nrows)
+        need = max(nrows * work_row - held, nrows * max(widths, default=0))
+        free = free_device_bytes(self.device, need)
+        if free is not None and need > free:
             raise DeviceMemoryExceeded(
                 f"merging {nrows} partial rows x {work_row} B needs "
                 f"more than the {free} B free on {self.device}")
 
-    def _exec_compound_streamed(self, node: R.Compound, sp: "StreamPlan") -> B.Batch:
-        """Execute in fragment waves: per-wave Compound with decomposed
-        aggregates (AVG -> SUM + COUNT), the small per-wave group results
-        taken to the host, then one merge Compound over them re-aggregating
-        the partials (SUM of counts / sums, MIN of mins, ...) and applying
-        the original targets and HAVING over the finalize expressions."""
-        scan = node.inputs[0]
-        t = scan.table
-        wave_node, wave_aggs, fin = make_leaf_node(node)
-        needed = _scan_fields(node)
-        # fragment waves of at most half the threshold's column bytes
-        wave_budget = max(sp.threshold // 2, 1)
-        waves, cur, cur_bytes = [], [], 0
-        for fid in sp.fragments:
-            fb = t.fragments[fid].num_rows * sp.row_bytes
-            if cur and cur_bytes + fb > wave_budget:
-                waves.append(cur)
-                cur, cur_bytes = [], 0
-            cur.append(fid)
-            cur_bytes += fb
-        if cur:
-            waves.append(cur)
-        sp.waves = len(waves)
-        self.last_stream = sp
-        parts: List[List[np.ndarray]] = []
-        for wave in waves:
-            self._checkpoint()
-            batch = self._exec_scan(scan, needed, frag_ids=wave)
-            plan = self._plan_compound(wave_node, [batch])
-            out = self._run_compound(wave_node, [batch], plan)
-            parts.append(out.to_numpy())
-            self.waves_run += 1
-            del batch, out
-        wave_targets = wave_node.target_exprs
-        arrays = [np.concatenate([p[i] for p in parts]) if parts
-                  else np.empty(0, wt.type.np_dtype())
-                  for i, wt in enumerate(wave_targets)]
-        td = R.TableData(wave_node.fields, [wt.type for wt in wave_targets],
-                         arrays, [getattr(wt, "dict_ref", None) for wt in wave_targets])
-        merge_node = make_merge_node(node, wave_aggs, fin, td)
-        return self._exec(merge_node, {}, set(range(merge_node.arity)))
-
-    # ---- sharded execution (a mesh of more than one shard) ----
-    # The reference row-shards every scanned column over its mesh and lets
-    # XLA partition each Compound.  Here each shard's row block of the probe
-    # Scan (`parallel/mesh.shard_blocks`) is a view of the resident column
-    # when every shard is the Database's device, else its own copy resident
-    # on the shard's device; each shard runs a leaf over its block on its
-    # device, and the leaves' results meet on the Database's device.
+    # ---- leaves and their merge: shards and fragment waves ----
+    # A decomposable aggregate, ORDER BY ... LIMIT k and a join probing a
+    # Scan run as leaves over blocks of the Scan, in waves where a block
+    # streams (`_plan_waves`), and the leaves' results meet on the
+    # Database's device.  On a mesh (the reference row-shards every scanned
+    # column over its mesh and lets XLA partition each Compound) the blocks
+    # are the shards' row blocks (`parallel/mesh.shard_blocks`): a view of
+    # the resident column when every shard is the Database's device, else
+    # a copy resident on the shard's device.  On one device the whole table
+    # is one block there, run in leaves only when it streams.
     def _sharded(self) -> bool:
         return self._mesh is not None and self._mesh.size > 1
 
@@ -1433,11 +1274,14 @@ class Executor:
         return out
 
     def _blocks_to_run(self, scan: R.Scan, filter_cond) -> list:
-        """The shards' non-empty row blocks of a scan that overlap a
-        fragment the filter's chunk stats leave (a block spans parts of
-        fragments); the first block when none does, so that a keyless
-        aggregate still has its row."""
+        """The blocks a scan's leaves run over: off a mesh, the whole table
+        on the Database's device; on a mesh, the shards' non-empty row
+        blocks that overlap a fragment the filter's chunk stats leave (a
+        block spans parts of fragments), or the first block when none
+        does, so that a keyless aggregate still has its row."""
         t = scan.table
+        if not self._sharded():
+            return [Block(0, 0, t.num_rows, self._home)]
         blocks = [b for b in shard_blocks(self._mesh, t.num_rows) if b.hi > b.lo]
         if filter_cond is not None and len(t.fragments) > 1:
             frag_ids = self._surviving_fragments(scan, filter_cond)
@@ -1505,15 +1349,18 @@ class Executor:
                                dtype=arrs[0].dtype, device=self._home))
         return torch.cat(arrs)
 
-    def _resident_rows(self, scan: R.Scan, needed, row_bytes: int,
-                       work_bytes: int) -> Optional[B.Batch]:
+    def _resident_rows(self, scan: R.Scan, needed, row_bytes: int, blocks,
+                       leaf: Optional[R.Compound]) -> Optional[B.Batch]:
         """On a mesh of the Database's device alone: the needed columns over
-        the whole table, resident there (uploaded now unless their bytes
-        with work_bytes pass the free memory), of which the blocks are
+        the whole table, resident there (uploaded now unless their bytes,
+        with the working bytes of an aggregate leaf's group-by over the
+        largest block, pass the free memory), of which the blocks are
         views; None elsewhere (blocks resident on their devices, or waves
         uploaded one at a time)."""
-        if not self._views():
+        if not self._sharded() or not self._views():
             return None
+        m = max(b.hi - b.lo for b in blocks)
+        work_bytes = 0 if leaf is None else m * self._tier_row_bytes(leaf, m)
         t = scan.table
         size = B.bucket(t.num_rows)
         resident = all(self.scan_cache.get((t.table_id, t.generation, t.columns[f].col_id,
@@ -1550,63 +1397,159 @@ class Executor:
             return view(B.Batch(cols, block[1] - block[0], list(scan.types)), block[0])
         return self._scan_rows(scan, needed, lo, hi, keep=False)
 
-    def _shard_waves(self, node: R.Compound, m: int, row_bytes: int) -> list:
-        """The row ranges [a, b) of a shard's block of m rows its leaf runs
-        over: the whole block, or waves when the block's needed column
-        bytes pass the stream threshold or its rows with the tier's working
-        bytes pass the free memory of this thread's device (the rule of
-        `_stream_plan`, over the block; a block splits at any row)."""
-        work_row = row_bytes + self._tier_row_bytes(node, m)
-        free = free_device_bytes(self.device, m * work_row)
-        by_memory = free is not None and m * work_row > free
+    def _plan_waves(self, scan: R.Scan, block, col_bytes: int, node=None, filter_cond=None,
+                    streams: bool = True, row_cap: Optional[int] = None
+                    ) -> Optional["StreamPlan"]:
+        """The waves a leaf runs over a block of a Scan, for aggregates and
+        top-k alike: None when the block runs in one pass.  `block` is a
+        shard's row range (lo, hi), or None for the whole table on the
+        Database's device; col_bytes the needed column bytes a row.
+
+        A block streams when its column bytes pass the stream threshold
+        (`_stream_threshold`), or, for an aggregate Compound (`node`), when
+        its rows' columns and the group-by tier's working bytes
+        (`_tier_row_bytes`) pass the free memory of this thread's device
+        (the rows the filter's chunk stats leave, for the whole table).  A
+        wave holds at most half the threshold's column bytes, the
+        threshold shrunk by memory until a wave's working bytes fit half
+        the free memory, and at most row_cap rows where given.  The whole table's waves are whole
+        fragments that the chunk stats leave (the reference's); a shard's
+        block splits at any row.  Fewer than two waves run as one pass.
+        An aggregate that does not fit and cannot stream (`streams` false,
+        or streaming off), or whose largest fragment alone would not fit
+        half the free memory, raises DeviceMemoryExceeded here, before any
+        scan or launch.  An aggregate's plan is the calling thread's
+        `last_stream`."""
+        t = scan.table
+        lo, hi = block or (0, t.num_rows)
         thr = self._stream_threshold()
-        if thr < 0:
+        row_bytes = max(col_bytes, 1)
+        frag_ids, work_row, free, by_memory = None, row_bytes, None, False
+        if node is not None:
+            if block is None:
+                frag_ids = self._kept_fragments(scan, filter_cond)
+                rows = [t.fragments[f].num_rows for f in frag_ids]
+            else:
+                rows = [hi - lo]
+            work_row = row_bytes + self._tier_row_bytes(node, sum(rows))
+            free = free_device_bytes(self.device, sum(rows) * work_row)
+            by_memory = free is not None and sum(rows) * work_row > free
+        if thr < 0 or not streams:
             if by_memory:
                 raise DeviceMemoryExceeded(
-                    f"a shard's {m} rows x {work_row} B need more than the {free} B "
-                    f"free on {self.device}, and streaming is off")
-            return [(0, m)]
+                    f"{sum(rows)} rows x {work_row} B need more than the "
+                    f"{free} B free on {self.device}, and this query cannot "
+                    "run in fragment waves")
+            return None
         if by_memory:
+            if block is None and max(rows) * work_row > free // 2:
+                raise DeviceMemoryExceeded(
+                    f"a fragment of {max(rows)} rows x {work_row} B needs more "
+                    f"than half the {free} B free on {self.device}")
+            # a wave of thr / 2 column bytes holds free / 2 working bytes
             thr = min(thr, free * row_bytes // work_row)
-        elif m * row_bytes <= thr:
-            return [(0, m)]
-        step = max(1, thr // 2 // row_bytes)
-        waves = [(a, min(a + step, m)) for a in range(0, m, step)]
-        self.last_stream = StreamPlan(thr, row_bytes, work_row, by_memory, [], len(waves))
-        return waves
+        elif (hi - lo) * col_bytes <= thr:
+            return None
+        cap = max(thr // 2, 1) // row_bytes  # the rows a wave holds
+        if row_cap is not None:
+            cap = min(cap, row_cap)
+        if block is not None:
+            step = max(1, cap)
+            waves = [((a, min(a + step, hi)), min(step, hi - a)) for a in range(lo, hi, step)]
+        else:
+            if frag_ids is None:
+                frag_ids = self._kept_fragments(scan, filter_cond)
+            waves, cur, n = [], [], 0
+            for f in frag_ids:
+                fr = t.fragments[f].num_rows
+                if cur and n + fr > cap:
+                    waves.append((cur, n))
+                    cur, n = [], 0
+                cur.append(f)
+                n += fr
+            if cur:
+                waves.append((cur, n))
+        if len(waves) < 2:
+            return None
+        sp = StreamPlan(thr, row_bytes, work_row, by_memory, frag_ids or [], len(waves),
+                        waves, free)
+        if node is not None:
+            self.last_stream = sp
+        return sp
+
+    def _kept_fragments(self, scan: R.Scan, filter_cond) -> List[int]:
+        """The ids of the fragments that the filter's chunk stats leave."""
+        kept = None
+        if filter_cond is not None:
+            kept = self._surviving_fragments(scan, filter_cond)
+        return [f.fragment_id for f in scan.table.fragments] if kept is None else kept
+
+    def _wave_rows(self, scan: R.Scan, needed, block, part, full) -> B.Batch:
+        """A wave's rows on this thread's device: whole fragments of the
+        whole table (`part` the list of their ids), or rows `part` =
+        (lo, hi) of a shard's block (`_block_rows`)."""
+        if isinstance(part, list):
+            return self._exec_scan(scan, needed, frag_ids=part)
+        return self._block_rows(scan, needed, block, *part, full)
+
+    def _check_held_partials(self, sp: "StreamPlan", rows: int, held: int) -> None:
+        """DeviceMemoryExceeded before a wave of `rows` rows when its
+        working bytes and the `held` bytes of partial rows that the waves
+        before it keep on the device would not fit the free memory that the
+        plan read; nothing is checked off CUDA."""
+        if sp.free is not None and rows * sp.work_row_bytes + held > sp.free:
+            raise DeviceMemoryExceeded(
+                f"a wave of {rows} rows x {sp.work_row_bytes} B beside the {held} B of "
+                f"partial rows the waves before it hold needs more than the {sp.free} B "
+                f"free on {self.device}")
 
     def _try_sharded_compound(self, node: R.Compound, memo) -> Optional[B.Batch]:
-        """Run an aggregate or join Compound as one leaf a shard over the
-        probe Scan's row blocks, each on its shard's device, when it has the
-        shape that shards: its first input a Scan with rows and no array
-        column read from it; an aggregate decomposable
-        (`partial_agg.decomposable`, the stream rule's); joins with an
+        """Run an aggregate or join Compound as leaves over its probe Scan's
+        blocks, each on its block's device.  On a mesh the blocks are the
+        shards' row blocks, when the Compound has the shape that shards: its
+        first input a Scan with rows and no array column read from it; an
+        aggregate decomposable (`partial_agg.decomposable`); joins with an
         equality at each level and none FULL, whose build sides run once on
         the Database's device and are copied to every other distinct device
         (the reference keeps such tables replicated), with the probe kept
-        first by the runtime reorder.  An aggregate leaf is `make_leaf_node`
-        on the tier `_plan_compound` picks for its block, streamed in waves
-        past the threshold or the device's memory (`_shard_waves`); the
-        partials merge on the Database's device through `make_merge_node`.
-        A join's projected rows are concatenated there in shard order.
-        None: the Compound runs gathered."""
+        first by the runtime reorder.  An aggregate over a Scan alone that
+        does not shard (any, on one device) is one block, the whole table
+        on the Database's device, run in leaves only when it streams (and
+        refused there when it does not fit: `_plan_waves`).  An aggregate
+        leaf is `make_leaf_node` on the tier `_plan_compound` picks for its
+        rows, run over each wave of its block; the partials (of a wave, a
+        copy of its live rows) stay on the device and merge on the
+        Database's device (`_merge_partials`).  A
+        join's projected rows are concatenated there in shard order.  None:
+        the Compound runs whole (gathered, on a mesh)."""
         from heavydb_tpu_torch.plan.optimizer import _reorder_joins
 
         scan = node.inputs[0]
         if not isinstance(scan, R.Scan) or scan.table.num_rows == 0:
             return None
-        if (not decomposable(node)) if node.is_aggregate else not node.join_levels:
+        sharded = self._sharded() and (decomposable(node) if node.is_aggregate
+                                       else bool(node.join_levels))
+        if not sharded and (node.join_levels or len(node.inputs) != 1
+                            or not node.is_aggregate):
             return None
+        t = scan.table
         offsets = _input_offsets(node)
+        needed = _input_fields(node, offsets)[0]
+        types = [_scan_field_type(t, f) for f in needed]
+        if any(ti.is_array for ti in types):
+            return None  # array aux payloads are not block-local
+        col_bytes = sum(ti.np_dtype().itemsize for ti in types)
+        # off a mesh the one block runs in leaves only when it streams
+        planned = None if sharded else self._plan_waves(
+            scan, None, col_bytes, node, node.filter_cond,
+            decomposable(node) and len(t.fragments) > 1)
+        if planned is None and not sharded:
+            return None
         for li, (kind, cond) in enumerate(node.join_levels):
             lo = offsets[li + 1]
             if kind == "FULL" or (cond is not None and not _split_join_condition(
                     cond, lo, lo + node.inputs[li + 1].arity)[0]):
                 return None  # build rows unmatched on every shard; a spatial join
-        t = scan.table
-        needed = _input_fields(node, offsets)[0]
-        if any(_scan_field_type(t, f).is_array for f in needed):
-            return None
         builds = []
         if node.join_levels:
             per_input = _input_fields(node, offsets)
@@ -1622,25 +1565,30 @@ class Executor:
             self._static_watchdog(node, t.num_rows)
         leaf, wave_aggs, fin = make_leaf_node(node) if node.is_aggregate else (node, None, None)
         blocks = self._blocks_to_run(scan, node.filter_cond)
-        row_bytes = max(sum(_scan_field_type(t, f).np_dtype().itemsize for f in needed), 1)
-        m = max(b.hi - b.lo for b in blocks)
-        full = self._resident_rows(scan, needed, row_bytes,
-                                   m * self._tier_row_bytes(leaf, m) if node.is_aggregate else 0)
+        full = self._resident_rows(scan, needed, max(col_bytes, 1), blocks,
+                                   leaf if node.is_aggregate else None)
         replicas = {d: builds if d == self._home else [_batch_to(b, d) for b in builds]
                     for d in {b.device for b in blocks}}
 
         def leaf_runs(lo, hi):
-            waves = [(0, hi - lo)] if node.join_levels else \
-                self._shard_waves(leaf, hi - lo, row_bytes)
-            outs = []
-            for a, b in waves:
+            sp = planned or (None if node.join_levels else
+                             self._plan_waves(scan, (lo, hi), col_bytes, leaf))
+            outs, held = [], 0
+            for part, rows in sp.parts if sp else [((lo, hi), hi - lo)]:
                 self._checkpoint()
-                batches = [self._block_rows(scan, needed, (lo, hi), lo + a, lo + b, full)] \
+                if sp:
+                    self._check_held_partials(sp, rows, held)
+                batches = [self._wave_rows(scan, needed, (lo, hi), part, full)] \
                     + replicas[self.device]
                 plan = self._plan_compound(leaf, batches, offsets)
-                outs.append((self._run_compound(leaf, batches, plan), _tier_of(plan)))
-                if len(waves) > 1:
+                out = self._run_compound(leaf, batches, plan)
+                if sp:
                     self.waves_run += 1
+                    # a copy of the live rows' bucket alone: a tier's output
+                    # may view a slot buffer far larger than its groups
+                    out = _batch_to(out, self.device, live=True, copy=True)
+                    held += _batch_bytes(out)
+                outs.append((out, _tier_of(plan)))
             return outs
 
         runs = [r for rs in self._on_shards(blocks, leaf_runs) for r in rs]
@@ -1654,48 +1602,59 @@ class Executor:
             out = B.concat_batches(parts)
             out.types = list(node.types)
             parts.clear()
-        self.shard_runs.append(ShardRun(
-            f"Compound#{node.id}", "join" if node.join_levels else "aggregate", "sharded",
-            tiers, merge_tier, len(blocks), len(tiers)))
+        if sharded:
+            self.shard_runs.append(ShardRun(
+                f"Compound#{node.id}", "join" if node.join_levels else "aggregate",
+                "sharded", tiers, merge_tier, len(blocks), len(tiers)))
         return out
 
     def _merge_partials(self, node, leaf, wave_aggs, fin, parts):
         """The leaves' partial rows, on the Database's device, merged by
-        `make_merge_node` (the waves' path) over a partial-rows source that
-        carries the group keys' ranges, so that the merge takes the tier
-        their slots give.  `parts` is emptied once concatenated, so that the
-        partials are freed before the merge runs.  Returns the result and
-        the merge's tier."""
-        cat = B.concat_batches(parts)
-        parts.clear()
+        `make_merge_node` over a partial-rows source that carries the group
+        keys' ranges, so that the merge takes the tier their slots give.
+        Held to the free memory before they are concatenated; `parts` is
+        emptied column by column as they are, so that the partials are
+        freed before the merge runs.  Returns the result and the merge's
+        tier."""
         td = R.TableData(leaf.fields, [wt.type for wt in leaf.target_exprs], [],
                          [getattr(wt, "dict_ref", None) for wt in leaf.target_exprs])
         td.field_ranges = _group_ranges(node)
         merge = make_merge_node(node, wave_aggs, fin, td)
-        self._check_merge_memory(merge, cat.nrows, td.types)
+        self._check_merge_memory(merge, sum(p.nrows for p in parts), td.types,
+                                 sum(_batch_bytes(p) for p in parts))
+        cat = B.concat_batches(parts, release=True)
+        parts.clear()
         batches, plan = self._prepare_compound(merge, {td.id: cat})
         return self._run_compound(merge, batches, plan), _tier_of(plan)
 
     def _try_sharded_topk(self, node: R.Sort, child, k_total: int, topk: bool,
                           specs) -> Optional[B.Batch]:
         """ORDER BY ... LIMIT k over a Scan, or a non-aggregate Compound on
-        one Scan, shard by shard: each shard keeps its k best rows (the
-        top-k select when `topk`, else the stable full sort's first k), in
-        waves past the stream threshold as `_try_stream_topk` runs them;
-        those rows meet on the Database's device in shard order, and one
-        last select takes the global k with the reference's tie order (the
-        row order).  None when the child has another shape."""
+        one Scan, in leaves: on a mesh a shard's block each; on one device
+        the whole table when it streams (`_plan_waves`).  Each block keeps
+        its k best rows (the top-k select when `topk`, else the stable full
+        sort's first k), wave by wave, exact since the union of the waves'
+        top k holds the global top k; those rows meet on the Database's
+        device in block order, and one last select takes the global k with
+        the reference's tie order (the row order).  None when the child has
+        another shape or, on one device, does not stream."""
         src = _topk_source(child)
         if src is None or src[0].table.num_rows == 0:
             return None
-        scan, compound, needed, row_bytes = src
+        scan, compound, needed, col_bytes = src
         t = scan.table
-        if compound is not None:
+        fc = compound.filter_cond if compound is not None else None
+        sharded, row_cap = self._sharded(), self.config.topk_stream_row_cap
+        # off a mesh the one block runs in leaves only when it streams
+        planned = None if sharded else self._plan_waves(
+            scan, None, col_bytes, filter_cond=fc, streams=len(t.fragments) > 1,
+            row_cap=row_cap)
+        if planned is None and not sharded:
+            return None
+        if sharded and compound is not None:
             self._static_watchdog(compound, t.num_rows)
-        cfg = self.config
-        blocks = self._blocks_to_run(scan, compound.filter_cond if compound else None)
-        full = self._resident_rows(scan, needed, row_bytes, 0)
-        thr = self._stream_threshold()
+        blocks = self._blocks_to_run(scan, fc)
+        full = self._resident_rows(scan, needed, max(col_bytes, 1), blocks, None)
 
         def best(batch, final):
             if topk:
@@ -1705,18 +1664,16 @@ class Executor:
             return self._sorted_rows(node, child, batch, 0, k_total)
 
         def shard_best(lo, hi):
-            step = hi - lo
-            if thr >= 0 and (hi - lo) * row_bytes > thr:
-                step = max(1, min(thr // 2 // row_bytes, cfg.topk_stream_row_cap))
-            waves = [(a, min(a + step, hi)) for a in range(lo, hi, step)]
+            sp = planned or self._plan_waves(scan, (lo, hi), col_bytes, row_cap=row_cap)
+            waves = sp.parts if sp else [((lo, hi), hi - lo)]
             winners = []
-            for a, b in waves:
+            for part, _ in waves:
                 self._checkpoint()
-                batch = self._block_rows(scan, needed, (lo, hi), a, b, full)
+                batch = self._wave_rows(scan, needed, (lo, hi), part, full)
                 if compound is not None:
                     batch = self._run_compound(compound, [batch],
                                                self._plan_compound(compound, [batch]))
-                if len(waves) > 1:
+                if sp:
                     self.waves_run += 1
                 if batch.nrows:
                     winners.append(best(batch, False))
@@ -1724,9 +1681,11 @@ class Executor:
 
         results = self._on_shards(blocks, shard_best)
         winners = [_batch_to(w, self._home, live=True) for _, ws in results for w in ws]
-        self.shard_runs.append(ShardRun(
-            f"Sort#{node.id}", "topk", "sharded", ["select" if topk else "sort"] * len(winners),
-            "select" if topk else "sort", len(blocks), sum(n for n, _ in results)))
+        if sharded:
+            self.shard_runs.append(ShardRun(
+                f"Sort#{node.id}", "topk", "sharded",
+                ["select" if topk else "sort"] * len(winners), "select" if topk else "sort",
+                len(blocks), sum(n for n, _ in results)))
         if not winners:
             return B.from_host_columns([np.empty(0, ti.np_dtype()) for ti in node.types],
                                        0, node.types, self.device)
@@ -3026,11 +2985,13 @@ class Executor:
 
 @dataclasses.dataclass
 class StreamPlan:
-    """A Compound's fragment waves (Executor._stream_plan): waves of at
-    most threshold / 2 column bytes over `fragments`; row_bytes = the
-    needed column bytes a row, work_row_bytes = those and the group-by
-    tier's; by_memory = shrunk to the device's free memory; waves = how
-    many ran."""
+    """A block's waves (Executor._plan_waves): waves of at most
+    threshold / 2 column bytes over `fragments` (the whole table's that
+    the chunk stats leave; [] for a shard's block); row_bytes = the needed
+    column bytes a row, work_row_bytes = those and the group-by tier's;
+    by_memory = shrunk to the device's free memory; waves = how many;
+    parts = each wave (its fragment ids, or its row range of the block)
+    with its rows; free = the free device bytes read (None off CUDA)."""
 
     threshold: int
     row_bytes: int
@@ -3038,6 +2999,8 @@ class StreamPlan:
     by_memory: bool
     fragments: List[int]
     waves: int = 0
+    parts: list = dataclasses.field(default_factory=list)
+    free: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -3101,9 +3064,9 @@ class ShardRun:
     """How a Compound or a top-k Sort ran on a mesh: `mode` "sharded" (a
     leaf a shard, `kind` aggregate / join / topk) or "gathered" (`kind`
     compound, on the Database's device); `tiers` the group-by tier of each
-    leaf run ("select" / "sort" for a top-k's shard rows; "waves" for a
-    streamed gathered Compound), `merge_tier` the merge's, `shards` the
-    shards that ran, `leaf_runs` the leaves run (waves included)."""
+    leaf run ("select" / "sort" for a top-k's shard rows), `merge_tier`
+    the merge's, `shards` the shards that ran, `leaf_runs` the leaves run
+    (waves included)."""
 
     node: str
     kind: str
@@ -3151,7 +3114,7 @@ def _input_fields(node: R.Compound, offsets) -> List[set]:
 
 def _topk_source(child):
     """(scan, compound or None, the scan's needed fields, their bytes a row)
-    of a top-k Sort's child that streams or shards: a Scan, or a
+    of a top-k Sort's child that runs in leaves: a Scan, or a
     non-aggregate Compound with no join over one, reading no array column;
     None for another child."""
     if isinstance(child, R.Scan):
@@ -3169,8 +3132,8 @@ def _topk_source(child):
     t = scan.table
     if any(_scan_field_type(t, f).is_array for f in needed):
         return None
-    return (scan, compound, needed,
-            max(sum(_scan_field_type(t, f).np_dtype().itemsize for f in needed), 1))
+    return scan, compound, needed, sum(_scan_field_type(t, f).np_dtype().itemsize
+                                       for f in needed)
 
 
 def _block_key(t, col_id: int, lo: int, hi: int, device) -> tuple:
@@ -3183,12 +3146,17 @@ def _is_block_key(key) -> bool:
     return isinstance(key[4], tuple) and key[4][:1] == ("rows",)
 
 
-def _batch_to(b: B.Batch, device, live: bool = False) -> B.Batch:
-    """b's columns on device (no copy where they are); `live`: only the
-    bucket of its live rows."""
+def _batch_to(b: B.Batch, device, live: bool = False, copy: bool = False) -> B.Batch:
+    """b's columns on device (no copy where they are, unless `copy`);
+    `live`: only the bucket of its live rows."""
     n = B.bucket(max(b.nrows, 1)) if live else None
-    return B.Batch([None if c is None else c[:n].to(device) for c in b.cols],
+    return B.Batch([None if c is None else c[:n].to(device, copy=copy) for c in b.cols],
                    b.nrows, list(b.types))
+
+
+def _batch_bytes(b: B.Batch) -> int:
+    """The bytes b's columns span (views count their own span)."""
+    return sum(c.numel() * c.element_size() for c in b.cols if c is not None)
 
 
 def _names_table(key, table_id: int) -> bool:

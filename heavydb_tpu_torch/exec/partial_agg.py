@@ -2,8 +2,9 @@
 mergeable partials and rebuild the finalize step.
 
 Two consumers:
-- fragment-streaming execution (Executor._exec_compound_streamed): waves of
-  fragments produce partial batches merged by one re-aggregation Compound;
+- leaf execution in one process (Executor._try_sharded_compound): fragment
+  waves on one device and shards' row blocks on a mesh produce partial
+  batches, merged on the device by one re-aggregation Compound;
 - multi-host execution (parallel/dist_engine.py): each host is a "leaf"
   computing partials over its row partition; the merge Compound is the
   aggregator reduce (reference leaf execution + aggregator merge,

@@ -20,6 +20,7 @@ Tolerances: every value exact, but DOUBLE sums rtol 1e-9 and FLOAT sums
 rtol 1e-4 (summation order).
 """
 
+import dataclasses
 import math
 import sys
 import threading
@@ -230,6 +231,19 @@ def test_alter_session_set():
         with pytest.raises(err) as e:
             db.sql("ALTER SESSION SET bogus_flag = 1")
         assert "bogus_flag" in str(e.value)
+
+
+@pytest.mark.parametrize("name", sorted(hdt_torch.api.Database._SETTABLE))
+def test_every_settable_name_is_a_field_alter_system_sets(name):
+    """Each name ALTER SYSTEM SET takes is a Config field, and the statement
+    sets it."""
+    db = hdt_torch.connect(device="cpu")
+    assert name in {f.name for f in dataclasses.fields(Config)}
+    cur = getattr(db.config, name)
+    new = (not cur) if isinstance(cur, bool) else cur + 1
+    lit = str(new).lower() if isinstance(new, bool) else new
+    assert db.sql(f"ALTER SYSTEM SET {name} = {lit}").rows() == [(f"{name} = {new}",)]
+    assert getattr(db.config, name) == new
 
 
 def test_dynamic_watchdog_time_limit():

@@ -6,7 +6,9 @@ reference's DistEngine and the port's on the same data gives the same rows
 (FLOAT sums within rtol 1e-4); and a database directory whose
 dist_meta.json one package's DistEngine wrote reopens in the other's with
 its partitioned set and global row counts, consistent, with the same
-rows."""
+rows.  An aggregate over the rows that reach a host from the others (the
+repartitioned aggregate's) is held to the free device memory before they
+upload."""
 
 import json
 import os
@@ -18,6 +20,8 @@ import heavydb_tpu as hdt
 import heavydb_tpu_torch as hdt_torch
 from heavydb_tpu.parallel.dist_engine import DistEngine as JDistEngine
 from heavydb_tpu.parallel.multihost import MultiHostRuntime as JRuntime
+from heavydb_tpu_torch.errors import DeviceMemoryExceeded
+from heavydb_tpu_torch.exec import executor as EX
 from heavydb_tpu_torch.parallel.dist_engine import DistEngine as TDistEngine
 from heavydb_tpu_torch.parallel.multihost import MultiHostRuntime as TRuntime
 from heavydb_tpu_torch.tools.synthetic import (MULTIHOST_QUERIES, load_multihost,
@@ -100,3 +104,26 @@ def test_dist_meta_reopens_in_the_other_package(tmp_path, writer, reader):
     assert back.check_table_consistency()["ok"]
     for q in PERSIST_QUERIES:
         assert_rows_close(q, back.sql(MULTIHOST_QUERIES[q]).rows(), want[q])
+
+
+def test_exchanged_rows_are_held_to_free_memory(monkeypatch):
+    """MH_MEDIAN's approx_median does not decompose: each host aggregates
+    the rows the repartition sends it, a host TableData.  With the free
+    memory read stubbed below their bytes, that aggregate is refused
+    before any of them uploads; with room, it answers as before."""
+    port = _engine(PORT)
+    load_multihost(port, multihost_data(ROWS), 0, 1)
+    sql = MULTIHOST_QUERIES["MH_MEDIAN"]
+    want = port.sql(sql).rows()
+    uploads = []
+    prepare = EX.Executor._prepare_compound
+    monkeypatch.setattr(EX.Executor, "_prepare_compound",
+                        lambda self, node, memo: uploads.append(
+                            type(node.inputs[0]).__name__) or prepare(self, node, memo))
+    monkeypatch.setattr(EX, "free_device_bytes", lambda dev, need=0: 1000)
+    with pytest.raises(DeviceMemoryExceeded, match=r"merging \d+ partial rows"):
+        port.sql(sql)
+    assert uploads == ["Scan"]  # the leaf's projection alone
+    monkeypatch.setattr(EX, "free_device_bytes", lambda dev, need=0: 1 << 40)
+    assert port.sql(sql).rows() == want
+    assert "TableData" in uploads

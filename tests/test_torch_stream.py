@@ -1,7 +1,7 @@
-"""Fragment-wave streaming (exec/partial_agg.py, Executor._stream_plan and
-_exec_compound_streamed) against the JAX package, with the same
-Config(stream_threshold_bytes=..., default_fragment_rows=...) on both
-sides:
+"""Fragment-wave streaming (exec/partial_agg.py; Executor._plan_waves and
+the one-block case of _try_sharded_compound) against the JAX package, with
+the same Config(stream_threshold_bytes=..., default_fragment_rows=...) on
+both sides:
 
 - streamed aggregates (the shapes of tests/test_buffer_mgr.py
   test_streamed_aggregate_parity) give the reference's rows;
@@ -10,7 +10,11 @@ sides:
 - the device-memory term, with the free-memory read stubbed: a query that
   would not fit streams in the expected waves and still answers, and one
   whose single fragment would not fit raises DeviceMemoryExceeded before
-  any scan or launch; the tier's working bytes a row, by hand;
+  any scan or launch; the tier's working bytes a row, by hand; the
+  partial rows the waves before a wave hold, counted against the free
+  memory before its scan;
+- the partials stay on the device, and the merge takes the tier of its
+  keys' ranges;
 - the decomposition of each streamable aggregate, as the reference's.
 
 Rows are compared sorted by their keys: the queries have no ORDER BY.
@@ -252,6 +256,86 @@ def test_memory_term_refuses_a_merge_that_does_not_fit(data, monkeypatch):
     with pytest.raises(DeviceMemoryExceeded, match="merging 2000 partial rows"):
         db.sql(MEM_SQL)
     assert db.executor.waves_run == 8
+
+
+# g is unique over 300,000 values: the perfect tier, whose output views
+# its 300,000 slots x 20 B (g 4, COUNT 8, SUM 8) whatever a wave's rows; a
+# wave keeps a copy of its live rows' bucket alone (a fragment's 40,000
+# rows: 40,960 x 20 B); g and w are 8 column bytes, and the tier's 5 + 5
+# make 18 B a row
+WIDE_SQL = "SELECT g, count(*), sum(w) FROM t GROUP BY g"
+WIDE_SLOTS = 300_000 * 20
+
+
+def _wave_partials(rows):
+    return EX.B.bucket(rows) * 20
+
+
+def test_memory_term_counts_the_partials_the_waves_hold(data, monkeypatch):
+    held = []
+    check = EX.Executor._check_held_partials
+    monkeypatch.setattr(EX.Executor, "_check_held_partials",
+                        lambda self, sp, rows, h: held.append(h) or check(self, sp, rows, h))
+    # by the threshold, waves of at most 62,500 rows: one fragment a wave,
+    # the last two (40,000 and 20,000 rows) together.  20 MB free: the
+    # merge of the 300,000 partial rows fits (its columns and the perfect
+    # tier's bytes, 43 B a row, 12.9 MB), so a merge on the host answers;
+    # the waves' slot buffers (6 MB each) would not fit beside the fifth
+    # wave, their live rows do
+    db = _port(data, stream_threshold_bytes=1_000_000)
+    monkeypatch.setattr(EX, "free_device_bytes", lambda dev, need=0: 20_000_000)
+    got = db.sql(WIDE_SQL).rows()
+    assert held == [i * _wave_partials(FRAG) for i in range(7)]
+    assert db.executor.waves_run == 7 and 4 * WIDE_SLOTS + FRAG * 18 > 20_000_000
+    _check_rows(got, _ref(data).sql(WIDE_SQL).rows(), "eee")
+    # room for every wave, then not for the merge: refused before the
+    # partials are concatenated
+    reads = iter([20_000_000, 3_000_000])
+    monkeypatch.setattr(EX, "free_device_bytes", lambda dev, need=0: next(reads))
+    cats = []
+    concat = EX.B.concat_batches
+    monkeypatch.setattr(EX.B, "concat_batches",
+                        lambda parts, **k: cats.append(len(parts)) or concat(parts, **k))
+    with pytest.raises(DeviceMemoryExceeded, match="merging 300000 partial rows"):
+        db.sql(WIDE_SQL)
+    assert cats == [] and db.executor.waves_run == 2 * 7
+    # 5 MB free: 300,000 rows x 18 B do not fit, so waves of three
+    # fragments (120,000 rows x 18 B within half of it); the third wave's
+    # 1,080,000 B beside the two waves' partial rows do not fit: refused
+    # before its scan (a merge on the host, of 12.9 MB, would not fit
+    # either)
+    held.clear()
+    db = _port(data)
+    monkeypatch.setattr(EX, "free_device_bytes", lambda dev, need=0: 5_000_000)
+    scans = _waves_of(EX.Executor, monkeypatch)
+    two = 2 * _wave_partials(3 * FRAG)
+    with pytest.raises(DeviceMemoryExceeded, match=f"beside the {two} B of partial rows"):
+        db.sql(WIDE_SQL)
+    assert held == [0, two // 2, two]
+    assert scans == [[0, 1, 2], [3, 4, 5]] and db.executor.waves_run == 2
+
+
+def test_streamed_partials_stay_on_the_device(streamed, monkeypatch):
+    """A streamed GROUP BY on one device keeps its waves' partial rows on
+    the device (no Batch reaches the host before the result is decoded),
+    and the merge takes the tier its keys' ranges give (k's dense range:
+    perfect), as the sharded merge does."""
+    port, ref = streamed
+    sql, tols = QUERIES[1]
+    hosts, tiers = [], []
+    to_numpy, run = EX.B.Batch.to_numpy, EX.Executor._run_compound
+    monkeypatch.setattr(EX.B.Batch, "to_numpy",
+                        lambda self: hosts.append(self.nrows) or to_numpy(self))
+    monkeypatch.setattr(EX.Executor, "_run_compound",
+                        lambda self, node, batches, plan:
+                        run(self, node, batches, plan) if tiers.append(EX._tier_of(plan))
+                        else run(self, node, batches, plan))
+    before = port.executor.waves_run
+    _, decode = port.sql_device(sql)
+    waves = port.executor.waves_run - before
+    assert hosts == [] and waves > 1
+    assert tiers == ["perfect"] * (waves + 1)
+    _check_rows(decode().rows(), ref.sql(sql).rows(), tols)
 
 
 def test_memory_term_never_fires_on_the_cpu(data):
